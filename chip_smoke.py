@@ -1,4 +1,4 @@
-"""On-card check of swtpu_torch: build, compare, search at SwissProt scale.
+"""On-card check of swtpu_torch: build, compare, search and serve at SwissProt scale.
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
@@ -9,7 +9,8 @@ Phases (one line each; any failure exits non-zero with no result line):
   2. build    nvcc of every kernel source at once; seconds, registers, spills
   3. kernel   each kernel against its plain PyTorch version on seeded random
               buckets (chain factors 1/2/3/8, odd lane counts, one and many
-              bands, widths 32 to 4100): exact equality
+              bands, widths 32 to 4100): exact equality; then the
+              multi-query mode (Q = 2, 5, 16) the same way
   4. goldens  the committed subset, 10k-scale and saturation goldens through
               SearchEngine(device="cuda"): exact equality
   5. scale    a SwissProt-shaped database of 559,228 sequences (bench.py's
@@ -17,7 +18,16 @@ Phases (one line each; any failure exits non-zero with no result line):
               through the user entry points; kernel launch counts are zeroed
               just before the first search and read just after; three timed
               searches; every score against the plain version on the card
-  6. kernels  one JSON line per kernel: launches on the main path, error,
+  6. serving  the reference Performance suite's 17 queries against the same
+              resident database: single searches, then search_many (counts
+              zeroed just before, read just after) and search_queued, each
+              score array bit-equal to the query's single search and
+              P02232's batched scores to the plain version; device top-K
+              with E-values through search_many and search_queued for four
+              queries against the full-array fit; streamed (not resident)
+              search_many for three queries against the resident scores;
+              a 16-query launch against 16 single launches, bucket by bucket
+  7. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time and the card's lower bound for the same work
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
 """
@@ -38,6 +48,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_CELL = 6  # add, max, subtract, max, clamp at 0, running-best max
 N_SEQS = 559_228
 MAIN_QUERY = "P01008"
+# The reference Performance suite's queries (bench.py --full), in its order.
+SUITE = ("P02232", "P05013", "P14942", "P07327", "P01008", "P42357", "P03435", "P21177", "Q38941",
+         "P27895", "P07756", "P19096", "P28167", "P0C6B8", "P20930", "Q7TMA5", "P08519")
 
 
 def say(phase, **kw):
@@ -80,25 +93,37 @@ def phase_build():
         _build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
     built = _build.build(*names)
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     for name in names:
         log = built[name]["log"]
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        sass = ""
+        if cuobjdump.exists():  # what the compiler made of the cell loop: DPX min/max, special-register reads
+            sass = subprocess.run([str(cuobjdump), "-sass", str(built[name]["path"])], capture_output=True,
+                                  text=True, timeout=120).stdout
+        ops = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("VIADDMNMX", "VIMNMX3", "S2UR", "LDG", "STG")}
         say("build", source=f"swtpu_torch/csrc/{name}.cu", seconds=round(time.perf_counter() - t0, 3),
-            registers=[int(r) for r in regs], spill_bytes=[int(a) + int(b) for a, b in spills])
+            registers=[int(r) for r in regs], spill_bytes=[int(a) + int(b) for a, b in spills],
+            sass_opcodes=ops if sass else "cuobjdump not found")
         if not log:
             raise RuntimeError(f"{name}: no nvcc log: the library was not built by this run")
 
 
-def random_bucket(rng, qlen, ws, n_segs, lanes):
-    """Seeded random profile and chained bucket; all but the last flat slot hold a subject."""
+def random_bucket(rng, qlen, ws, n_segs, lanes, n_queries=None):
+    """Seeded random profile (a stack of n_queries profiles of lengths
+    qlen - k, if given) and chained bucket; all but the last flat slot hold
+    a subject."""
     import numpy as np
     import torch
 
     from swtpu_torch.matrices import blosum50_ref
     from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
-    prof = make_profile(rng.integers(0, 25, qlen).astype(np.int8), blosum50_ref(), pad_rows_to=32)
+    qpad = -(-qlen // 32) * 32
+    lens = [qlen] if n_queries is None else [max(1, qlen - k) for k in range(n_queries)]
+    profs = [make_profile(rng.integers(0, 25, n).astype(np.int8), blosum50_ref(), pad_rows_to=qpad) for n in lens]
+    prof = profs[0] if n_queries is None else np.stack(profs)
     stack = np.full((n_segs * ws + 32, lanes), PAD_SUBJECT, dtype=np.int8)
     lens = rng.integers(1, ws + 1, lanes * n_segs - 1)
     for k, n in enumerate(lens):
@@ -128,6 +153,35 @@ def phase_kernel():
         if err or not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at qlen={qlen} ws={ws} n_segs={n_segs} lanes={lanes}: max err {err}")
     say("kernel", cases=len(cases), max_abs_err=worst, tolerance="exact")
+    return worst
+
+
+def phase_kernel_multi():
+    """The multi-query mode: a (Q, qpad, 32) stack in one launch against the
+    plain version, which scores the queries one after another."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.ops import wave_sw
+
+    rng = np.random.default_rng(1)
+    cases = [  # (longest query, segment width, n_segs, lanes, Q)
+        (20, 32, 1, 65, 2), (100, 96, 3, 131, 5), (464, 40, 8, 257, 16), (31, 736, 1, 77, 16),
+        (300, 2208, 3, 129, 5), (1000, 160, 8, 33, 2), (64, 4100, 1, 99, 16),
+    ]
+    worst = 0
+    for qlen, ws, n_segs, lanes, n_q in cases:
+        prof, stack = random_bucket(rng, qlen, ws, n_segs, lanes, n_queries=n_q)
+        before = wave_sw.sw_wave.multi_launches
+        got = wave_sw.sw_wave(prof, stack, gap=2, n_segs=n_segs)
+        want = wave_sw.sw_wave_plain(prof, stack, gap=2, n_segs=n_segs)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        if wave_sw.sw_wave.multi_launches != before + 1 or err or not torch.equal(got, want):
+            raise AssertionError(f"multi-query kernel != plain at qlen={qlen} ws={ws} n_segs={n_segs} "
+                                 f"lanes={lanes} Q={n_q}: max err {err}")
+    say("kernel.multi", cases=len(cases), queries=sorted({c[-1] for c in cases}), max_abs_err=worst, tolerance="exact")
     return worst
 
 
@@ -231,11 +285,160 @@ def phase_scale():
         plain_ms_per_search=plain_ms, bound_ms=bound_ms, bound_share=bound_ms / kernel_ms,
         cells_per_search=cells, true_cells=query.length * db.length_sum, max_abs_err_vs_plain=err)
     say("scale.buckets", columns=["width", "n_segs", "lanes", "threads", "cells", "ms"], rows=per_bucket)
-    return {
+    entry = {
         "name": "sw_wave", "route": "cuda", "source": "swtpu_torch/csrc/sw_wave.cu",
         "replaces": "swtpu/ops/wave_sw.py:815", "launches": launches["sw_wave"], "max_abs_err": err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+    }
+    return entry, db, engine, [row[-1] for row in per_bucket]
+
+
+def bound(groups, pieces):
+    """(bound ms, bound_by, cells) of scoring every (Q, qpad) piece against
+    every bucket: the larger of the bytes moved (bucket, profiles and scores
+    once each) over the memory rate and 6 int32 operations a padded cell
+    over the int32 rate."""
+    cells = sum(n_q * qpad * g.n_segs * g.seg_cols * g.lanes for n_q, qpad in pieces for g in groups)
+    nbytes = sum(g.stack.numel() + n_q * (qpad * 32 + 4 * g.rows) for n_q, qpad in pieces for g in groups)
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / INT32_OPS_PER_S
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes", cells
+
+
+def phase_serving(db, engine, q1_bucket_ms):
+    import numpy as np
+    import torch
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import Query, parse_query
+    from swtpu_torch.models.search import SearchEngine, SearchResult
+    from swtpu_torch.ops import wave_sw
+
+    queries = [parse_query(ROOT / "tests" / "data" / "queries" / f"{name}.fasta") for name in SUITE]
+    packed = engine._resident_packed(db)
+    groups = packed.wave_groups
+    true_cells = sum(q.length for q in queries) * db.length_sum
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    singles = [engine.search(q, db) for q in queries]
+    single_wall = time.perf_counter() - t0
+    single_dev = sum(r.metrics.device_seconds for r in singles)
+    say("serving.single", queries=len(queries), query_rows=sum(q.length for q in queries),
+        device_seconds=single_dev, wall_seconds=single_wall, gcups_device=1e-9 * true_cells / single_dev,
+        gcups_wall=1e-9 * true_cells / single_wall, launches=sum(r.metrics.kernel_launches for r in singles))
+
+    def check(name, results, subset=None):
+        for i, res in zip(subset or range(len(queries)), results):
+            if not np.array_equal(res.scores, singles[i].scores):
+                raise AssertionError(f"{name}: {SUITE[i]} differs from its single search")
+
+    # --- search_many: the batched path, counts zeroed just before and read just after
+    pieces = engine._query_pieces(queries)
+    wave_sw.sw_wave.launches = wave_sw.sw_wave.multi_launches = 0
+    t0 = time.perf_counter()
+    many = engine.search_many(queries, db)
+    many_wall = time.perf_counter() - t0
+    launches = {"sw_wave": wave_sw.sw_wave.launches, "sw_wave_multi": wave_sw.sw_wave.multi_launches}
+    if launches["sw_wave_multi"] != len(pieces) * len(groups) or launches["sw_wave"] != launches["sw_wave_multi"]:
+        raise AssertionError(f"search_many launched {launches} for {len(pieces)} pieces x {len(groups)} buckets")
+    check("search_many", many)
+    many_dev = sum(r.metrics.device_seconds for r in many)
+    say("serving.many", queries=len(queries), pieces=[[qpad, [SUITE[i] for i in p]] for qpad, p in pieces],
+        launches_per_batch=launches["sw_wave_multi"], buckets=len(groups), device_seconds=many_dev,
+        wall_seconds=many_wall, gcups_device=1e-9 * true_cells / many_dev, gcups_wall=1e-9 * true_cells / many_wall,
+        single_device_seconds=single_dev, bit_equal_to_single=True)
+
+    # --- the multi-query launches alone, batch and per bucket, and the plain version on P02232's piece
+    stacks = [(engine._piece_profiles(queries, qpad, p), p) for qpad, p in pieces]
+    gap = engine.config.gap_penalty
+    batch = lambda: [wave_sw.sw_wave(pr, g.stack, gap=gap, n_segs=g.n_segs) for pr, _ in stacks for g in groups]  # noqa: E731
+    batch_ms, _ = events_ms(batch)  # warm: search_many just ran the same launches
+    bound_ms, bound_by, cells = bound(groups, [(pr.shape[0], pr.shape[1]) for pr, _ in stacks])
+    i_p = SUITE.index("P02232")
+    prof_p = next(pr for pr, p in stacks if p == [i_p])
+    sample_ms, _ = events_ms(lambda: [wave_sw.sw_wave(prof_p, g.stack, gap=gap, n_segs=g.n_segs) for g in groups])
+    plain_ms, plain = events_ms(lambda: [wave_sw.sw_wave_plain(prof_p, g.stack, gap=gap, n_segs=g.n_segs) for g in groups])
+    plain_scores = engine._reduce_flat(torch.cat(plain, dim=-1)[0].cpu().numpy(), packed)
+    err = int(np.abs(plain_scores.astype(np.int64) - many[i_p].scores.astype(np.int64)).max())
+    if err or not np.array_equal(plain_scores, many[i_p].scores):
+        raise AssertionError(f"P02232's batched scores differ from the plain version: max err {err}")
+    say("serving.kernel", kernel_ms_per_batch=batch_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / batch_ms, padded_cells=cells, true_cells=true_cells,
+        sample="P02232 piece (Q=1, qpad %d), all buckets" % prof_p.shape[1], sample_kernel_ms=sample_ms,
+        sample_plain_ms=plain_ms, max_abs_err_vs_plain=err)
+
+    # --- search_queued
+    t0 = time.perf_counter()
+    queued = engine.search_queued(queries, db)
+    queued_wall = time.perf_counter() - t0
+    check("search_queued", queued)
+    queued_dev = sum(r.metrics.device_seconds for r in queued)
+    say("serving.queued", queries=len(queries), launches_per_batch=queued[0].metrics.kernel_launches,
+        device_seconds=queued_dev, wall_seconds=queued_wall, gcups_device=1e-9 * true_cells / queued_dev,
+        gcups_wall=1e-9 * true_cells / queued_wall, bit_equal_to_single=True)
+
+    # --- device top-K and E-values, against the full array and the port's own full-array fit
+    four = [SUITE.index(n) for n in ("P02232", "P05013", "P14942", "P01008")]
+    topk_engine = SearchEngine(SWConfig(top_k=10, evalue=True), device="cuda")
+    fit = SearchEngine(SWConfig(evalue=True), device="cuda")
+    worst_rel, fallbacks = 0.0, 0
+    for name, run in (("search_many", topk_engine.search_many), ("search_queued", topk_engine.search_queued)):
+        for i, res in zip(four, run([queries[j] for j in four], db)):
+            full = SearchResult(scores=singles[i].scores, metrics=singles[i].metrics)
+            if res.top_k(10) != full.top_k(10):
+                raise AssertionError(f"{name} top-K of {SUITE[i]} differs from the full array's")
+            fallbacks += res.scores is not None
+            want = fit._attach_null(full, queries[i], db).top_k_stats(10)
+            for g, w in zip(res.top_k_stats(10), want):
+                rel = max(abs(g.evalue - w.evalue) / max(abs(w.evalue), 1e-300), abs(g.bits - w.bits) / max(abs(w.bits), 1e-300))
+                worst_rel = max(worst_rel, rel)
+                if (g.id, g.score) != (w.id, w.score) or rel > 1e-9:
+                    raise AssertionError(f"{name} E-values of {SUITE[i]} are off the full-array fit: rel {rel}")
+    say("serving.topk", queries=[SUITE[i] for i in four], k=10, hits_equal_full_array=True,
+        max_rel_err_evalue_bits=worst_rel, tolerance=1e-9, tie_fallbacks=fallbacks)
+
+    # --- streaming: not resident, against the resident scores
+    three = [SUITE.index(n) for n in ("P02232", "P05013", "P14942")]
+    t0 = time.perf_counter()
+    streamed = SearchEngine(SWConfig(device_resident=False), device="cuda").search_many([queries[i] for i in three], db)
+    stream_wall = time.perf_counter() - t0
+    check("streamed search_many", streamed, three)
+    say("serving.streamed", queries=[SUITE[i] for i in three], wall_seconds=stream_wall,
+        device_seconds=sum(r.metrics.device_seconds for r in streamed),
+        pack_seconds=sum(r.metrics.phases["pack_and_put"] for r in streamed),
+        launches=streamed[0].metrics.kernel_launches, bit_equal_to_resident=True,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # --- 16 queries in one launch against 16 single launches, bucket by bucket
+    rng = np.random.default_rng(13)
+    base = queries[SUITE.index(MAIN_QUERY)]
+    variants = []
+    for r in range(16):  # bench.py --repeat's content variants: same length, 4 residues changed
+        res = base.residues.copy()
+        idx = rng.choice(res.shape[0], 4, replace=False)
+        res[idx] = rng.integers(0, 25, 4).astype(np.int8)
+        variants.append(Query(f"{MAIN_QUERY}#{r}", res, ""))
+    prof16 = engine._piece_profiles(variants, engine._query_pad(base.length, wave_sw.W), list(range(16)))
+    q16_ms = []
+    for g in groups:
+        ms, out16 = events_ms(lambda g=g: wave_sw.sw_wave(prof16, g.stack, gap=gap, n_segs=g.n_segs))
+        q16_ms.append(ms)
+        if not torch.equal(out16[3], wave_sw.sw_wave(prof16[3], g.stack, gap=gap, n_segs=g.n_segs)):
+            raise AssertionError("a 16-query launch differs from the single launch of its query")
+    narrow = [k for k, g in enumerate(groups) if g.rows < 1024]
+    share = lambda ms: sum(ms[k] for k in narrow) / sum(ms)  # noqa: E731
+    say("serving.q16", query=MAIN_QUERY, variants=16, narrow_buckets=len(narrow),
+        q1_ms_x16=16 * sum(q1_bucket_ms), q16_ms=sum(q16_ms), narrow_share_q1=share(q1_bucket_ms),
+        narrow_share_q16=share(q16_ms), columns=["width", "threads_per_query", "q1_ms", "q16_ms", "q16_over_16_q1"],
+        rows=[(g.width, g.rows, round(a, 4), round(b, 4), round(b / (16 * a), 4))
+              for g, a, b in zip(groups, q1_bucket_ms, q16_ms)],
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    return {
+        "name": "sw_wave (multi-query mode)", "route": "cuda", "source": "swtpu_torch/csrc/sw_wave.cu",
+        "replaces": "swtpu/ops/wave_sw.py:815", "launches": launches["sw_wave_multi"], "max_abs_err": err,
+        "ms": batch_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "plain_sample": "P02232 piece, all buckets (kernel %.3f ms on the same sample)" % sample_ms,
     }
 
 
@@ -259,14 +462,17 @@ def main() -> int:
         smi = phase_card()
         phase_build()
         kernel_err = phase_kernel()
+        multi_err = phase_kernel_multi()
         phase_goldens()
-        entry = phase_scale()
+        entry, db, engine, q1_bucket_ms = phase_scale()
+        multi = phase_serving(db, engine, q1_bucket_ms)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     entry["max_abs_err"] = max(entry["max_abs_err"], kernel_err)
-    print(json.dumps({"kernels": [entry]}))
+    multi["max_abs_err"] = max(multi["max_abs_err"], multi_err)
+    print(json.dumps({"kernels": [entry, multi]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Command-line driver, in swtpu's output format.
 
-Required ``--query``/``--db``, the full ``id:score`` dump, and the METRICS
-block of the reference CLI.  Runs on the card unless ``--device cpu``.
-Flags of features not ported yet are not accepted.
+Required ``--query``/``--db``, the full ``id:score`` dump (or the ``--top-k``
+hits, with E-values and bit scores under ``--evalue``), and the METRICS block
+of the reference CLI.  Runs on the card unless ``--device cpu``.  Flags of
+features not ported yet are not accepted.
 
 Usage::
 
@@ -27,6 +28,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="torch device to search on (default: cuda; 'cpu' runs the plain PyTorch version)")
     p.add_argument("--matrix", default="blosum50_ref", help="substitution matrix name, or a path to an NCBI-format matrix text file")
     p.add_argument("--gap", type=int, default=2, help="linear gap penalty")
+    p.add_argument("--top-k", type=int, default=None, help="print only the K best hits (device top-K)")
+    p.add_argument(
+        "--evalue",
+        action="store_true",
+        help="with --top-k: report E-values and bit scores per hit, from an empirical "
+        "length-corrected Gumbel fit of this query's score distribution (swtpu_torch.stats)",
+    )
+    p.add_argument(
+        "--max-evalue",
+        type=float,
+        default=None,
+        metavar="X",
+        help="with --evalue: print only hits with E-value <= X",
+    )
     p.add_argument("--no-scores", action="store_true", help="skip the per-sequence score dump")
     p.add_argument("--json", action="store_true", help="emit metrics as one JSON line")
     return p
@@ -39,8 +54,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from .io.fasta import parse_database, parse_query
     from .models.search import SearchEngine
 
+    if args.evalue and args.top_k is None:
+        print("swtpu_torch: error: --evalue requires --top-k", file=sys.stderr)
+        return 2
+    if args.max_evalue is not None and not args.evalue:
+        print("swtpu_torch: error: --max-evalue requires --evalue", file=sys.stderr)
+        return 2
     try:
-        config = SWConfig(gap_penalty=args.gap, matrix=args.matrix)
+        config = SWConfig(gap_penalty=args.gap, matrix=args.matrix, top_k=args.top_k, evalue=args.evalue)
     except ValueError as e:
         print(f"swtpu_torch: error: {e}", file=sys.stderr)
         return 2
@@ -56,7 +77,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     result = engine.search(query, db)
 
-    if not args.no_scores:
+    if args.top_k is not None:
+        if args.evalue:
+            for h in result.top_k_stats(args.top_k):
+                if args.max_evalue is not None and h.evalue > args.max_evalue:
+                    break  # hits are score-sorted and E(x) is monotone in x
+                print(f"{h.id}:{h.score}\tE={h.evalue:.3g}\tbits={h.bits:.1f}")
+        else:
+            for sid, score in result.top_k(args.top_k):
+                print(f"{sid}:{score}")
+    elif not args.no_scores:
         sys.stdout.write("\n".join(f"{i}:{s}" for i, s in enumerate(result.scores.tolist())))
         sys.stdout.write("\n")
     elapsed = time.perf_counter() - t_start

@@ -1,11 +1,12 @@
 """Typed engine configuration (the fields of ``swtpu.config.SWConfig``).
 
-This package implements the main path only: linear gaps, the wavefront
-kernel, a device-resident database and the full score array.  A knob of a
-feature that a later slice of the port brings (``ROADMAP.md`` Queue A) keeps
-its field and default here, and setting it to anything else raises
-``NotImplementedError`` naming that slice, so no setting is silently ignored.
-The TPU-only ``interpret`` and ``wave_unroll_block`` have no counterpart.
+This package implements linear gaps on the wavefront kernel: single,
+batched, queued and streaming searches, the full score array or a device
+top-K, and E-values.  A knob of a feature that a later slice of the port
+brings (``ROADMAP.md`` Queue A) keeps its field and default here, and
+setting it to anything else raises ``NotImplementedError`` naming that
+slice, so no setting is silently ignored.  The TPU-only ``interpret`` and
+``wave_unroll_block`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -22,12 +23,22 @@ class SWConfig:
     gap_penalty: int = 2  # linear gap
     matrix: str = "blosum50_ref"  # see swtpu_torch.matrices.get_matrix
     # --- residency and chaining (implemented) --------------------------------
-    # Pack the database onto the device once and search it there; the packed
-    # int8 subject cells must fit this budget and the device's free memory.
+    # Pack the database onto the device once and search it there when its
+    # packed int8 subject cells fit this budget and the device's free memory;
+    # otherwise (or with device_resident=False) stream it bucket by bucket.
     device_resident: bool = True
     device_resident_cells: int = 1 << 30
     # Lay several short subjects end to end per lane (None = auto: on).
     wave_chain: Optional[bool] = None
+    # --- results and serving (implemented) -----------------------------------
+    top_k: Optional[int] = None  # None = full score array; else a device top-K
+    # Collect the null distribution's sufficient statistics for E-values and
+    # bit scores (SearchResult.top_k_stats), on the device on top-K paths.
+    evalue: bool = False
+    # Round query-row padding up the serving ladder (32-step to 256, then
+    # ~1.25x); None = auto: on for batched serving (search_many), where it
+    # merges queries into shared launches, exact padding for single searches.
+    query_ladder: Optional[bool] = None
 
     # --- knobs of later slices: defaults only ---------------------------------
     gap_open: Optional[int] = None
@@ -44,11 +55,8 @@ class SWConfig:
     fast_saturating: bool = True
     use_wave: Optional[bool] = None  # the wavefront kernel is the only path: None or True
     use_pallas: bool = False
-    top_k: Optional[int] = None
-    evalue: bool = False
     prefilter: Optional[float] = None
     prefilter_min_candidates: int = 256
-    query_ladder: Optional[bool] = None
     wave_compose: bool = False
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("db",)
@@ -59,6 +67,8 @@ class SWConfig:
             raise ValueError("gap_penalty must be >= 0")
         if self.device_resident_cells < 0:
             raise ValueError("device_resident_cells must be >= 0")
+        if self.top_k is not None and self.top_k < 1:
+            raise ValueError("top_k must be >= 1 (None for the full score array)")
         defaults = SWConfig.__dataclass_fields__
         for name, later in _LATER_SLICES.items():
             value = getattr(self, name)
@@ -78,7 +88,6 @@ _NON_WAVE = "slice A13 (non-wave scoring family)"
 
 # Field -> the slice of the port that implements it.
 _LATER_SLICES = {
-    "device_resident": "slice A8 (non-resident streaming search)",
     "gap_open": "slice A9 (affine gaps)",
     "gap_extend": "slice A9 (affine gaps)",
     "score_dtype": _NON_WAVE,
@@ -93,11 +102,8 @@ _LATER_SLICES = {
     "fast_saturating": _NON_WAVE,
     "use_wave": _NON_WAVE,
     "use_pallas": _NON_WAVE,
-    "top_k": "slice A7 (device top-K and E-values)",
-    "evalue": "slice A7 (device top-K and E-values)",
     "prefilter": "slice A12 (prefilter)",
     "prefilter_min_candidates": "slice A12 (prefilter)",
-    "query_ladder": "slice A8 (batched serving)",
     "wave_compose": "slice A11 (composed band-group dispatch)",
     "mesh_shape": "slice A14 (multi-GPU)",
     "mesh_axes": "slice A14 (multi-GPU)",

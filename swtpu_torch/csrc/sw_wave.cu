@@ -1,15 +1,21 @@
-// Smith-Waterman database scoring for Hopper (sm_90a): linear gaps, one
-// query against one transposed bucket of subjects, exact int32.
+// Smith-Waterman database scoring for Hopper (sm_90a): linear gaps, one or
+// Q queries against one transposed bucket of subjects, exact int32.
 //
 // Replaces the TPU kernel swtpu/ops/wave_sw.py::_wave_kernel (launched by
-// sw_wave) in its single-query linear modes, unchained (n_segs = 1) and
-// chained (n_segs > 1).  It computes what that kernel computes -- for every
-// (lane, segment) of a transposed (L2, B) int8 bucket, the Smith-Waterman
-// maximum of the query profile against the segment's seg_cols columns, flat
-// at out[lane * n_segs + seg] -- and not how: the TPU's MXU skew staging,
-// banded profile, 8-aligned DMAs and one-hot hoisting are not carried over.
+// sw_wave) in its linear modes: one query, unchained (n_segs = 1) and
+// chained (n_segs > 1), and Q queries in one launch (a 4-D lhsB there).  It
+// computes what that kernel computes -- for every query and every (lane,
+// segment) of a transposed (L2, B) int8 bucket, the Smith-Waterman maximum
+// of the query's profile against the segment's seg_cols columns, flat at
+// out[query][lane * n_segs + seg] -- and not how: the TPU's MXU skew
+// staging, banded profile, 8-aligned DMAs and one-hot hoisting are not
+// carried over.
 //
-// Design: one thread per (lane, segment), inter-sequence.
+// Design: one thread per (query, lane, segment), inter-sequence.
+//  * Grid axis y is the query.  A block stages its own query's bands and
+//    owns that query's slice of the carry and of the output: the TPU grid
+//    runs the query axis in order and shares one carry buffer, but blocks
+//    of different queries run here at once, so each query has its own.
 //  * Thread t scores segment t / B of lane t % B, so neighbouring threads
 //    read neighbouring bytes of a subject column and neighbouring words of
 //    the carry.
@@ -38,7 +44,8 @@
 // 8 carry bytes per band.  The cell loop spends nothing on staging or masks.
 // Left for later work (ROADMAP.md): DPX three-way max (__vimax3_s32_relu),
 // packed int16 pairs, and occupancy, since a bucket of a few thousand
-// (lane, segment) pairs fills only part of the card.
+// (lane, segment) pairs fills only part of the card (a Q-query launch has Q
+// times the threads, which is all the multi-query mode does about it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,19 +68,29 @@ __device__ __forceinline__ void cell(int& h, int s, int& diag, int& up, int& bes
 }
 
 __global__ void __launch_bounds__(BLOCK)
-sw_wave_kernel(const int8_t* __restrict__ profile,  // (n_bands * W, A)
+sw_wave_kernel(const int8_t* __restrict__ profile,  // (Q, n_bands * W, A)
                const int8_t* __restrict__ subjT,    // (L2, B)
-               int32_t* __restrict__ carry,         // (n_segs * seg_cols, B), unused if n_bands == 1
-               int32_t* __restrict__ out,           // (B * n_segs,)
+               int32_t* __restrict__ carry,         // (Q, n_segs * seg_cols, B), unused if n_bands == 1
+               int32_t* __restrict__ out,           // (Q, B * n_segs)
                int n_bands, int B, int n_segs, int seg_cols, int gap) {
   __shared__ __align__(16) int32_t sprof[A * STRIDE];
+  const size_t query = blockIdx.y;
+  const size_t slots = static_cast<size_t>(B) * n_segs;
+  profile += query * n_bands * W * A;
+  out += query * slots;
+  if (n_bands > 1) carry += query * seg_cols * slots;
   const long long t = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
   const bool active = t < static_cast<long long>(B) * n_segs;
   const int seg = active ? static_cast<int>(t / B) : 0;
   const int lane = active ? static_cast<int>(t - static_cast<long long>(seg) * B) : 0;
   const size_t base = static_cast<size_t>(seg) * seg_cols * B + lane;
   const int8_t* col = subjT + base;
-  int32_t* cc = carry + base;
+  // An opaque copy keeps the carry pointer in registers: left as an
+  // expression of blockIdx.y, ptxas rebuilds it from SR_CTAID.Y in every
+  // column, which made the sweep 1.5x slower (H100, chip_smoke's buckets).
+  unsigned long long cc_addr = reinterpret_cast<unsigned long long>(carry + base);
+  asm volatile("mov.b64 %0, %0;" : "+l"(cc_addr));
+  int32_t* cc = reinterpret_cast<int32_t*>(cc_addr);
   int best = 0;
 
   for (int band = 0; band < n_bands; ++band) {
@@ -121,13 +138,14 @@ sw_wave_kernel(const int8_t* __restrict__ profile,  // (n_bands * W, A)
 
 extern "C" {
 
-// Launch on `stream` of `device`; returns cudaGetLastError() (0 = launched).
-int sw_wave_launch(const void* profile, const void* subjT, void* carry, void* out, int n_bands,
-                   int B, int n_segs, int seg_cols, int gap, int device, void* stream) {
+// Launch for `n_queries` queries on `stream` of `device`; returns
+// cudaGetLastError() (0 = launched).
+int sw_wave_launch(const void* profile, const void* subjT, void* carry, void* out, int n_queries,
+                   int n_bands, int B, int n_segs, int seg_cols, int gap, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long threads = static_cast<long long>(B) * n_segs;
-  const unsigned grid = static_cast<unsigned>((threads + BLOCK - 1) / BLOCK);
+  const dim3 grid(static_cast<unsigned>((threads + BLOCK - 1) / BLOCK), static_cast<unsigned>(n_queries));
   sw_wave_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(profile), static_cast<const int8_t*>(subjT),
       static_cast<int32_t*>(carry), static_cast<int32_t*>(out), n_bands, B, n_segs, seg_cols,

@@ -1,9 +1,21 @@
-"""The search pipeline: one query against a database packed on the device.
+"""The search pipeline: queries against a database packed on the device.
 
-Counterpart of the main path of ``swtpu.models.search``: pack the database
-once into wave buckets resident on the device, then per query build the
-profile, launch the wavefront kernel once per bucket, and scatter the
-lane-major flat scores back to file order.  Every score is exact int32.
+Counterpart of the wavefront paths of ``swtpu.models.search``: pack the
+database once into wave buckets resident on the device, then per query
+build the profile, launch the wavefront kernel once per bucket, and scatter
+the lane-major flat scores back to file order.  Every score is exact int32.
+
+Serving paths beside the single search:
+
+* ``search_many`` folds queries of equal padded length into one launch per
+  bucket (the kernel's multi-query mode) and syncs once per such piece;
+* ``search_queued`` enqueues every query's launches on the current stream
+  and syncs once for the whole batch;
+* a database over the residency budget, or with ``device_resident=False``,
+  streams bucket by bucket, every query scored against each upload;
+* with ``SWConfig.top_k`` the top-K reduces on the device and only candidate
+  rows transfer; with ``SWConfig.evalue`` the null distribution's moments
+  reduce there too, in int64.
 
 The engine runs on the card unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises rather than fall back.
@@ -11,6 +23,7 @@ no CUDA device and no explicit CPU request it raises rather than fall back.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional, Tuple
@@ -23,20 +36,44 @@ from ..io.fasta import Database, Query
 from ..matrices import get_matrix
 from ..ops import wave_sw
 from ..ops.profile import make_profile
-from ..utils.bucketing import PackedDatabase, pack_database_wave, plan_wave_buckets
-from ..utils.memory import resident_cell_budget
+from ..utils.bucketing import PackedDatabase, iter_wave_groups, pack_database_wave, plan_wave_buckets
+from ..utils.memory import resident_cell_budget, scratch_budget_bytes
 from ..utils.metrics import PhaseTimer, SearchMetrics
 
 
 @dataclasses.dataclass
 class SearchResult:
-    """Scores in database file order + throughput accounting."""
+    """Scores in database file order + throughput accounting.
 
-    scores: np.ndarray  # (n,) int32, index = 0-based file-order id
+    When the engine ran with ``config.top_k`` on a resident database,
+    ``scores`` is None (the full array never leaves the device) and ``hits``
+    holds the device-computed top-K.
+    """
+
+    scores: Optional[np.ndarray]  # (n,) int32, index = 0-based file-order id
     metrics: SearchMetrics
+    hits: Optional[List[Tuple[int, int]]] = None  # engine-level top-K
+    # Null-distribution sufficient statistics (swtpu_torch.stats.NullStats)
+    # when the engine ran with config.evalue: device-reduced on top-K paths,
+    # host-reduced on full-score paths.
+    null_stats: Optional[object] = None
 
     def top_k(self, k: int) -> List[Tuple[int, int]]:
         """Top-k (id, score), score-descending, id-ascending tie-break."""
+        if self.scores is None:
+            if self.hits is None:
+                raise ValueError(f"top_k({k}) unavailable: no scores and no hits")
+            if k > len(self.hits):
+                # Fine when the database has fewer than k sequences (hits
+                # then covers every sequence); only a smaller engine top_k
+                # is an error.
+                if len(self.hits) >= self.metrics.n_subjects:
+                    return list(self.hits)
+                raise ValueError(
+                    f"top_k({k}) unavailable: engine ran with top_k={len(self.hits)} "
+                    "and no full score array"
+                )
+            return self.hits[:k]
         n = self.scores.shape[0]
         k = min(k, n)
         if k == 0:
@@ -47,6 +84,75 @@ class SearchResult:
         cand = np.nonzero(self.scores >= kth)[0]
         order = np.lexsort((cand, -self.scores[cand]))[:k]
         return [(int(cand[i]), int(self.scores[cand[i]])) for i in order]
+
+    def top_k_stats(self, k: int, trim: float = 0.02):
+        """Top-k hits with empirical significance (E-value, bit score).
+
+        The Gumbel null is fitted to this query's score distribution
+        (swtpu_torch.stats), from the engine-collected ``null_stats`` when
+        present, else from the full score array.  Returns
+        ``List[swtpu_torch.stats.HitStat]``.
+        """
+        from ..stats import hit_significance, null_stats_from_scores
+
+        hits = self.top_k(k)
+        if self.null_stats is not None:
+            ns = self.null_stats
+            needed = int(np.ceil(trim * ns.count)) if trim > 0 else 0
+            if needed > np.asarray(ns.top_vals).size:
+                # A larger trim than the engine collected for cannot be
+                # honoured: fail rather than fit at a smaller effective trim.
+                raise ValueError(
+                    f"trim={trim} needs the top {needed} scores but the "
+                    f"engine collected {np.asarray(ns.top_vals).size}; "
+                    "use the engine-default trim, or fit from the full "
+                    "score array (swtpu_torch.stats.null_stats_from_scores)"
+                )
+            return hit_significance(ns, hits, trim=trim)
+        if self.scores is None:
+            raise ValueError(
+                "top_k_stats needs the full score array (or engine-collected "
+                "null statistics: run with SWConfig.evalue=True) to fit the "
+                "null distribution"
+            )
+        m = self.metrics
+        null = null_stats_from_scores(
+            self.scores,
+            n_subjects=int(np.asarray(self.scores).size),
+            query_length=m.query_length,
+            mean_subject_length=m.residue_sum / max(m.n_subjects, 1),
+            trim=trim,
+        )
+        return hit_significance(null, hits, trim=trim)
+
+
+def _null_moments(flat: torch.Tensor, bins: torch.Tensor, nb: int) -> torch.Tensor:
+    """Device reduction of the null distribution's sufficient statistics.
+
+    One int64 vector ``[count, sum, sumsq, bin_counts.., bin_sums..,
+    bin_sumsqs..]`` of length 3 + 3*nb per query (``flat`` (total,) or (Q,
+    total)).  Zero scores (pad slots, true zeros) count nowhere; pad slots
+    carry bin id ``nb``, an overflow bin that is dropped.  Integer sums are
+    exact and no float matmul (or its TF32 mode) is involved.
+    """
+    f = flat.to(torch.int64)
+    nz = (f > 0).to(torch.int64)
+    lead = f.shape[:-1]
+    idx = bins.expand(*lead, -1)
+
+    def per_bin(v):
+        acc = torch.zeros(*lead, nb + 1, dtype=torch.int64, device=f.device)
+        return acc.scatter_add_(-1, idx, v)[..., :nb]
+
+    sq = f * f
+    head = torch.stack([nz.sum(-1), f.sum(-1), sq.sum(-1)], dim=-1)
+    return torch.cat([head, per_bin(nz), per_bin(f), per_bin(sq)], dim=-1)
+
+
+# A device top-K key packs a score and its file id into one int64, score in
+# the high 32 bits and _ID_MASK - id in the low 32 (0 on pad slots), so one
+# descending torch.topk orders by (score desc, id asc) with no ties at all.
+_ID_MASK = (1 << 32) - 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,40 +181,142 @@ class SearchEngine:
         self.matrix = get_matrix(config.matrix)
         self._wave_chain = True if config.wave_chain is None else config.wave_chain
         self._resident: Optional[Tuple[Database, PackedDatabase]] = None
+        self._topk_cache = None
+
+    # --- device plumbing -------------------------------------------------------
+
+    @property
+    def _on_cuda(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, without a host sync on the
+        card (pinned, asynchronous on the current stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if not self._on_cuda:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """Start a device -> host copy into pinned memory; valid after _sync()."""
+        if t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    def _sync(self) -> None:
+        if self._on_cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _mark(self):
+        """A point on the current stream: a CUDA event on the card, the host
+        clock on the CPU (where the work before it has already run)."""
+        if not self._on_cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @staticmethod
+    def _seconds(start, end) -> float:
+        """Seconds between two marks; a CUDA end mark must have completed."""
+        if isinstance(start, float):
+            return end - start
+        return start.elapsed_time(end) / 1e3
+
+    @contextlib.contextmanager
+    def _oom_hint(self, what: str):
+        try:
+            yield
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError(
+                f"device out of memory while {what}; lower "
+                "SWConfig.device_resident_cells (or set device_resident=False "
+                "to stream the database)"
+            ) from e
+
+    @staticmethod
+    def _metrics(q: Query, db: Database, packed_cells: int, wall: float, device_seconds: float, **kw) -> SearchMetrics:
+        return SearchMetrics(
+            query_length=q.length,
+            n_subjects=db.n,
+            residue_sum=db.length_sum,
+            padded8_sum=db.padded_length_sum(8),
+            packed_cells=packed_cells,
+            wall_seconds=wall,
+            device_seconds=max(device_seconds, 1e-12),
+            **kw,
+        )
+
+    # --- planning and residency -------------------------------------------------
+
+    def _query_pad(self, qlen: int, quantum: int, serving: bool = False) -> int:
+        """Row padding target for a query: exact quantum, or the serving
+        ladder (32-step to 256, then ~1.25x on the 32 grid).
+
+        The ladder engages when ``config.query_ladder`` is True, or in auto
+        mode (None) on batched serving paths (``serving=True``), where it
+        merges queries into shared launches.
+        """
+        qpad = -(-max(qlen, 1) // quantum) * quantum
+        ladder = self.config.query_ladder
+        if ladder is None:
+            ladder = serving
+        if not ladder:
+            return qpad
+        step = quantum
+        while step < qpad:
+            step = step + 32 if step < 256 else -(-int(step * 1.25) // 32) * 32
+        return -(-step // quantum) * quantum
 
     def pack_to_device(self, db: Database, plan=None) -> PackedDatabase:
         """Pack the whole database into wave buckets on the engine's device
         (``plan``: a plan_wave_buckets result to reuse)."""
         return pack_database_wave(db, device=self.device, chain=self._wave_chain, plan=plan)
 
-    def _resident_packed(self, db: Database) -> PackedDatabase:
-        """The cached device-resident pack for ``db``, packing it on first use.
-
-        The wave plan's int8 bytes must fit both ``device_resident_cells`` and
-        a share of the device's free memory; a larger database needs the
-        streaming search, which is not ported yet.
-        """
+    def _resident_packed(self, db: Database) -> Optional[PackedDatabase]:
+        """The cached device-resident pack for ``db``, packing it on first
+        use; None when it must stream instead: residency is off, or the
+        plan's int8 bytes exceed ``device_resident_cells`` or a share of the
+        device's free memory."""
         if self._resident is not None and self._resident[0] is db:
             return self._resident[1]
+        if not self.config.device_resident:
+            return None
         plan = plan_wave_buckets(db, chain=self._wave_chain)
         need = sum((width + wave_sw.W) * bpad for width, _, _, bpad, _ in plan)
-        budget = resident_cell_budget(self.config.device_resident_cells, self.device)
-        if need > budget:
-            raise RuntimeError(
-                f"the packed database needs {need} resident bytes but the budget on "
-                f"{self.device} is {budget} (SWConfig.device_resident_cells and free "
-                "device memory); streaming search arrives with slice A8"
-            )
+        if need > resident_cell_budget(self.config.device_resident_cells, self.device):
+            return None
         self._resident = (db, self.pack_to_device(db, plan))
         return self._resident[1]
 
-    def _packed_step(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
-        """Score every bucket (one kernel launch each); flat scores on device."""
+    # --- scoring ------------------------------------------------------------------
+
+    def _packed_step(self, profile: torch.Tensor, groups) -> torch.Tensor:
+        """Score every bucket, one launch each; flat scores on the device,
+        (total,) for a (qpad, 32) profile or (Q, total) for a profile stack.
+
+        A stack of several queries whose band carry would exceed the scratch
+        share of free device memory (utils/memory.py) is split along the
+        query axis into as many launches as it takes.
+        """
         gap = self.config.gap_penalty
-        outs = [wave_sw.sw_wave(profile, g.stack, gap=gap, n_segs=g.n_segs) for g in packed.wave_groups]
+        budget = scratch_budget_bytes(self.device) if profile.dim() == 3 and profile.shape[0] > 1 else None
+        n_bands = profile.shape[-2] // wave_sw.W
+        outs = []
+        for g in groups:
+            per_query = wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, g.lanes)
+            if budget is not None and per_query * profile.shape[0] > budget:
+                step = max(1, budget // per_query)
+                outs.append(torch.cat([
+                    wave_sw.sw_wave(profile[i : i + step], g.stack, gap=gap, n_segs=g.n_segs)
+                    for i in range(0, profile.shape[0], step)
+                ]))
+            else:
+                outs.append(wave_sw.sw_wave(profile, g.stack, gap=gap, n_segs=g.n_segs))
         if not outs:
-            return torch.zeros(0, dtype=torch.int32, device=self.device)
-        return torch.cat(outs)
+            return torch.zeros(*profile.shape[:-2], 0, dtype=torch.int32, device=self.device)
+        return torch.cat(outs, dim=-1)
 
     def _reduce_flat(self, flat_all: np.ndarray, packed: PackedDatabase) -> np.ndarray:
         """Scatter lane-major flat scores back to file order (pads dropped;
@@ -122,34 +330,188 @@ class SearchEngine:
             scores[group.ids[valid]] = vals[valid]
         return scores
 
-    def search_packed(self, query: Query, db: Database, packed: PackedDatabase) -> SearchResult:
-        """Search a database already packed on the engine's device."""
+    # --- device top-K and E-values ------------------------------------------------
+
+    def _topk_kk(self, k: int, total: int) -> int:
+        """Candidate-fetch size: over-sized for host tie re-ranking, and wide
+        enough to cover the null fit's trim when collecting statistics."""
+        kk = min(total, max(4 * k + 64, k))
+        if self.config.evalue:
+            from ..stats import DEFAULT_TRIM
+
+            kk = min(total, max(kk, int(np.ceil(DEFAULT_TRIM * total))))
+        return kk
+
+    def _evalue_bins(self, db: Database, ids_flat: np.ndarray):
+        """Length-bin metadata for the device null reduction: bin edges over
+        subject lengths, the bin id of every flat slot on the device (pad
+        slots -> overflow bin), and the per-bin log-length/subject-count
+        vectors of the length-corrected fit (swtpu_torch.stats)."""
+        from .. import stats as st
+
+        edges = st.length_bin_edges(db.lengths)
+        lens = np.where(ids_flat >= 0, db.lengths[np.maximum(ids_flat, 0)], 0)
+        bins = self._upload(st.length_bin_ids(lens, edges).astype(np.int64))
+        log_len, n_subj = st.bin_log_lengths(db.lengths, edges)
+        return edges, bins, log_len, n_subj, len(edges)
+
+    def _topk_setup(self, db: Database, packed: PackedDatabase):
+        """(total, kk, key low bits on the device, (bins, nb)|None, evalue
+        metadata|None) of top-K searches against ``packed``, cached per
+        (db, packed)."""
+        cached = self._topk_cache
+        if cached is not None and cached[0] is db and cached[1] is packed:
+            return cached[2]
+        ids_flat = np.concatenate([g.ids for g in packed.wave_groups])
+        if ids_flat.size and int(ids_flat.max()) >= _ID_MASK:
+            raise ValueError(f"device top-K keys hold file ids below {_ID_MASK}; the database has {db.n}")
+        total = int(ids_flat.shape[0])
+        low = self._upload(np.where(ids_flat >= 0, _ID_MASK - ids_flat, 0))
+        bins = meta = None
+        if self.config.evalue:
+            edges, bins_dev, log_len, n_subj, nb = self._evalue_bins(db, ids_flat)
+            bins, meta = (bins_dev, nb), (edges, log_len, n_subj)
+        setup = (total, self._topk_kk(self.config.top_k, total), low, bins, meta)
+        self._topk_cache = (db, packed, setup)
+        return setup
+
+    @staticmethod
+    def _topk_reduce(flat: torch.Tensor, setup):
+        """Device top-kk of flat scores along the last axis in (score desc,
+        id asc) order, and the null moments when collecting E-value
+        statistics: (vals, ids, moms|None) on the device.  torch.topk leaves
+        the order of equal values unspecified; the keys have none."""
+        _, kk, low, bins, _ = setup
+        key = torch.topk((flat.to(torch.int64) << 32) | low, kk, dim=-1, largest=True, sorted=True).values
+        moms = _null_moments(flat, *bins) if bins is not None else None
+        return (key >> 32).to(torch.int32), _ID_MASK - (key & _ID_MASK), moms
+
+    def _build_null(self, q: Query, db: Database, vals, cand_ids, moms, edges, log_len, n_subj):
+        """swtpu_torch.stats.NullStats from the device moment vector
+        (_null_moments) and the fetched top candidates, whose (score desc,
+        id asc) order is the one a full-array fit uses."""
+        from .. import stats as st
+
+        m = np.asarray(moms, np.int64).reshape(-1)
+        nb = (m.shape[0] - 3) // 3
+        nz = vals > 0
+        tids = cand_ids[nz]
+        tlens = np.where(tids >= 0, db.lengths[np.maximum(tids, 0)], 0)
+        return st.NullStats(
+            count=int(m[0]),
+            total=float(m[1]),
+            total_sq=float(m[2]),
+            top_vals=vals[nz].astype(np.float64),
+            n_subjects=db.n,
+            query_length=q.length,
+            mean_subject_length=db.length_sum / max(db.n, 1),
+            top_bins=st.length_bin_ids(tlens, edges),
+            bin_counts=m[3 : 3 + nb].astype(np.float64),
+            bin_sums=m[3 + nb : 3 + 2 * nb].astype(np.float64),
+            bin_sumsqs=m[3 + 2 * nb :].astype(np.float64),
+            bin_log_len=log_len,
+            bin_n_subjects=n_subj,
+        )
+
+    def _attach_null(self, result: SearchResult, q: Query, db: Database) -> SearchResult:
+        """Host-side null statistics for full-score-array results (the
+        device-reduction paths attach theirs when they resolve)."""
+        if not self.config.evalue or result.null_stats is not None or result.scores is None:
+            return result
+        from .. import stats as st
+
+        result.null_stats = st.null_stats_from_scores(
+            result.scores,
+            n_subjects=db.n,
+            query_length=q.length,
+            mean_subject_length=db.length_sum / max(db.n, 1),
+            lengths=db.lengths,
+        )
+        return result
+
+    @staticmethod
+    def _resolve_topk_hits(vals, cand_ids, k, kk, total, db):
+        """Resolve a descending device top-kk candidate set (file ids, -1 on
+        pad slots) into exact (id, score) hits with the engine's (score
+        desc, id asc) order, or None when boundary ties could extend past
+        the fetched candidates."""
+        keep = cand_ids >= 0  # drop pad slots (score 0)
+        vals, cand_ids = vals[keep], cand_ids[keep]
+        # Zero-length records never enter a bucket; they score 0, so merge
+        # them back as candidates for a k-th score of 0.
+        zero_ids = np.nonzero(np.asarray(db.lengths) == 0)[0]
+        if zero_ids.size:
+            cand_ids = np.concatenate([cand_ids, zero_ids])
+            vals = np.concatenate([vals, np.zeros(zero_ids.size, vals.dtype)])
+        if kk < total:
+            # Pad slots also score 0 and may have displaced real score-0
+            # sequences: a short candidate set, or a k-th kept score of 0,
+            # needs the full array.
+            if vals.shape[0] < k or vals[min(k, vals.shape[0]) - 1] == 0:
+                return None
+            if vals.shape[0] > k and vals[k - 1] == vals[-1]:
+                return None  # k-th score ties run off the candidate set
+        order = np.lexsort((cand_ids, -vals))[:k]
+        return [(int(cand_ids[i]), int(vals[i])) for i in order]
+
+    def _topk_result(self, q, db, packed, setup, vals, ids, moms, metrics) -> SearchResult:
+        """A hits-only result from one query's fetched candidates, or its
+        full-array search when boundary ties defeat the candidate set."""
+        total, kk, _, _, meta = setup
+        cand_ids = np.where(ids == _ID_MASK, -1, ids)
+        hits = self._resolve_topk_hits(vals, cand_ids, self.config.top_k, kk, total, db)
+        if hits is None:
+            return self.search_packed(q, db, packed, skip_device_topk=True)
+        null = None if moms is None else self._build_null(q, db, vals, cand_ids, moms, *meta)
+        return SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
+
+    # --- single search --------------------------------------------------------------
+
+    def _profile(self, query: Query) -> torch.Tensor:
+        """A single search's (qpad, 32) profile on the device (exact padding
+        unless query_ladder=True)."""
+        return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=self._query_pad(query.length, wave_sw.W)))
+
+    def search_packed(
+        self, query: Query, db: Database, packed: PackedDatabase, skip_device_topk: bool = False
+    ) -> SearchResult:
+        """Search a database already packed on the engine's device.
+
+        With ``config.top_k`` the top-K reduces on the device and only
+        candidate rows transfer, unless ``skip_device_topk`` asks for the
+        full array (the tie fallback of the top-K paths).
+        """
+        cfg = self.config
         timer = PhaseTimer()
         t_start = time.perf_counter()
         with timer.phase("plan"):
-            profile_np = make_profile(query.residues, self.matrix, pad_rows_to=wave_sw.W)
-            profile = torch.from_numpy(profile_np).to(self.device)
-
+            profile = self._profile(query)
+        qpad = profile.shape[0]
         launches0 = wave_sw.sw_wave.launches
-        on_cuda = self.device.type == "cuda"
-        try:
-            if on_cuda:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                flat = self._packed_step(profile, packed)
-                end.record()
-                end.synchronize()
-                device_seconds = start.elapsed_time(end) / 1e3
-            else:
-                t0 = time.perf_counter()
-                flat = self._packed_step(profile, packed)
-                device_seconds = time.perf_counter() - t0
-        except torch.cuda.OutOfMemoryError as e:
-            raise RuntimeError(
-                f"device out of memory while scoring a packed database of "
-                f"{packed.total_cells} cells (query length {query.length}); lower "
-                "SWConfig.device_resident_cells or search a smaller database"
-            ) from e
+
+        if cfg.top_k is not None and not skip_device_topk and packed.wave_groups:
+            setup = self._topk_setup(db, packed)
+            with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells"):
+                t0 = self._mark()
+                vals, ids, moms = self._topk_reduce(self._packed_step(profile, packed.wave_groups), setup)
+                t1 = self._mark()
+                vals, ids, moms = (None if x is None else self._to_host(x) for x in (vals, ids, moms))
+                self._sync()
+            metrics = self._metrics(
+                query, db, qpad * packed.total_cells, time.perf_counter() - t_start, self._seconds(t0, t1),
+                phases=dict(timer.phases), kernel_launches=wave_sw.sw_wave.launches - launches0,
+            )
+            return self._topk_result(
+                query, db, packed, setup, vals.numpy(), ids.numpy(), None if moms is None else moms.numpy(), metrics
+            )
+
+        with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells (query length {query.length})"):
+            t0 = self._mark()
+            flat = self._packed_step(profile, packed.wave_groups)
+            t1 = self._mark()
+            if self._on_cuda:
+                t1.synchronize()
+            device_seconds = self._seconds(t0, t1)
         t_copy = time.perf_counter()
         flat_all = flat.cpu().numpy()
         transfer_seconds = time.perf_counter() - t_copy
@@ -157,23 +519,256 @@ class SearchEngine:
         with timer.phase("reduce"):
             scores = self._reduce_flat(flat_all, packed)
 
-        metrics = SearchMetrics(
-            query_length=query.length,
-            n_subjects=db.n,
-            residue_sum=db.length_sum,
-            padded8_sum=db.padded_length_sum(8),
-            packed_cells=profile_np.shape[0] * packed.total_cells,
-            wall_seconds=time.perf_counter() - t_start,
-            device_seconds=max(device_seconds, 1e-12),
-            phases=dict(timer.phases),
-            transfer_seconds=transfer_seconds,
+        metrics = self._metrics(
+            query, db, qpad * packed.total_cells, time.perf_counter() - t_start, device_seconds,
+            phases=dict(timer.phases), transfer_seconds=transfer_seconds,
             kernel_launches=wave_sw.sw_wave.launches - launches0,
         )
-        return SearchResult(scores=scores, metrics=metrics)
+        return self._attach_null(SearchResult(scores=scores, metrics=metrics), query, db)
 
     def search(self, query: Query, db: Database) -> SearchResult:
-        """Search ``db``, packing it onto the device on its first search."""
-        return self.search_packed(query, db, self._resident_packed(db))
+        """Search ``db``: resident (packed on its first search) when it fits
+        the budget, else streamed bucket by bucket with exact query padding."""
+        packed = self._resident_packed(db)
+        if packed is not None:
+            return self.search_packed(query, db, packed)
+        return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
+
+    # --- batched serving ------------------------------------------------------------
+
+    def _query_pieces(self, queries: List[Query], serving: bool = True):
+        """Group queries by padded band count and cut binary-size pieces
+        (<= 16) in first-seen order: [(qpad, [query index, ...])].
+
+        ``serving=False`` keeps exact padding, the query_ladder=None
+        contract for single searches."""
+        by_qpad: dict = {}
+        for i, q in enumerate(queries):
+            by_qpad.setdefault(self._query_pad(q.length, wave_sw.W, serving=serving), []).append(i)
+        pieces = []
+        for qpad, idxs in by_qpad.items():
+            pos = 0
+            while pos < len(idxs):
+                take = 16
+                while take > len(idxs) - pos:
+                    take //= 2
+                pieces.append((qpad, idxs[pos : pos + take]))
+                pos += take
+        return pieces
+
+    def _piece_profiles(self, queries: List[Query], qpad: int, piece: List[int]) -> torch.Tensor:
+        """(Q, qpad, 32) int8 profile stack of one piece, on the device."""
+        return self._upload(np.stack([make_profile(queries[i].residues, self.matrix, pad_rows_to=qpad) for i in piece]))
+
+    def _search_many_wave(self, queries: List[Query], db: Database, packed: PackedDatabase) -> List[SearchResult]:
+        """Batched serving on a resident pack: one launch per (bucket,
+        piece), one host sync per piece.  Per-query times are
+        cell-proportional shares of the piece (``SearchMetrics.attributed``)."""
+        cfg = self.config
+        out: List[Optional[SearchResult]] = [None] * len(queries)
+        topk = cfg.top_k is not None
+        setup = self._topk_setup(db, packed) if topk else None
+        for qpad, piece in self._query_pieces(queries):
+            t_start = time.perf_counter()
+            launches0 = wave_sw.sw_wave.launches
+            profiles = self._piece_profiles(queries, qpad, piece)
+            with self._oom_hint(f"batched scoring of {len(piece)} queries vs {packed.total_cells} packed cells"):
+                t0 = self._mark()
+                flat = self._packed_step(profiles, packed.wave_groups)  # (Q, total)
+                fetched = self._topk_reduce(flat, setup) if topk else (flat,)
+                t1 = self._mark()
+                fetched = [None if x is None else self._to_host(x) for x in fetched]
+                self._sync()
+            device_seconds = self._seconds(t0, t1)
+            wall = time.perf_counter() - t_start
+            launches = wave_sw.sw_wave.launches - launches0
+            total_true = sum(queries[i].length for i in piece) * db.length_sum
+            for row, i in enumerate(piece):
+                share = (queries[i].length * db.length_sum) / max(total_true, 1)
+                metrics = self._metrics(
+                    queries[i], db, qpad * packed.total_cells, wall * share, device_seconds * share,
+                    attributed=True, kernel_launches=launches,
+                )
+                if topk:
+                    vals, ids, moms = (None if x is None else x[row].numpy() for x in fetched)
+                    out[i] = self._topk_result(queries[i], db, packed, setup, vals, ids, moms, metrics)
+                else:
+                    scores = self._reduce_flat(fetched[0][row].numpy(), packed)
+                    out[i] = self._attach_null(SearchResult(scores=scores, metrics=metrics), queries[i], db)
+        return out  # type: ignore[return-value]
+
+    def search_many(
+        self, queries: List[Query], db: Database, packed: Optional[PackedDatabase] = None
+    ) -> List[SearchResult]:
+        """Batched multi-query search.
+
+        Queries of equal padded length (the serving ladder in auto mode)
+        fold into the kernel's query axis and share one launch per bucket;
+        the reference's Performance suite runs 17 queries back to back
+        (test/swissprot_tests.cpp:99-115), here they share launches.  A
+        database that cannot be resident streams, every query scored against
+        each bucket upload.
+        """
+        if not queries:
+            return []
+        if packed is None:
+            packed = self._resident_packed(db)
+            if packed is None:
+                return [
+                    self._attach_null(r, q, db)
+                    for q, r in zip(queries, self._search_many_wave_streaming(queries, db))
+                ]
+        if not packed.wave_groups:  # every record is empty: nothing to launch
+            return [self.search_packed(q, db, packed) for q in queries]
+        return self._search_many_wave(queries, db, packed)
+
+    # --- queued serving ---------------------------------------------------------------
+
+    def search_queued(self, queries: List[Query], db: Database) -> List[SearchResult]:
+        """Throughput protocol: enqueue every query's own launches back to
+        back on the current stream, then sync once for the whole batch.
+
+        Unlike :meth:`search_many` each query keeps its own launches (any
+        length mix, exact padding).  With ``config.top_k`` each query's
+        launches end in the device top-K and only candidate rows transfer.
+        Per-query times are cell-proportional shares
+        (``SearchMetrics.attributed``).  A database that cannot be resident
+        falls back to sequential :meth:`search` (which streams).
+        """
+        if not queries:
+            return []
+        packed = self._resident_packed(db)
+        if packed is None:
+            return [self.search(q, db) for q in queries]
+        topk = self.config.top_k is not None and bool(packed.wave_groups)
+        setup = self._topk_setup(db, packed) if topk else None
+
+        t_start = time.perf_counter()
+        launches0 = wave_sw.sw_wave.launches
+        pending = []
+        with self._oom_hint(f"queued scoring of {len(queries)} queries"):
+            t0 = self._mark()
+            for q in queries:
+                profile = self._profile(q)
+                flat = self._packed_step(profile, packed.wave_groups)
+                fetched = self._topk_reduce(flat, setup) if topk else (flat,)
+                # Each query's copy streams while later queries compute.
+                pending.append((profile.shape[0], [None if x is None else self._to_host(x) for x in fetched]))
+            t1 = self._mark()
+            self._sync()  # the one sync of the batch
+        device_seconds = self._seconds(t0, t1)
+        launches = wave_sw.sw_wave.launches - launches0
+
+        results = []
+        total_true = sum(q.length for q in queries) * max(db.length_sum, 1)
+        for q, (qpad, fetched) in zip(queries, pending):
+            share = (q.length * db.length_sum) / max(total_true, 1)
+            metrics = self._metrics(
+                q, db, qpad * packed.total_cells, (time.perf_counter() - t_start) * share,
+                device_seconds * share, attributed=True, kernel_launches=launches,
+            )
+            if topk:
+                vals, ids, moms = (None if x is None else x.numpy() for x in fetched)
+                results.append(self._topk_result(q, db, packed, setup, vals, ids, moms, metrics))
+            else:
+                scores = self._reduce_flat(fetched[0].numpy(), packed)
+                results.append(self._attach_null(SearchResult(scores=scores, metrics=metrics), q, db))
+        return results
+
+    # --- streaming ----------------------------------------------------------------------
+
+    def _upload_bucket(self, host_stack: torch.Tensor, copy_stream) -> torch.Tensor:
+        """A host-packed bucket on the device.  On the card the copy runs
+        pinned on ``copy_stream``; the current stream waits for it, and the
+        bucket is recorded on the current stream so the caching allocator
+        cannot hand its memory back while a kernel still reads it."""
+        if copy_stream is None:
+            return host_stack.to(self.device)
+        compute = torch.cuda.current_stream(self.device)
+        pinned = host_stack.pin_memory()
+        with torch.cuda.stream(copy_stream):
+            stack = pinned.to(self.device, non_blocking=True)
+        compute.wait_stream(copy_stream)
+        stack.record_stream(compute)
+        return stack
+
+    def _stream_bucket(self, group, pieces, copy_stream):
+        """Upload one host-packed bucket and enqueue every piece against it;
+        returns the in-flight entry that _drain_streamed completes."""
+        stack = self._upload_bucket(group.stack, copy_stream)
+        on_device = (dataclasses.replace(group, stack=stack),)
+        t0 = self._mark()
+        outs = [(piece, self._packed_step(profiles, on_device)) for _, piece, profiles in pieces]
+        t1 = self._mark()
+        outs = [(piece, self._to_host(flat)) for piece, flat in outs]
+        return group.ids, outs, t0, t1, self._mark()
+
+    def _drain_streamed(self, entry, scores: List[np.ndarray]) -> float:
+        """Wait for one in-flight bucket (not the ones behind it), scatter
+        its scores; returns its kernel seconds."""
+        ids, outs, t0, t1, copied = entry
+        if not isinstance(copied, float):
+            copied.synchronize()
+        valid = ids >= 0
+        for piece, host in outs:
+            flat = host.numpy()  # (Q, rows)
+            for row, qi in enumerate(piece):
+                scores[qi][ids[valid]] = flat[row][valid]
+        return self._seconds(t0, t1)
+
+    def _search_many_wave_streaming(
+        self, queries: List[Query], db: Database, serving: bool = True
+    ) -> List[SearchResult]:
+        """Serving for a database that is not resident: pack one bucket at a
+        time on the host, upload it, and score every query against it, so
+        each upload serves the whole batch.  At most two buckets are in
+        flight (a new one is enqueued only after draining down to one), so
+        device memory holds two buckets at a time.
+
+        Per-query metrics are cell-proportional shares of the batch totals
+        (``SearchMetrics.attributed``).
+        """
+        t_start = time.perf_counter()
+        pieces = [
+            (qpad, piece, self._piece_profiles(queries, qpad, piece))
+            for qpad, piece in self._query_pieces(queries, serving=serving)
+        ]
+        qpad_of = {i: qpad for qpad, piece, _ in pieces for i in piece}
+        scores = [np.zeros(db.n, dtype=np.int32) for _ in queries]
+        copy_stream = torch.cuda.Stream(self.device) if self._on_cuda else None
+        launches0 = wave_sw.sw_wave.launches
+        buckets = iter_wave_groups(db, chain=self._wave_chain)  # packed on the host, one at a time
+        inflight = []
+        padded_total = 0
+        pack_time = device_seconds = 0.0
+        with self._oom_hint(f"streaming wave buckets for {len(queries)} queries"):
+            while True:
+                t0 = time.perf_counter()
+                group = next(buckets, None)
+                pack_time += time.perf_counter() - t0
+                if group is None:
+                    break
+                padded_total += group.cells
+                inflight.append(self._stream_bucket(group, pieces, copy_stream))
+                if len(inflight) >= 2:  # bound device residency to 2 buckets
+                    device_seconds += self._drain_streamed(inflight.pop(0), scores)
+            while inflight:
+                device_seconds += self._drain_streamed(inflight.pop(0), scores)
+        wall = time.perf_counter() - t_start
+        launches = wave_sw.sw_wave.launches - launches0
+
+        total_true = sum(q.length for q in queries) * max(db.length_sum, 1)
+        results = []
+        for i, q in enumerate(queries):
+            share = (q.length * db.length_sum) / max(total_true, 1)
+            results.append(SearchResult(
+                scores=scores[i],
+                metrics=self._metrics(
+                    q, db, qpad_of[i] * padded_total, wall * share, device_seconds * share,
+                    phases={"pack_and_put": pack_time * share}, attributed=True, kernel_launches=launches,
+                ),
+            ))
+        return results
 
 
 def search_file(query_path, db_path, config: SWConfig = SWConfig(), device=None) -> SearchResult:

@@ -1,12 +1,13 @@
-"""Wavefront Smith-Waterman scoring of one query against a transposed bucket.
+"""Wavefront Smith-Waterman scoring of one or Q queries against a transposed bucket.
 
-Counterpart of ``swtpu.ops.wave_sw.sw_wave`` in its single-query linear
-modes.  A bucket is a ``(L2, B)`` int8 array of subjects laid along lanes
-(``L2 = width + W``, the last ``W`` columns pad); with ``n_segs > 1`` each lane
-holds ``n_segs`` subjects end to end in equal segments of
-``seg_cols = (L2 - W) / n_segs`` columns.  The result is the exact int32
-Smith-Waterman maximum of each (lane, segment), flat and lane-major:
-``out[lane * n_segs + seg]``.
+Counterpart of ``swtpu.ops.wave_sw.sw_wave`` in its linear modes.  A bucket
+is a ``(L2, B)`` int8 array of subjects laid along lanes (``L2 = width +
+W``, the last ``W`` columns pad); with ``n_segs > 1`` each lane holds
+``n_segs`` subjects end to end in equal segments of ``seg_cols = (L2 - W) /
+n_segs`` columns.  The result is the exact int32 Smith-Waterman maximum of
+each (lane, segment), flat and lane-major: ``out[lane * n_segs + seg]``.  A
+``(Q, qpad, 32)`` stack of profiles scores Q queries in one launch (swtpu's
+4-D ``lhsB``) and gives ``(Q, B * n_segs)``.
 
 ``sw_wave`` launches the hand-written CUDA kernel (``csrc/sw_wave.cu``) for
 tensors on the card and runs ``sw_wave_plain`` for tensors on the CPU.  It
@@ -75,10 +76,14 @@ def pick_lanes(n_rows: int, lane_multiple: int = 1, w: int = W):
 
 def _check(profile: torch.Tensor, subjT: torch.Tensor, gap: int, n_segs: int) -> int:
     """Validate the kernel's contract; returns seg_cols."""
-    if profile.dtype != torch.int8 or profile.dim() != 2 or profile.shape[1] != A32:
-        raise ValueError(f"profile must be (qpad, {A32}) int8, got {tuple(profile.shape)} {profile.dtype}")
-    if profile.shape[0] == 0 or profile.shape[0] % W:
-        raise ValueError(f"profile rows {profile.shape[0]} must be a positive multiple of {W}")
+    if profile.dtype != torch.int8 or profile.dim() not in (2, 3) or profile.shape[-1] != A32:
+        raise ValueError(
+            f"profile must be (qpad, {A32}) or (Q, qpad, {A32}) int8, got {tuple(profile.shape)} {profile.dtype}"
+        )
+    if profile.shape[-2] == 0 or profile.shape[-2] % W:
+        raise ValueError(f"profile rows {profile.shape[-2]} must be a positive multiple of {W}")
+    if profile.dim() == 3 and profile.shape[0] == 0:
+        raise ValueError("a profile stack needs at least one query")
     if subjT.dtype != torch.int8 or subjT.dim() != 2:
         raise ValueError(f"subjT must be (L2, B) int8, got {tuple(subjT.shape)} {subjT.dtype}")
     if profile.device != subjT.device:
@@ -94,16 +99,18 @@ def _check(profile: torch.Tensor, subjT: torch.Tensor, gap: int, n_segs: int) ->
 
 
 def sw_wave(profile: torch.Tensor, subjT: torch.Tensor, *, gap: int, n_segs: int = 1) -> torch.Tensor:
-    """Exact int32 SW max of one query profile vs every (lane, segment).
+    """Exact int32 SW max of one or Q query profiles vs every (lane, segment).
 
     Args:
-      profile: (qpad, 32) int8 query profile (swtpu_torch.ops.profile), qpad % W == 0.
+      profile: (qpad, 32) int8 query profile (swtpu_torch.ops.profile), or a
+        (Q, qpad, 32) stack of Q equal-length profiles; qpad % W == 0.
       subjT: (L2, B) int8 transposed bucket, pads PAD_SUBJECT.
       gap: linear gap penalty.
       n_segs: subjects chained per lane.
 
     Returns:
-      (B * n_segs,) int32 on the inputs' device, lane-major.
+      (B * n_segs,) int32 on the inputs' device, lane-major; (Q, B * n_segs)
+      for a profile stack.
     """
     seg_cols = _check(profile, subjT, gap, n_segs)
     if subjT.device.type == "cpu":
@@ -114,6 +121,7 @@ def sw_wave(profile: torch.Tensor, subjT: torch.Tensor, *, gap: int, n_segs: int
 
 
 sw_wave.launches = 0  # kernel launches since the count was last set to 0
+sw_wave.multi_launches = 0  # of those, launches with a (Q, qpad, 32) profile stack
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -122,45 +130,62 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load("sw_wave")
     fn = lib.sw_wave_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.sw_wave_error_string.argtypes = [ctypes.c_int]
         lib.sw_wave_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def carry_bytes(n_bands: int, n_segs: int, seg_cols: int, lanes: int) -> int:
+    """Device bytes of one query's band carry in a launch: the bottom H row
+    of each band, one int32 per column and lane.  A single band has no
+    successor and needs none."""
+    return 4 * n_segs * seg_cols * lanes if n_bands > 1 else 0
+
+
 def _sw_wave_cuda(profile, subjT, gap, n_segs, seg_cols) -> torch.Tensor:
     lib = _kernel_lib()
     dev = subjT.device
-    n_bands = profile.shape[0] // W
+    multi = profile.dim() == 3
+    prof3 = profile if multi else profile[None]
+    n_q, n_bands = prof3.shape[0], prof3.shape[1] // W
     B = subjT.shape[1]
-    out = torch.empty(B * n_segs, dtype=torch.int32, device=dev)
+    out = torch.empty(n_q, B * n_segs, dtype=torch.int32, device=dev)
     if B == 0:
-        return out
-    # Band carry: the bottom H row of each band, one int32 per column and
-    # lane.  A single band has no successor and needs none.
-    carry = torch.empty(n_segs * seg_cols * B if n_bands > 1 else 0, dtype=torch.int32, device=dev)
+        return out if multi else out[0]
+    # Each query has its own carry slice: blocks of different queries run at once.
+    carry = torch.empty(n_q * carry_bytes(n_bands, n_segs, seg_cols, B) // 4, dtype=torch.int32, device=dev)
     rc = lib.sw_wave_launch(
-        profile.data_ptr(), subjT.data_ptr(), carry.data_ptr(), out.data_ptr(),
-        n_bands, B, n_segs, seg_cols, gap, dev.index if dev.index is not None else torch.cuda.current_device(),
+        prof3.data_ptr(), subjT.data_ptr(), carry.data_ptr(), out.data_ptr(),
+        n_q, n_bands, B, n_segs, seg_cols, gap,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"sw_wave kernel launch failed: {lib.sw_wave_error_string(rc).decode()} ({rc})")
     sw_wave.launches += 1
-    return out
+    sw_wave.multi_launches += int(multi)
+    return out if multi else out[0]
 
 
 def sw_wave_plain(profile: torch.Tensor, subjT: torch.Tensor, *, gap: int, n_segs: int = 1) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device.
 
     Un-chains the bucket into (B * n_segs, seg_cols) rows and runs the u-space
-    row recurrence of swtpu.ops.xla_sw.sw_score_bucket with torch.cummax.
-    When pads score <= 0 (every profile from make_profile), rows that hold no
-    residue score 0 and trailing all-pad columns cannot raise a max, so both
-    are dropped before the recurrence.
+    row recurrence of swtpu.ops.xla_sw.sw_score_bucket with torch.cummax,
+    one query after another for a profile stack.  When pads score <= 0
+    (every profile from make_profile), rows that hold no residue score 0 and
+    trailing all-pad columns cannot raise a max, so both are dropped before
+    the recurrence.
     """
     seg_cols = _check(profile, subjT, gap, n_segs)
+    if profile.dim() == 3:
+        return torch.stack([_plain_one(p, subjT, gap, n_segs, seg_cols) for p in profile])
+    return _plain_one(profile, subjT, gap, n_segs, seg_cols)
+
+
+def _plain_one(profile: torch.Tensor, subjT: torch.Tensor, gap: int, n_segs: int, seg_cols: int) -> torch.Tensor:
     B = subjT.shape[1]
     rows = subjT[: n_segs * seg_cols].T.reshape(B * n_segs, seg_cols)
     idx = rows.long() & (A32 - 1)

@@ -1,7 +1,8 @@
-"""Device-memory probing for the residency budget.
+"""Device-memory probing for the residency budget and launch scratch.
 
-The budget honours the card's actual free memory, as reported by
-``torch.cuda.mem_get_info``; on the CPU the configured budget stands.
+The budgets honour the card's actual free memory, as reported by
+``torch.cuda.mem_get_info``; on the CPU the configured budget stands and
+scratch is not capped.
 """
 
 from __future__ import annotations
@@ -9,6 +10,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+# Share of free device memory given to resident subjects, and separately to
+# the band carry of one batched launch.
+SAFETY = 0.35
 
 
 def device_free_bytes(device: torch.device) -> Optional[int]:
@@ -19,7 +24,7 @@ def device_free_bytes(device: torch.device) -> Optional[int]:
     return int(free)
 
 
-def resident_cell_budget(configured: int, device: torch.device, safety: float = 0.35) -> int:
+def resident_cell_budget(configured: int, device: torch.device, safety: float = SAFETY) -> int:
     """Residency budget (int8 subject cells) honouring free device memory.
 
     The packed database costs 1 byte a cell, but each kernel launch also
@@ -30,3 +35,10 @@ def resident_cell_budget(configured: int, device: torch.device, safety: float = 
     if free is None:
         return configured
     return min(configured, int(free * safety))
+
+
+def scratch_budget_bytes(device: torch.device, safety: float = SAFETY) -> Optional[int]:
+    """Bytes one launch may take for scratch (the band carry of all its
+    queries): ``safety`` of free device memory, or None (no cap) on the CPU."""
+    free = device_free_bytes(device)
+    return None if free is None else int(free * safety)

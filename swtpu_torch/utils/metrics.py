@@ -41,6 +41,12 @@ class SearchMetrics:
     wall_seconds: float
     device_seconds: float  # kernel stream time (CUDA events) or CPU compute time
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # True when wall_seconds/device_seconds are this query's cell-proportional
+    # share of a batched run, not a per-query measurement.  GCUPS aggregates
+    # stay correct (shares sum to the batch totals); do not read wall_seconds
+    # as this query's latency when attributed is set: every query of the
+    # batch waited for the whole batch.
+    attributed: bool = False
     transfer_seconds: float = 0.0  # score array device -> host
     kernel_launches: int = 0
 

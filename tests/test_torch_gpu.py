@@ -1,8 +1,9 @@
 """CUDA kernel and engine on the card (marker ``gpu``).
 
 These tests need an NVIDIA GPU with nvcc; elsewhere the ``cuda`` fixture
-skips them.  The kernel is held exactly to its plain PyTorch version on the
-same card, and the engine to the committed goldens.
+skips them.  The kernel (one query and a query axis) is held exactly to its
+plain PyTorch version on the same card, and the engine's single, batched,
+queued, streaming and top-K paths to the committed goldens.
 """
 
 from pathlib import Path
@@ -15,7 +16,7 @@ from swtpu_torch import synth
 from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import Query, parse_database, parse_query
 from swtpu_torch.matrices import blosum50_ref
-from swtpu_torch.models.search import SearchEngine
+from swtpu_torch.models.search import SearchEngine, SearchResult
 from swtpu_torch.ops import wave_sw
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
@@ -68,3 +69,43 @@ def test_engine_sat_golden_on_card(cuda):
     query, seqs = synth.synth_sat_case()
     res = SearchEngine(device=cuda).search(Query("sat", query, ""), synth.database_from_arrays(seqs))
     assert np.array_equal(res.scores, np.loadtxt(DATA / "golden_sat_case.txt", dtype=np.int64))
+
+
+@pytest.mark.parametrize(
+    "qlens,ws,S,B",
+    [((20, 31), 32, 1, 64), ((100, 90, 70, 65, 96), 96, 3, 131), (tuple(range(449, 465)), 40, 8, 129)],
+)
+def test_multi_query_kernel_matches_plain(cuda, qlens, ws, S, B):
+    rng = np.random.default_rng(sum(qlens))
+    _, stack = _bucket(rng, 1, ws, S, B)
+    qpad = -(-max(qlens) // 32) * 32
+    profs = np.stack([make_profile(rng.integers(0, 25, n).astype(np.int8), blosum50_ref(), pad_rows_to=qpad) for n in qlens])
+    prof, stack = torch.from_numpy(profs).to(cuda), stack.to(cuda)
+    before = (wave_sw.sw_wave.launches, wave_sw.sw_wave.multi_launches)
+    got = wave_sw.sw_wave(prof, stack, gap=2, n_segs=S)
+    torch.cuda.synchronize()
+    assert (wave_sw.sw_wave.launches, wave_sw.sw_wave.multi_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (len(qlens), B * S)
+    assert torch.equal(got, wave_sw.sw_wave_plain(prof, stack, gap=2, n_segs=S))
+
+
+def test_serving_paths_subset_goldens_on_card(cuda):
+    db = parse_database(DATA / "uniprot_subset.fasta")
+    names = ["P02232", "P01008", "P05013", "P02232"]
+    queries = [parse_query(DATA / "queries" / f"{q}.fasta") for q in names]
+    goldens = [np.loadtxt(DATA / f"golden_{q}_subset.txt", dtype=np.int64) for q in names]
+    eng = SearchEngine(SWConfig(), device=cuda)
+    streamed = SearchEngine(SWConfig(device_resident=False), device=cuda)
+    for results in (eng.search_many(queries, db), eng.search_queued(queries, db), streamed.search_many(queries, db)):
+        for res, golden in zip(results, goldens):
+            assert np.array_equal(res.scores, golden)
+    topk = SearchEngine(SWConfig(top_k=10, evalue=True), device=cuda)
+    full = SearchEngine(SWConfig(evalue=True), device=cuda)
+    for results in (topk.search_many(queries, db), topk.search_queued(queries, db), [topk.search(q, db) for q in queries]):
+        for res, q, golden in zip(results, queries, goldens):
+            ref = SearchResult(scores=golden.astype(np.int32), metrics=res.metrics)
+            assert res.top_k(10) == ref.top_k(10)
+            want = full.search(q, db).top_k_stats(10)
+            for g, w in zip(res.top_k_stats(10), want):
+                assert (g.id, g.score) == (w.id, w.score)
+                assert g.evalue == pytest.approx(w.evalue, rel=1e-9) and g.bits == pytest.approx(w.bits, rel=1e-9)

@@ -1,9 +1,11 @@
 """The port stands alone and never hides the device.
 
-* importing swtpu_torch and running a search loads neither JAX nor swtpu
-  (a subprocess: every pytest process here has imported JAX already);
+* importing swtpu_torch (its stats copy included) and running a search and
+  a batched top-K with E-values loads neither JAX nor swtpu (a subprocess:
+  every pytest process here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
-* every knob of a later slice raises instead of being ignored.
+* every knob of a later slice raises instead of being ignored, and the
+  serving knobs are accepted.
 """
 
 import subprocess
@@ -22,13 +24,15 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_port_imports_neither_jax_nor_swtpu():
     code = """
 import sys
-import swtpu_torch.cli, swtpu_torch.models.search, swtpu_torch.synth, swtpu_torch.ops._build
+import swtpu_torch.cli, swtpu_torch.models.search, swtpu_torch.synth, swtpu_torch.ops._build, swtpu_torch.stats
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
-res = SearchEngine(SWConfig(), device="cpu").search(
-    parse_query("tests/data/queries/P05013.fasta"), parse_database("tests/data/uniprot_subset.fasta"))
+q, db = parse_query("tests/data/queries/P05013.fasta"), parse_database("tests/data/uniprot_subset.fasta")
+res = SearchEngine(SWConfig(), device="cpu").search(q, db)
 assert res.scores.shape == (111,)
+hits = SearchEngine(SWConfig(top_k=3, evalue=True), device="cpu").search_many([q], db)[0].top_k_stats(3)
+assert len(hits) == 3
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "swtpu" or m.startswith("swtpu."))
 print("LOADED", bad)
 """
@@ -60,8 +64,6 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
 @pytest.mark.parametrize(
     "knob,value",
     [
-        ("top_k", 5),
-        ("evalue", True),
         ("prefilter", 0.1),
         ("gap_open", 11),
         ("mesh_shape", (2,)),
@@ -70,14 +72,22 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
         ("score_dtype", "int16"),
         ("use_pallas", True),
         ("use_wave", False),
-        ("device_resident", False),
         ("segment_packing", False),
-        ("query_ladder", True),
     ],
 )
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="slice A"):
         SWConfig(**{knob: value})
+
+
+@pytest.mark.parametrize(
+    "knob,value",
+    [("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True)],
+)
+def test_serving_knobs_accepted(knob, value):
+    cfg = SWConfig(**{knob: value})
+    assert getattr(cfg, knob) == value
+    SearchEngine(cfg, device="cpu")
 
 
 def test_ported_knobs_accepted():

@@ -146,10 +146,14 @@ def test_engine_packs_once_and_counts_cells():
 
 
 def test_residency_budget_raises_when_too_small():
+    """Over the residency budget nothing is packed resident; the search
+    streams the database instead (it raised before streaming was ported)."""
     db = parse_database(SUBSET)
     eng = SearchEngine(SWConfig(device_resident_cells=1000), device="cpu")
-    with pytest.raises(RuntimeError, match="resident"):
-        eng.search(parse_query(DATA / "queries" / "P02232.fasta"), db)
+    res = eng.search(parse_query(DATA / "queries" / "P02232.fasta"), db)
+    assert eng._resident_packed(db) is None and eng._resident is None
+    assert np.array_equal(res.scores, _golden("golden_P02232_subset.txt"))
+    assert res.metrics.phases["pack_and_put"] > 0
 
 
 def test_cli_scores_match_swtpu_cli(capsys):

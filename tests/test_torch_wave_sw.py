@@ -2,7 +2,8 @@
 
 On the CPU the port's ``sw_wave`` runs its plain PyTorch version; these
 cases hold it, exactly, to swtpu's Pallas kernel in interpret mode (at the
-small shapes swtpu's own tests use) and to the scalar oracle.  The CUDA
+small shapes swtpu's own tests use, one query and a query axis) and to the
+scalar oracle.  The CUDA
 kernel itself is held to the plain version on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
 """
@@ -68,6 +69,35 @@ def test_sw_wave_matches_swtpu_interpret(qlen, qpad, ws, S, B, Lc, exact_fill):
 
 
 @pytest.mark.parametrize(
+    "qlens,qpad,ws,S,B,Lc",
+    [
+        ((40, 55, 64), 64, 96, 1, 16, 64),  # two bands, unchained
+        ((20, 31), 32, 48, 2, 8, 32),  # one band, chained
+        ((70, 90, 96, 65), 96, 32, 3, 8, 32),  # three bands, chained
+    ],
+)
+def test_sw_wave_query_axis_matches_swtpu_interpret(qlens, qpad, ws, S, B, Lc):
+    """A (Q, qpad, 32) profile stack against swtpu's 4-D lhsB launch."""
+    rng = np.random.default_rng(sum(qlens) + S)
+    _, _, stack, subjects = _bucket(rng, qlens[0], qpad, ws, S, B)
+    queries = [rng.integers(0, 25, n).astype(np.int8) for n in qlens]
+    profs = np.stack([xla_sw.make_profile(q, MAT, pad_rows_to=qpad) for q in queries])
+    expect = np.asarray(
+        jwave.sw_wave(
+            jnp.asarray(np.stack([jwave.build_lhs_banded(p) for p in profs])), jnp.asarray(stack),
+            gap=GAP, Lc=Lc, Bt=8, n_segs=S, interpret=True,
+        )
+    )
+    got = wave_sw.sw_wave(torch.from_numpy(profs), torch.from_numpy(stack), gap=GAP, n_segs=S)
+    assert got.dtype == torch.int32 and got.shape == (len(qlens), B * S)
+    assert np.array_equal(got.numpy(), expect)
+    for row, p in enumerate(profs):  # each row is that query's single launch
+        assert np.array_equal(got[row].numpy(), _port(p, stack, S))
+    k = int(rng.integers(len(subjects)))
+    assert got[-1, k] == oracle.sw_score_scalar(queries[-1], subjects[k], MAT, GAP)
+
+
+@pytest.mark.parametrize(
     "qlen,qpad,ws,S,B,exact_fill",
     [
         (20, 32, 64, 1, 6, False),  # one band
@@ -98,9 +128,10 @@ def test_sw_wave_plain_keeps_all_pad_rows_when_pads_score():
 def test_sw_wave_cpu_never_launches_the_kernel():
     rng = np.random.default_rng(3)
     _, prof, stack, _ = _bucket(rng, 10, 32, 16, 2, 4)
-    before = wave_sw.sw_wave.launches
+    before = (wave_sw.sw_wave.launches, wave_sw.sw_wave.multi_launches)
     _port(prof, stack, 2)
-    assert wave_sw.sw_wave.launches == before
+    wave_sw.sw_wave(torch.from_numpy(np.stack([prof, prof])), torch.from_numpy(stack), gap=GAP, n_segs=2)
+    assert (wave_sw.sw_wave.launches, wave_sw.sw_wave.multi_launches) == before
 
 
 @pytest.mark.parametrize(
@@ -111,6 +142,9 @@ def test_sw_wave_cpu_never_launches_the_kernel():
         ((32, 32), torch.int32, (64, 4), 1, "profile"),
         ((32, 32), torch.int8, (64, 4), 3, "n_segs"),
         ((32, 32), torch.int8, (32, 4), 1, "n_segs"),
+        ((0, 32, 32), torch.int8, (64, 4), 1, "at least one query"),
+        ((2, 40, 32), torch.int8, (64, 4), 1, "multiple"),
+        ((2, 1, 32, 32), torch.int8, (64, 4), 1, "profile"),
     ],
 )
 def test_sw_wave_rejects_bad_inputs(prof_shape, prof_dtype, stack_shape, n_segs, match):
