@@ -6,13 +6,18 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 Phases (one line each; any failure exits non-zero with no result line):
   1. card     name, power limit, torch and CUDA versions
-  2. build    nvcc of every kernel source at once; seconds, registers, spills
+  2. build    nvcc of every kernel source at once; seconds, and registers,
+              spills and SASS opcode counts of each kernel instantiation
   3. kernel   each kernel against its plain PyTorch version on seeded random
               buckets (chain factors 1/2/3/8, odd lane counts, one and many
               bands, widths 32 to 4100): exact equality; then the
-              multi-query mode (Q = 2, 5, 16) the same way
+              multi-query mode (Q = 2, 5, 16) the same way; then the affine
+              mode on both case lists for gaps (10, 2), (10, 1) and (5, 5),
+              and (5, 5) bit-equal to the linear kernel at gap 5
   4. goldens  the committed subset, 10k-scale and saturation goldens through
-              SearchEngine(device="cuda"): exact equality
+              SearchEngine(device="cuda"): exact equality; the subset under
+              affine gaps (10, 1) against the NumPy oracle
+              (swtpu_torch.ops.oracle.sw_affine_score_diag), subject by subject
   5. scale    a SwissProt-shaped database of 559,228 sequences (bench.py's
               recipe, seed 0) packed on the card and searched with P01008
               through the user entry points; kernel launch counts are zeroed
@@ -27,7 +32,17 @@ Phases (one line each; any failure exits non-zero with no result line):
               queries against the full-array fit; streamed (not resident)
               search_many for three queries against the resident scores;
               a 16-query launch against 16 single launches, bucket by bucket
-  7. kernels  one JSON line per kernel and mode: launches on its path, error,
+  7. affine   the same resident database under affine gaps (10, 2): P01008
+              searches (counts zeroed just before the first, read just
+              after; every score against the plain version on the card), per
+              bucket times beside the linear ones, the 17 queries through
+              single searches and search_many (bit-equal), device top-K with
+              E-values for four queries against the full-array fit, and a
+              streamed search against the resident scores
+  8. align    align_top_k(k=10) for P01008 on the resident database, linear
+              (gap 2) and affine (10, 2); every alignment re-scored from its
+              strings by an independent scorer equals its device score
+  9. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time and the card's lower bound for the same work
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
 """
@@ -46,6 +61,20 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_CELL = 6  # add, max, subtract, max, clamp at 0, running-best max
+# E and F: two subtracts and a max each; H: add and three max (the clamp
+# included); the running best.
+OPS_PER_CELL_AFFINE = 11
+AFFINE = dict(gap_open=10, gap_extend=2)  # the affine cell's gaps
+GAP_PAIRS = ((10, 2), (10, 1), (5, 5))  # the affine kernel phase's (open, extend)
+# Kernel phase cases: (longest query, segment width, n_segs, lanes, Q or None for one query).
+KERNEL_CASES = (
+    (20, 32, 1, 64, None), (33, 48, 2, 77, None), (100, 96, 3, 130, None), (464, 40, 8, 1001, None),
+    (464, 736, 1, 3000, None), (147, 2208, 6, 333, None), (464, 4100, 1, 129, None), (1000, 160, 4, 515, None),
+)
+MULTI_CASES = (
+    (20, 32, 1, 65, 2), (100, 96, 3, 131, 5), (464, 40, 8, 257, 16), (31, 736, 1, 77, 16),
+    (300, 2208, 3, 129, 5), (1000, 160, 8, 33, 2), (64, 4100, 1, 99, 16),
+)
 N_SEQS = 559_228
 MAIN_QUERY = "P01008"
 # The reference Performance suite's queries (bench.py --full), in its order.
@@ -94,20 +123,31 @@ def phase_build():
     t0 = time.perf_counter()
     built = _build.build(*names)
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+
+    def label(mangled):  # sw_wave_kernel<false> and <true>
+        return "affine" if "ILb1E" in mangled else "linear" if "ILb0E" in mangled else mangled
+
     for name in names:
         log = built[name]["log"]
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-        sass = ""
+        if not log:
+            raise RuntimeError(f"{name}: no nvcc log: the library was not built by this run")
+        kernels = {}
+        for block in log.split("Compiling entry function '")[1:]:  # ptxas -v, one block per kernel
+            regs = re.search(r"Used (\d+) registers", block)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            kernels[label(block.split("'", 1)[0])] = {
+                "registers": int(regs.group(1)) if regs else None,
+                "spill_bytes": int(spills.group(1)) + int(spills.group(2)) if spills else None,
+            }
         if cuobjdump.exists():  # what the compiler made of the cell loop: DPX min/max, special-register reads
             sass = subprocess.run([str(cuobjdump), "-sass", str(built[name]["path"])], capture_output=True,
                                   text=True, timeout=120).stdout
-        ops = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("VIADDMNMX", "VIMNMX3", "S2UR", "LDG", "STG")}
+            parts = re.split(r"Function : (\S+)", sass)
+            for mangled, body in zip(parts[1::2], parts[2::2]):
+                ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("VIADDMNMX", "VIMNMX3", "S2UR", "LDG", "STG")}
+                kernels.setdefault(label(mangled), {})["sass_opcodes"] = ops
         say("build", source=f"swtpu_torch/csrc/{name}.cu", seconds=round(time.perf_counter() - t0, 3),
-            registers=[int(r) for r in regs], spill_bytes=[int(a) + int(b) for a, b in spills],
-            sass_opcodes=ops if sass else "cuobjdump not found")
-        if not log:
-            raise RuntimeError(f"{name}: no nvcc log: the library was not built by this run")
+            kernels=kernels, cuobjdump=cuobjdump.exists())
 
 
 def random_bucket(rng, qlen, ws, n_segs, lanes, n_queries=None):
@@ -138,10 +178,7 @@ def phase_kernel():
     from swtpu_torch.ops import wave_sw
 
     rng = np.random.default_rng(0)
-    cases = [  # (query length, segment width, n_segs, lanes)
-        (20, 32, 1, 64), (33, 48, 2, 77), (100, 96, 3, 130), (464, 40, 8, 1001),
-        (464, 736, 1, 3000), (147, 2208, 6, 333), (464, 4100, 1, 129), (1000, 160, 4, 515),
-    ]
+    cases = [c[:4] for c in KERNEL_CASES]  # (query length, segment width, n_segs, lanes)
     worst = 0
     for qlen, ws, n_segs, lanes in cases:
         prof, stack = random_bucket(rng, qlen, ws, n_segs, lanes)
@@ -165,10 +202,7 @@ def phase_kernel_multi():
     from swtpu_torch.ops import wave_sw
 
     rng = np.random.default_rng(1)
-    cases = [  # (longest query, segment width, n_segs, lanes, Q)
-        (20, 32, 1, 65, 2), (100, 96, 3, 131, 5), (464, 40, 8, 257, 16), (31, 736, 1, 77, 16),
-        (300, 2208, 3, 129, 5), (1000, 160, 8, 33, 2), (64, 4100, 1, 99, 16),
-    ]
+    cases = MULTI_CASES  # (longest query, segment width, n_segs, lanes, Q)
     worst = 0
     for qlen, ws, n_segs, lanes, n_q in cases:
         prof, stack = random_bucket(rng, qlen, ws, n_segs, lanes, n_queries=n_q)
@@ -182,6 +216,38 @@ def phase_kernel_multi():
             raise AssertionError(f"multi-query kernel != plain at qlen={qlen} ws={ws} n_segs={n_segs} "
                                  f"lanes={lanes} Q={n_q}: max err {err}")
     say("kernel.multi", cases=len(cases), queries=sorted({c[-1] for c in cases}), max_abs_err=worst, tolerance="exact")
+    return worst
+
+
+def phase_kernel_affine():
+    """The affine mode on the single- and multi-query case lists against its
+    plain version, for each gap pair; open == extend also against the linear
+    kernel at that gap, bit for bit."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.ops import wave_sw
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    worst = 0
+    for qlen, ws, n_segs, lanes, n_q in KERNEL_CASES + MULTI_CASES:
+        prof, stack = random_bucket(rng, qlen, ws, n_segs, lanes, n_queries=n_q)
+        for o, e in GAP_PAIRS:
+            before = wave_sw.sw_wave.affine_launches
+            got = wave_sw.sw_wave(prof, stack, n_segs=n_segs, gap_open=o, gap_extend=e)
+            want = wave_sw.sw_wave_plain(prof, stack, n_segs=n_segs, gap_open=o, gap_extend=e)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            worst = max(worst, err)
+            where = f"qlen={qlen} ws={ws} n_segs={n_segs} lanes={lanes} Q={n_q} gaps=({o}, {e})"
+            if wave_sw.sw_wave.affine_launches != before + 1 or err or not torch.equal(got, want):
+                raise AssertionError(f"affine kernel != plain at {where}: max err {err}")
+            if o == e and not torch.equal(got, wave_sw.sw_wave(prof, stack, gap=o, n_segs=n_segs)):
+                raise AssertionError(f"affine kernel at open == extend != linear kernel at {where}")
+    say("kernel.affine", cases=len(KERNEL_CASES + MULTI_CASES), gap_pairs=GAP_PAIRS, max_abs_err=worst,
+        tolerance="exact", equal_to_linear_at_gap=[o for o, e in GAP_PAIRS if o == e],
+        seconds=round(time.perf_counter() - t0, 3))
     return worst
 
 
@@ -294,14 +360,15 @@ def phase_scale():
     return entry, db, engine, [row[-1] for row in per_bucket]
 
 
-def bound(groups, pieces):
+def bound(groups, pieces, ops_per_cell=OPS_PER_CELL):
     """(bound ms, bound_by, cells) of scoring every (Q, qpad) piece against
     every bucket: the larger of the bytes moved (bucket, profiles and scores
-    once each) over the memory rate and 6 int32 operations a padded cell
-    over the int32 rate."""
+    once each) over the memory rate and ``ops_per_cell`` int32 operations a
+    padded cell (OPS_PER_CELL linear, OPS_PER_CELL_AFFINE affine) over the
+    int32 rate."""
     cells = sum(n_q * qpad * g.n_segs * g.seg_cols * g.lanes for n_q, qpad in pieces for g in groups)
     nbytes = sum(g.stack.numel() + n_q * (qpad * 32 + 4 * g.rows) for n_q, qpad in pieces for g in groups)
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / INT32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops_per_cell * cells / INT32_OPS_PER_S
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes", cells
 
 
@@ -442,6 +509,217 @@ def phase_serving(db, engine, q1_bucket_ms):
     }
 
 
+def phase_goldens_affine():
+    """The committed subset under affine gaps (10, 1) on the card, against
+    the port's NumPy oracle, one subject at a time."""
+    import numpy as np
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_database, parse_query
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import wave_sw
+    from swtpu_torch.ops.oracle import sw_affine_score_diag
+
+    t0 = time.perf_counter()
+    data = ROOT / "tests" / "data"
+    subset = parse_database(data / "uniprot_subset.fasta")
+    eng = SearchEngine(SWConfig(gap_open=10, gap_extend=1), device="cuda")
+    for name in ("P02232", "P01008", "P05013"):
+        q = parse_query(data / "queries" / f"{name}.fasta")
+        before = wave_sw.sw_wave.affine_launches
+        res = eng.search(q, subset)
+        buckets = len(eng._resident_packed(subset).wave_groups)
+        if wave_sw.sw_wave.affine_launches - before != buckets or res.metrics.kernel_launches != buckets:
+            raise AssertionError(f"affine subset search of {name} did not launch the affine kernel once per bucket")
+        want = np.array([sw_affine_score_diag(q.residues, subset.sequence(i), eng.matrix, 10, 1) for i in range(subset.n)])
+        if not np.array_equal(res.scores, want):
+            raise AssertionError(f"affine subset {name}: {int((res.scores != want).sum())} of {subset.n} scores differ from the oracle")
+    say("goldens.affine", checked=["P02232", "P01008", "P05013"], gaps=(10, 1), oracle="sw_affine_score_diag",
+        tolerance="exact", seconds=round(time.perf_counter() - t0, 3))
+
+
+def phase_affine(db, linear_bucket_ms):
+    """Phase 7: the resident SwissProt-shaped database under affine gaps."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine, SearchResult
+    from swtpu_torch.ops import wave_sw
+    from swtpu_torch.ops.profile import make_profile
+
+    t_phase = time.perf_counter()
+    queries = [parse_query(ROOT / "tests" / "data" / "queries" / f"{name}.fasta") for name in SUITE]
+    query = queries[SUITE.index(MAIN_QUERY)]
+    cfg = SWConfig(**AFFINE)
+    torch.cuda.reset_peak_memory_stats()
+    engine = SearchEngine(cfg, device="cuda")
+    # --- this phase's path: user entry points, counts zeroed just before, read just after
+    wave_sw.sw_wave.launches = wave_sw.sw_wave.affine_launches = 0
+    t0 = time.perf_counter()
+    first = engine.search(query, db)  # packs the database on the card, then scores
+    first_wall = time.perf_counter() - t0
+    launches = wave_sw.sw_wave.affine_launches
+    packed = engine._resident_packed(db)
+    groups = packed.wave_groups
+    if launches != len(groups) or wave_sw.sw_wave.launches != launches:
+        raise AssertionError(f"affine search launched the affine kernel {launches} times "
+                             f"({wave_sw.sw_wave.launches} in all) for {len(groups)} buckets")
+    runs = []
+    for _ in range(3):
+        res = engine.search(query, db)
+        if res.metrics.kernel_launches != len(groups) or not np.array_equal(res.scores, first.scores):
+            raise AssertionError("timed affine search differs from the first one")
+        runs.append(res.metrics)
+    say("affine.search", gaps=AFFINE, query=MAIN_QUERY, first_search_wall_s=first_wall,
+        device_seconds=[m.device_seconds for m in runs], gcups_device=[m.gcups_device for m in runs],
+        wall_seconds=[m.wall_seconds for m in runs], launches_per_search=runs[-1].kernel_launches,
+        buckets=len(groups))
+
+    # --- the kernel alone, per search and per bucket, and its plain version on the card
+    profile = torch.from_numpy(make_profile(query.residues, engine.matrix, pad_rows_to=wave_sw.W)).cuda()
+    kernel_all = lambda: [wave_sw.sw_wave(profile, g.stack, n_segs=g.n_segs, **AFFINE) for g in groups]  # noqa: E731
+    events_ms(kernel_all)  # warm
+    kernel_ms, _ = events_ms(kernel_all, reps=3)
+    bucket_ms = [events_ms(lambda g=g: wave_sw.sw_wave(profile, g.stack, n_segs=g.n_segs, **AFFINE))[0] for g in groups]
+    plain_ms, plain = events_ms(lambda: [wave_sw.sw_wave_plain(profile, g.stack, n_segs=g.n_segs, **AFFINE) for g in groups])
+    plain_scores = engine._reduce_flat(torch.cat(plain).cpu().numpy(), packed)
+    err = int(np.abs(plain_scores.astype(np.int64) - first.scores.astype(np.int64)).max())
+    if err or not np.array_equal(plain_scores, first.scores):
+        raise AssertionError(f"affine full-scale scores differ from the plain version: max err {err}")
+    bound_ms, bound_by, cells = bound(groups, [(1, profile.shape[0])], OPS_PER_CELL_AFFINE)
+    narrow = [k for k, g in enumerate(groups) if g.rows < 1024]
+    share = lambda ms: sum(ms[k] for k in narrow) / sum(ms)  # noqa: E731
+    say("affine.kernel", kernel_ms_per_search=kernel_ms, kernel_ms_per_launch=kernel_ms / len(groups),
+        plain_ms_per_search=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+        cells_per_search=cells, true_cells=query.length * db.length_sum, max_abs_err_vs_plain=err,
+        narrow_buckets=len(narrow), narrow_share_linear=share(linear_bucket_ms), narrow_share_affine=share(bucket_ms))
+    say("affine.buckets", columns=["width", "n_segs", "lanes", "threads", "linear_ms", "affine_ms", "affine_over_linear"],
+        rows=[(g.width, g.n_segs, g.lanes, g.lanes * g.n_segs, round(a, 4), round(b, 4), round(b / a, 4))
+              for g, a, b in zip(groups, linear_bucket_ms, bucket_ms)])
+
+    # --- the 17 queries: single searches, then search_many, bit-equal
+    true_cells = sum(q.length for q in queries) * db.length_sum
+    t0 = time.perf_counter()
+    singles = [engine.search(q, db) for q in queries]
+    single_wall = time.perf_counter() - t0
+    single_dev = sum(r.metrics.device_seconds for r in singles)
+    pieces = engine._query_pieces(queries)
+    wave_sw.sw_wave.launches = wave_sw.sw_wave.affine_launches = 0
+    t0 = time.perf_counter()
+    many = engine.search_many(queries, db)
+    many_wall = time.perf_counter() - t0
+    if not wave_sw.sw_wave.affine_launches == wave_sw.sw_wave.launches == len(pieces) * len(groups):
+        raise AssertionError(f"affine search_many launched {wave_sw.sw_wave.affine_launches} affine of "
+                             f"{wave_sw.sw_wave.launches} for {len(pieces)} pieces x {len(groups)} buckets")
+    for name, res, single in zip(SUITE, many, singles):
+        if not np.array_equal(res.scores, single.scores):
+            raise AssertionError(f"affine search_many: {name} differs from its single search")
+    many_dev = sum(r.metrics.device_seconds for r in many)
+    say("affine.serving", queries=len(queries), single_device_seconds=single_dev, single_wall_seconds=single_wall,
+        single_gcups_device=1e-9 * true_cells / single_dev, single_gcups_wall=1e-9 * true_cells / single_wall,
+        many_launches=len(pieces) * len(groups), many_device_seconds=many_dev, many_wall_seconds=many_wall,
+        many_gcups_device=1e-9 * true_cells / many_dev, many_gcups_wall=1e-9 * true_cells / many_wall,
+        bit_equal_to_single=True)
+
+    # --- device top-K and E-values through search_many, against the full array and its fit
+    four = [SUITE.index(n) for n in ("P02232", "P05013", "P14942", "P01008")]
+    topk_engine = SearchEngine(cfg.replace(top_k=10, evalue=True), device="cuda")
+    fit = SearchEngine(cfg.replace(evalue=True), device="cuda")
+    worst_rel, fallbacks = 0.0, 0
+    for i, res in zip(four, topk_engine.search_many([queries[j] for j in four], db)):
+        full = SearchResult(scores=singles[i].scores, metrics=singles[i].metrics)
+        if res.top_k(10) != full.top_k(10):
+            raise AssertionError(f"affine top-K of {SUITE[i]} differs from the full array's")
+        fallbacks += res.scores is not None
+        want = fit._attach_null(full, queries[i], db).top_k_stats(10)
+        for g, w in zip(res.top_k_stats(10), want):
+            rel = max(abs(g.evalue - w.evalue) / max(abs(w.evalue), 1e-300), abs(g.bits - w.bits) / max(abs(w.bits), 1e-300))
+            worst_rel = max(worst_rel, rel)
+            if (g.id, g.score) != (w.id, w.score) or rel > 1e-9:
+                raise AssertionError(f"affine E-values of {SUITE[i]} are off the full-array fit: rel {rel}")
+    say("affine.topk", queries=[SUITE[i] for i in four], k=10, hits_equal_full_array=True,
+        max_rel_err_evalue_bits=worst_rel, tolerance=1e-9, tie_fallbacks=fallbacks)
+
+    # --- streamed (not resident), against the resident scores
+    t0 = time.perf_counter()
+    streamed = SearchEngine(cfg.replace(device_resident=False), device="cuda").search(query, db)
+    stream_wall = time.perf_counter() - t0
+    if not np.array_equal(streamed.scores, first.scores):
+        raise AssertionError("streamed affine search differs from the resident one")
+    say("affine.streamed", query=MAIN_QUERY, wall_seconds=stream_wall, device_seconds=streamed.metrics.device_seconds,
+        launches=streamed.metrics.kernel_launches, bit_equal_to_resident=True,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=round(time.perf_counter() - t_phase, 3))
+    entry = {
+        "name": "sw_wave (affine mode)", "route": "cuda", "source": "swtpu_torch/csrc/sw_wave.cu",
+        "replaces": "swtpu/ops/wave_sw.py:815", "launches": launches, "max_abs_err": err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    return entry, engine
+
+
+def rescore(aln, query, subject, matrix, gap_open, gap_extend):
+    """An alignment's score from its printed strings alone: the matrix on
+    aligned pairs, gap_open for a gap's first residue and gap_extend for
+    each further one (linear gaps: both equal), written apart from the
+    traceback.  Also checks that the strings are the sequences' residues at
+    the reported positions."""
+    from swtpu_torch.alphabet import decode, encode_str
+
+    aq, asub = aln.aligned_query, aln.aligned_subject
+    if len(aq) != len(asub) or any(a == b == "-" for a, b in zip(aq, asub)):
+        raise AssertionError(f"subject {aln.subject_id}: malformed alignment strings")
+    if aq.replace("-", "") != decode(query)[aln.query_start - 1 : aln.query_end] or \
+            asub.replace("-", "") != decode(subject)[aln.subject_start - 1 : aln.subject_end]:
+        raise AssertionError(f"subject {aln.subject_id}: alignment strings are not the sequences at their positions")
+    score, in_q, in_s = 0, False, False
+    for a, b in zip(aq, asub):
+        if a == "-":  # gap in the query
+            score -= gap_extend if in_q else gap_open
+            in_q, in_s = True, False
+        elif b == "-":  # gap in the subject
+            score -= gap_extend if in_s else gap_open
+            in_q, in_s = False, True
+        else:
+            score += int(matrix[encode_str(a)[0], encode_str(b)[0]])
+            in_q = in_s = False
+    return score
+
+
+def phase_align(db, linear_engine, affine_engine):
+    """Phase 8: align_top_k for P01008 on the resident database, linear and
+    affine; every alignment re-scored from its strings equals its device score."""
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.align import align_hits, align_top_k
+
+    t_phase = time.perf_counter()
+    query = parse_query(ROOT / "tests" / "data" / "queries" / f"{MAIN_QUERY}.fasta")
+    out = {}
+    for name, eng in (("linear", linear_engine), ("affine", affine_engine)):
+        cfg = eng.config
+        gaps = (cfg.gap_open, cfg.gap_extend) if cfg.gap_open is not None else (cfg.gap_penalty, cfg.gap_penalty)
+        t0 = time.perf_counter()
+        alns = align_top_k(query, db, k=10, config=cfg, engine=eng)
+        total = time.perf_counter() - t0
+        device = eng.search(query, db)
+        hits = device.top_k(10)
+        t0 = time.perf_counter()
+        align_hits(query, db, hits, cfg)
+        traceback_s = time.perf_counter() - t0
+        if [(a.subject_id, a.score) for a in alns] != hits:
+            raise AssertionError(f"{name}: alignments are not the device's top 10 hits")
+        for aln in alns:
+            got = rescore(aln, query.residues, db.sequence(aln.subject_id), eng.matrix, *gaps)
+            if got != device.scores[aln.subject_id]:
+                raise AssertionError(f"{name}: subject {aln.subject_id} re-scores to {got}, device says "
+                                     f"{device.scores[aln.subject_id]}")
+        out[name] = dict(gaps=gaps, alignments=len(alns), scores=[a.score for a in alns],
+                         columns=[len(a.aligned_query) for a in alns], align_top_k_wall_s=total,
+                         traceback_host_s=traceback_s, search_wall_s=device.metrics.wall_seconds)
+    say("align", query=MAIN_QUERY, k=10, rescored_equal_device=True, **out, seconds=round(time.perf_counter() - t_phase, 3))
+
+
 def main() -> int:
     try:
         import torch
@@ -463,16 +741,21 @@ def main() -> int:
         phase_build()
         kernel_err = phase_kernel()
         multi_err = phase_kernel_multi()
+        affine_err = phase_kernel_affine()
         phase_goldens()
+        phase_goldens_affine()
         entry, db, engine, q1_bucket_ms = phase_scale()
         multi = phase_serving(db, engine, q1_bucket_ms)
+        affine, affine_engine = phase_affine(db, q1_bucket_ms)
+        phase_align(db, engine, affine_engine)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     entry["max_abs_err"] = max(entry["max_abs_err"], kernel_err)
     multi["max_abs_err"] = max(multi["max_abs_err"], multi_err)
-    print(json.dumps({"kernels": [entry, multi]}))
+    affine["max_abs_err"] = max(affine["max_abs_err"], affine_err)
+    print(json.dumps({"kernels": [entry, multi, affine]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

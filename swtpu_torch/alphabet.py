@@ -3,7 +3,7 @@
 25 letters in BLAST order, ``A R N D C Q E G H I L K M F P S T W Y V B J Z X *``.
 Index 24 (``*``) is the catch-all: every byte that is not one of the 24 named
 residues encodes to it.  Encoding a database is one table lookup over the raw
-bytes.
+bytes; ``decode`` maps indices back to letters for alignment output.
 """
 
 from __future__ import annotations
@@ -22,6 +22,11 @@ _ENCODE_TABLE = np.full(256, STAR, dtype=np.uint8)
 for _i, _c in enumerate(ALPHABET):
     _ENCODE_TABLE[ord(_c)] = _i
 
+# Reverse map for decoding (indices 25..31 decode to '*' as well).
+_DECODE_TABLE = np.full(PADDED_ALPHABET_SIZE, ord("*"), dtype=np.uint8)
+for _i, _c in enumerate(ALPHABET):
+    _DECODE_TABLE[_i] = ord(_c)
+
 
 def encode_bytes(data: bytes | bytearray | memoryview | np.ndarray) -> np.ndarray:
     """Encode raw residue bytes to int8 alphabet indices (vectorised)."""
@@ -32,3 +37,9 @@ def encode_bytes(data: bytes | bytearray | memoryview | np.ndarray) -> np.ndarra
 def encode_str(seq: str) -> np.ndarray:
     """Encode a residue string to int8 alphabet indices."""
     return encode_bytes(seq.encode("ascii", errors="replace"))
+
+
+def decode(indices: np.ndarray) -> str:
+    """Decode alphabet indices back to a residue string (pads become '*')."""
+    idx = np.asarray(indices, dtype=np.int64) % PADDED_ALPHABET_SIZE
+    return _DECODE_TABLE[idx].tobytes().decode("ascii")

@@ -1,9 +1,11 @@
 """Command-line driver, in swtpu's output format.
 
 Required ``--query``/``--db``, the full ``id:score`` dump (or the ``--top-k``
-hits, with E-values and bit scores under ``--evalue``), and the METRICS block
-of the reference CLI.  Runs on the card unless ``--device cpu``.  Flags of
-features not ported yet are not accepted.
+hits, with E-values and bit scores under ``--evalue``; or the
+``--align-top-k`` alignments), and the METRICS block of the reference CLI.
+Linear gaps (``--gap``) or affine ones (``--gap-open``/``--gap-extend``).
+Runs on the card unless ``--device cpu``.  Flags of features not ported yet
+are not accepted.
 
 Usage::
 
@@ -28,7 +30,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="torch device to search on (default: cuda; 'cpu' runs the plain PyTorch version)")
     p.add_argument("--matrix", default="blosum50_ref", help="substitution matrix name, or a path to an NCBI-format matrix text file")
     p.add_argument("--gap", type=int, default=2, help="linear gap penalty")
+    p.add_argument(
+        "--gap-open",
+        type=int,
+        default=None,
+        help="affine gaps (wavefront kernel): a length-L gap costs OPEN + (L-1)*EXTEND; requires --gap-extend",
+    )
+    p.add_argument("--gap-extend", type=int, default=None, help="affine gap extension penalty")
     p.add_argument("--top-k", type=int, default=None, help="print only the K best hits (device top-K)")
+    p.add_argument(
+        "--align-top-k",
+        type=int,
+        default=None,
+        metavar="K",
+        help="reconstruct and print gapped alignments for the K best hits (two-phase traceback)",
+    )
     p.add_argument(
         "--evalue",
         action="store_true",
@@ -60,8 +76,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.max_evalue is not None and not args.evalue:
         print("swtpu_torch: error: --max-evalue requires --evalue", file=sys.stderr)
         return 2
+    if args.align_top_k is not None and args.align_top_k < 1:
+        print("swtpu_torch: error: --align-top-k must be >= 1", file=sys.stderr)
+        return 2
     try:
-        config = SWConfig(gap_penalty=args.gap, matrix=args.matrix, top_k=args.top_k, evalue=args.evalue)
+        config = SWConfig(
+            gap_penalty=args.gap,
+            gap_open=args.gap_open,
+            gap_extend=args.gap_extend,
+            matrix=args.matrix,
+            top_k=args.top_k,
+            evalue=args.evalue,
+        )
     except ValueError as e:
         print(f"swtpu_torch: error: {e}", file=sys.stderr)
         return 2
@@ -77,6 +103,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     result = engine.search(query, db)
 
+    if args.align_top_k is not None:
+        from .models.align import align_hits
+
+        for aln in align_hits(query, db, result.top_k(args.align_top_k), config):
+            print(aln.pretty())
+            print()
     if args.top_k is not None:
         if args.evalue:
             for h in result.top_k_stats(args.top_k):
@@ -86,7 +118,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         else:
             for sid, score in result.top_k(args.top_k):
                 print(f"{sid}:{score}")
-    elif not args.no_scores:
+    elif not args.no_scores and args.align_top_k is None:
         sys.stdout.write("\n".join(f"{i}:{s}" for i, s in enumerate(result.scores.tolist())))
         sys.stdout.write("\n")
     elapsed = time.perf_counter() - t_start

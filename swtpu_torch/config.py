@@ -1,11 +1,12 @@
 """Typed engine configuration (the fields of ``swtpu.config.SWConfig``).
 
-This package implements linear gaps on the wavefront kernel: single,
-batched, queued and streaming searches, the full score array or a device
-top-K, and E-values.  A knob of a feature that a later slice of the port
-brings (``ROADMAP.md`` Queue A) keeps its field and default here, and
-setting it to anything else raises ``NotImplementedError`` naming that
-slice, so no setting is silently ignored.  The TPU-only ``interpret`` and
+This package implements linear and affine (Gotoh) gaps on the wavefront
+kernel: single, batched, queued and streaming searches, the full score array
+or a device top-K, E-values, and the alignment traceback.  A knob of a
+feature that a later slice of the port brings (``ROADMAP.md`` Queue A) keeps
+its field and default here, and setting it to anything else raises
+``NotImplementedError`` naming that slice, so no setting is silently
+ignored.  The TPU-only ``interpret`` and
 ``wave_unroll_block`` have no counterpart.
 """
 
@@ -21,6 +22,12 @@ class SWConfig:
 
     # --- scoring semantics (implemented) ------------------------------------
     gap_penalty: int = 2  # linear gap
+    # Affine (Gotoh) gaps: a gap of length L costs gap_open + (L-1) *
+    # gap_extend.  Both or neither; set, they replace gap_penalty on every
+    # path (the kernel's affine mode, even when gap_open == gap_extend) and
+    # route alignments to the Gotoh traceback.
+    gap_open: Optional[int] = None
+    gap_extend: Optional[int] = None
     matrix: str = "blosum50_ref"  # see swtpu_torch.matrices.get_matrix
     # --- residency and chaining (implemented) --------------------------------
     # Pack the database onto the device once and search it there when its
@@ -41,8 +48,6 @@ class SWConfig:
     query_ladder: Optional[bool] = None
 
     # --- knobs of later slices: defaults only ---------------------------------
-    gap_open: Optional[int] = None
-    gap_extend: Optional[int] = None
     score_dtype: str = "int32"
     length_quantum: int = 128
     batch_rows: int = 8192
@@ -65,6 +70,13 @@ class SWConfig:
     def __post_init__(self):
         if self.gap_penalty < 0:
             raise ValueError("gap_penalty must be >= 0")
+        if (self.gap_open is None) != (self.gap_extend is None):
+            raise ValueError("gap_open and gap_extend must be set together")
+        if self.gap_open is not None:
+            if self.gap_open < self.gap_extend or self.gap_extend < 0:
+                raise ValueError("affine gaps need gap_open >= gap_extend >= 0")
+            if self.score_dtype == "int16":
+                raise ValueError("affine gaps are exact-int32 only (wavefront kernel)")
         if self.device_resident_cells < 0:
             raise ValueError("device_resident_cells must be >= 0")
         if self.top_k is not None and self.top_k < 1:
@@ -88,8 +100,6 @@ _NON_WAVE = "slice A13 (non-wave scoring family)"
 
 # Field -> the slice of the port that implements it.
 _LATER_SLICES = {
-    "gap_open": "slice A9 (affine gaps)",
-    "gap_extend": "slice A9 (affine gaps)",
     "score_dtype": _NON_WAVE,
     "length_quantum": _NON_WAVE,
     "batch_rows": _NON_WAVE,

@@ -3,7 +3,9 @@
 Counterpart of the wavefront paths of ``swtpu.models.search``: pack the
 database once into wave buckets resident on the device, then per query
 build the profile, launch the wavefront kernel once per bucket, and scatter
-the lane-major flat scores back to file order.  Every score is exact int32.
+the lane-major flat scores back to file order.  Every score is exact int32,
+under linear gaps or, with ``SWConfig.gap_open``, affine (Gotoh) ones on
+every path below.
 
 Serving paths beside the single search:
 
@@ -180,6 +182,12 @@ class SearchEngine:
         self.device = resolve_device(device)
         self.matrix = get_matrix(config.matrix)
         self._wave_chain = True if config.wave_chain is None else config.wave_chain
+        # The kernel's gap arguments, at every launch (swtpu's wave_local): a
+        # config with gap_open runs the affine mode, even when open == extend.
+        self._affine = config.gap_open is not None
+        self._gaps = (
+            dict(gap_open=config.gap_open, gap_extend=config.gap_extend) if self._affine else dict(gap=config.gap_penalty)
+        )
         self._resident: Optional[Tuple[Database, PackedDatabase]] = None
         self._topk_cache = None
 
@@ -300,20 +308,19 @@ class SearchEngine:
         share of free device memory (utils/memory.py) is split along the
         query axis into as many launches as it takes.
         """
-        gap = self.config.gap_penalty
         budget = scratch_budget_bytes(self.device) if profile.dim() == 3 and profile.shape[0] > 1 else None
         n_bands = profile.shape[-2] // wave_sw.W
         outs = []
         for g in groups:
-            per_query = wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, g.lanes)
+            per_query = wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, g.lanes, self._affine)
             if budget is not None and per_query * profile.shape[0] > budget:
                 step = max(1, budget // per_query)
                 outs.append(torch.cat([
-                    wave_sw.sw_wave(profile[i : i + step], g.stack, gap=gap, n_segs=g.n_segs)
+                    wave_sw.sw_wave(profile[i : i + step], g.stack, n_segs=g.n_segs, **self._gaps)
                     for i in range(0, profile.shape[0], step)
                 ]))
             else:
-                outs.append(wave_sw.sw_wave(profile, g.stack, gap=gap, n_segs=g.n_segs))
+                outs.append(wave_sw.sw_wave(profile, g.stack, n_segs=g.n_segs, **self._gaps))
         if not outs:
             return torch.zeros(*profile.shape[:-2], 0, dtype=torch.int32, device=self.device)
         return torch.cat(outs, dim=-1)

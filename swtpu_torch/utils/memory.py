@@ -28,7 +28,8 @@ def resident_cell_budget(configured: int, device: torch.device, safety: float = 
     """Residency budget (int8 subject cells) honouring free device memory.
 
     The packed database costs 1 byte a cell, but each kernel launch also
-    takes a band carry of 4 bytes a column-cell of its bucket, so only
+    takes a band carry of 4 bytes a column-cell of its bucket (8 with
+    affine gaps) for each of its queries, so only
     ``safety`` of free memory goes to resident subjects.
     """
     free = device_free_bytes(device)

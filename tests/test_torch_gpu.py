@@ -2,8 +2,9 @@
 
 These tests need an NVIDIA GPU with nvcc; elsewhere the ``cuda`` fixture
 skips them.  The kernel (one query and a query axis) is held exactly to its
-plain PyTorch version on the same card, and the engine's single, batched,
-queued, streaming and top-K paths to the committed goldens.
+plain PyTorch version on the same card, linear and affine, and the engine's
+single, batched, queued, streaming and top-K paths to the committed goldens;
+align_top_k on the card gives the alignments it gives on the CPU.
 """
 
 from pathlib import Path
@@ -109,3 +110,59 @@ def test_serving_paths_subset_goldens_on_card(cuda):
             for g, w in zip(res.top_k_stats(10), want):
                 assert (g.id, g.score) == (w.id, w.score)
                 assert g.evalue == pytest.approx(w.evalue, rel=1e-9) and g.bits == pytest.approx(w.bits, rel=1e-9)
+
+
+@pytest.mark.parametrize(
+    "qlens,ws,S,B,gaps",
+    [
+        ((20,), 32, 1, 64, (10, 2)),
+        ((100,), 200, 1, 130, (10, 1)),
+        ((464,), 96, 3, 1000, (11, 1)),
+        ((300,), 4100, 1, 65, (5, 5)),
+        ((100, 90, 70, 65, 96), 96, 3, 131, (10, 2)),
+        (tuple(range(449, 465)), 40, 8, 129, (10, 1)),
+    ],
+)
+def test_affine_kernel_matches_plain(cuda, qlens, ws, S, B, gaps):
+    rng = np.random.default_rng(sum(qlens) + S)
+    _, stack = _bucket(rng, 1, ws, S, B)
+    qpad = -(-max(qlens) // 32) * 32
+    profs = [make_profile(rng.integers(0, 25, n).astype(np.int8), blosum50_ref(), pad_rows_to=qpad) for n in qlens]
+    prof = torch.from_numpy(profs[0] if len(qlens) == 1 else np.stack(profs)).to(cuda)
+    stack = stack.to(cuda)
+    kw = dict(n_segs=S, gap_open=gaps[0], gap_extend=gaps[1])
+    before = (wave_sw.sw_wave.launches, wave_sw.sw_wave.affine_launches)
+    got = wave_sw.sw_wave(prof, stack, **kw)
+    torch.cuda.synchronize()
+    assert (wave_sw.sw_wave.launches, wave_sw.sw_wave.affine_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, wave_sw.sw_wave_plain(prof, stack, **kw))
+    if gaps[0] == gaps[1]:
+        assert torch.equal(got, wave_sw.sw_wave(prof, stack, gap=gaps[0], n_segs=S))
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 1)], ids=["linear", "affine"])
+def test_align_top_k_on_card(cuda, gaps):
+    from swtpu_torch.models.align import align_top_k
+
+    db = parse_database(DATA / "uniprot_subset.fasta")
+    q = parse_query(DATA / "queries" / "P02232.fasta")
+    cfg = SWConfig() if gaps is None else SWConfig(gap_open=gaps[0], gap_extend=gaps[1])
+    before = wave_sw.sw_wave.affine_launches
+    on_card = align_top_k(q, db, k=5, config=cfg, device=cuda)
+    assert (wave_sw.sw_wave.affine_launches > before) == (gaps is not None)
+    assert on_card == align_top_k(q, db, k=5, config=cfg, device="cpu")
+
+
+def test_affine_kernel_chained_equals_unchained(cuda):
+    rng = np.random.default_rng(5)
+    S, ws, n = 4, 300, 515
+    subjects = [rng.integers(0, 25, int(k)).astype(np.int8) for k in rng.integers(1, ws + 1, n)]
+    chained = np.full((S * ws + 32, -(-n // S)), PAD_SUBJECT, dtype=np.int8)
+    single = np.full((ws + 32, n), PAD_SUBJECT, dtype=np.int8)
+    for k, s in enumerate(subjects):
+        chained[(k % S) * ws : (k % S) * ws + len(s), k // S] = s
+        single[: len(s), k] = s
+    prof = torch.from_numpy(make_profile(rng.integers(0, 25, 200).astype(np.int8), blosum50_ref(), pad_rows_to=224)).to(cuda)
+    kw = dict(gap_open=10, gap_extend=2)
+    got = wave_sw.sw_wave(prof, torch.from_numpy(chained).to(cuda), n_segs=S, **kw)[:n]
+    assert torch.equal(got, wave_sw.sw_wave(prof, torch.from_numpy(single).to(cuda), **kw))

@@ -5,7 +5,7 @@
   every pytest process here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
 * every knob of a later slice raises instead of being ignored, and the
-  serving knobs are accepted.
+  serving and affine-gap knobs are accepted.
 """
 
 import subprocess
@@ -25,6 +25,7 @@ def test_port_imports_neither_jax_nor_swtpu():
     code = """
 import sys
 import swtpu_torch.cli, swtpu_torch.models.search, swtpu_torch.synth, swtpu_torch.ops._build, swtpu_torch.stats
+import swtpu_torch.models.align, swtpu_torch.ops.oracle
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
@@ -33,6 +34,8 @@ res = SearchEngine(SWConfig(), device="cpu").search(q, db)
 assert res.scores.shape == (111,)
 hits = SearchEngine(SWConfig(top_k=3, evalue=True), device="cpu").search_many([q], db)[0].top_k_stats(3)
 assert len(hits) == 3
+alns = swtpu_torch.models.align.align_top_k(q, db, k=2, config=SWConfig(gap_open=10, gap_extend=1), device="cpu")
+assert len(alns) == 2
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "swtpu" or m.startswith("swtpu."))
 print("LOADED", bad)
 """
@@ -65,7 +68,6 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
     "knob,value",
     [
         ("prefilter", 0.1),
-        ("gap_open", 11),
         ("mesh_shape", (2,)),
         ("query_shard", True),
         ("wave_compose", True),
@@ -82,10 +84,11 @@ def test_unported_knobs_raise(knob, value):
 
 @pytest.mark.parametrize(
     "knob,value",
-    [("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True)],
+    [("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True), ("gap_open", 11)],
 )
 def test_serving_knobs_accepted(knob, value):
-    cfg = SWConfig(**{knob: value})
+    extra = {"gap_extend": 1} if knob == "gap_open" else {}  # affine gaps are set as a pair
+    cfg = SWConfig(**{knob: value}, **extra)
     assert getattr(cfg, knob) == value
     SearchEngine(cfg, device="cpu")
 
