@@ -13,7 +13,11 @@ Phases (one line each; any failure exits non-zero with no result line):
               bands, widths 32 to 4100): exact equality; then the
               multi-query mode (Q = 2, 5, 16) the same way; then the affine
               mode on both case lists for gaps (10, 2), (10, 1) and (5, 5),
-              and (5, 5) bit-equal to the linear kernel at gap 5
+              and (5, 5) bit-equal to the linear kernel at gap 5; then the
+              row kernels K2 (a whole (C, B, L) stack a launch) and K3 (one
+              bucket) and K2's fast16 clamp against their plain versions
+              (query lengths 1 to 4,548, widths 8 to 6,000, C = 1, 3, 17,
+              gaps 1, 2, 11, a self-alignment above 32,767): exact equality
   4. goldens  the committed subset, 10k-scale and saturation goldens through
               SearchEngine(device="cuda"): exact equality; the subset under
               affine gaps (10, 1) against the NumPy oracle
@@ -42,7 +46,15 @@ Phases (one line each; any failure exits non-zero with no result line):
   8. align    align_top_k(k=10) for P01008 on the resident database, linear
               (gap 2) and affine (10, 2); every alignment re-scored from its
               strings by an independent scorer equals its device score
-  9. kernels  one JSON line per kernel and mode: launches on its path, error,
+  9. rows     the row path on the same resident database with P01008, every
+              score array bit-equal to the wavefront path's: K2 resident
+              (use_pallas; K2's counts zeroed just before the first search,
+              read just after), fast16 plus seg16 and the int16 parity mode
+              with their exact rescore, K3 streamed (its counts equal the
+              plan's batches), search_many and search_queued for three suite
+              queries, int16 top-K with E-values; K2 and K3 alone against
+              their plain versions on the same work
+ 10. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time and the card's lower bound for the same work
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
 """
@@ -75,6 +87,13 @@ MULTI_CASES = (
     (20, 32, 1, 65, 2), (100, 96, 3, 131, 5), (464, 40, 8, 257, 16), (31, 736, 1, 77, 16),
     (300, 2208, 3, 129, 5), (1000, 160, 8, 33, 2), (64, 4100, 1, 99, 16),
 )
+# Row kernel phase cases: (query length, chunks C, rows B, width L, gap); the
+# last plants the query in a row: its self-alignment passes 32,767.
+ROW_CASES = (
+    (1, 1, 1, 8, 2), (20, 3, 77, 40, 1), (33, 17, 129, 128, 2), (100, 3, 333, 256, 11),
+    (464, 17, 257, 640, 2), (1000, 3, 65, 2048, 1), (300, 1, 31, 4100, 2), (4548, 3, 9, 6000, 2),
+)
+ROW_QUERIES = ("P02232", "P05013", "P14942")  # the row phase's search_many and search_queued
 N_SEQS = 559_228
 MAIN_QUERY = "P01008"
 # The reference Performance suite's queries (bench.py --full), in its order.
@@ -124,7 +143,11 @@ def phase_build():
     built = _build.build(*names)
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
 
-    def label(mangled):  # sw_wave_kernel<false> and <true>
+    def label(mangled):  # sw_wave_kernel<false> and <true>; sw_rows.cu's K2 and K3
+        if "sw_rows_fused_kernel" in mangled:
+            return "K2 sw_rows_fused_kernel"
+        if "sw_rows_kernel" in mangled:
+            return "K3 sw_rows_kernel"
         return "affine" if "ILb1E" in mangled else "linear" if "ILb0E" in mangled else mangled
 
     for name in names:
@@ -247,6 +270,61 @@ def phase_kernel_affine():
                 raise AssertionError(f"affine kernel at open == extend != linear kernel at {where}")
     say("kernel.affine", cases=len(KERNEL_CASES + MULTI_CASES), gap_pairs=GAP_PAIRS, max_abs_err=worst,
         tolerance="exact", equal_to_linear_at_gap=[o for o, e in GAP_PAIRS if o == e],
+        seconds=round(time.perf_counter() - t0, 3))
+    return worst
+
+
+def phase_kernel_rows():
+    """K2 and K3 against their plain versions (row_sw) on seeded random
+    stacks: K2 on the whole (C, B, L) stack in one launch, K3 on every
+    chunk, and K2's fast16 clamp on the first chunk."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.matrices import blosum50_ref
+    from swtpu_torch.ops import bucket_sw, row_sw
+    from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    worst = 0
+    sat_max = 0
+    for qlen, C, B, L, gap in ROW_CASES:
+        q = rng.integers(0, 25, qlen).astype(np.int8)
+        if qlen > 4000:  # C, H, P, W score 10-15 against themselves: the self-alignment passes 32,767
+            q = rng.choice(np.array([4, 8, 14, 17], dtype=np.int8), qlen)
+        stack = np.full((C, B, L), PAD_SUBJECT, dtype=np.int8)
+        for c in range(C):
+            for b in range(B):
+                n = int(rng.integers(1, L + 1))
+                stack[c, b, :n] = rng.integers(0, 25, n)
+        if qlen > 4000:
+            stack[C // 2, 0, :qlen] = q
+        prof = torch.from_numpy(make_profile(q, blosum50_ref(), pad_rows_to=32)).cuda()
+        stack = torch.from_numpy(stack).cuda()
+        where = f"qlen={qlen} C={C} B={B} L={L} gap={gap}"
+        before = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
+        got = bucket_sw.sw_score_bucket_fused(prof, stack, gap=gap)
+        want = row_sw.sw_score_stack(prof, stack, gap=gap, strip=32)
+        per_chunk = [bucket_sw.sw_score_bucket(prof, stack[c], gap=gap) for c in range(C)]
+        sat = row_sw.fast16_sat(gap, L)
+        clamp = bucket_sw.sw_score_bucket_fast16(prof, stack[0], gap=gap, sat=sat)
+        clamp_want = row_sw.sw_score_bucket_fast16(prof, stack[0], gap=gap, strip=32, sat=sat, stage_int8=True)
+        torch.cuda.synchronize()
+        after = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
+        if after != (before[0] + 2, before[1] + C):
+            raise AssertionError(f"row kernels launched {after} from {before} at {where}")
+        err = int((got.long() - want.long()).abs().max())
+        err = max(err, max(int((k.long() - want[c].long()).abs().max()) for c, k in enumerate(per_chunk)))
+        err = max(err, int((clamp.long() - clamp_want.long()).abs().max()))
+        worst = max(worst, err)
+        sat_max = max(sat_max, int(want.max()))
+        if err or not torch.equal(got, want) or not torch.equal(clamp, clamp_want):
+            raise AssertionError(f"row kernels != plain at {where}: max err {err}")
+    if sat_max <= 32767:
+        raise AssertionError(f"the planted self-alignment scored {sat_max}, within int16")
+    say("kernel.rows", cases=len(ROW_CASES), kernels=["K2 sw_score_bucket_fused", "K3 sw_score_bucket",
+        "K2 fast16 clamp"], max_score=sat_max, max_abs_err=worst, tolerance="exact",
         seconds=round(time.perf_counter() - t0, 3))
     return worst
 
@@ -720,6 +798,177 @@ def phase_align(db, linear_engine, affine_engine):
     say("align", query=MAIN_QUERY, k=10, rescored_equal_device=True, **out, seconds=round(time.perf_counter() - t_phase, 3))
 
 
+def row_bound(cells, nbytes):
+    """(bound ms, bound_by) of row-kernel work: OPS_PER_CELL int32
+    operations a padded cell over the int32 rate, against the bytes moved
+    (subjects, profiles and scores once each) over the memory rate."""
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / INT32_OPS_PER_S
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_rows(db, wave_engine):
+    """Phase 9: the row path against the wavefront scores of the same
+    resident database, K2 and K3 alone against their plain versions."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine, SearchResult
+    from swtpu_torch.ops import bucket_sw, row_sw
+    from swtpu_torch.utils.bucketing import iter_packed
+
+    t_phase = time.perf_counter()
+    qdir = ROOT / "tests" / "data" / "queries"
+    query = parse_query(qdir / f"{MAIN_QUERY}.fasta")
+    want = wave_engine.search(query, db).scores
+    true_cells = query.length * db.length_sum
+    gap = wave_engine.config.gap_penalty
+
+    def check(name, scores, ref=want):
+        if not np.array_equal(scores, ref):
+            raise AssertionError(f"rows {name}: {int((scores != ref).sum())} scores differ from the wavefront path's")
+
+    def timed(engine, fn):
+        """One search: its times, CUDA launches, PyTorch query-row steps
+        (each ~9 operations over a whole stack) and rescored rows."""
+        engine.rescored_rows = 0
+        row_sw.reset_row_steps()
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        m = res.metrics
+        return res, dict(device_seconds=m.device_seconds, wall_seconds=wall, gcups_device=1e-9 * true_cells / m.device_seconds,
+                         gcups_wall=1e-9 * true_cells / wall, launches=m.kernel_launches, row_steps=row_sw.row_steps(),
+                         rescored_rows=engine.rescored_rows, max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # --- K2 resident: this phase's main path, counts zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    k2_engine = SearchEngine(SWConfig(use_wave=False, use_pallas=True), device="cuda")
+    bucket_sw.sw_score_bucket_fused.launches = bucket_sw.sw_score_bucket.launches = 0
+    t0 = time.perf_counter()
+    first = k2_engine.search(query, db)  # packs the database on the card, then scores
+    first_wall = time.perf_counter() - t0
+    k2_launches, k3_stray = bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches
+    packed = k2_engine._resident_packed(db)
+    profile = k2_engine._profile(query)
+    expect = sum(-(-g.chunks // k2_engine._fused_step(profile, g.stack)) for g in packed.groups)
+    if k2_launches != expect or k2_launches == 0 or k3_stray:
+        raise AssertionError(f"K2 resident search launched K2 {k2_launches} times (K3 {k3_stray}) for "
+                             f"{len(packed.groups)} ladder groups in {expect} launches")
+    check("K2 resident", first.scores)
+    runs = []
+    for _ in range(2):
+        res, row = timed(k2_engine, lambda: k2_engine.search(query, db))
+        check("K2 resident (timed)", res.scores)
+        runs.append(row)
+    resident = sum(g.stack.numel() for g in packed.groups) + sum(
+        g.stack.numel() + g.rebases.numel() * 2 + g.ends.numel() * 4 for g in packed.seg_groups)
+    qpad = profile.shape[0]
+    ladder_cells = sum(g.chunks * g.rows * g.width for g in packed.groups)
+    seg_cells = sum(g.cells for g in packed.seg_groups)
+    k2_all = lambda: [k2_engine._fused_stack(profile, g.stack) for g in packed.groups]  # noqa: E731
+    events_ms(k2_all)  # warm
+    k2_ms, k2_out = events_ms(k2_all, reps=3)
+    k2_group_ms = [round(events_ms(lambda g=g: k2_engine._fused_stack(profile, g.stack))[0], 4) for g in packed.groups]
+    k2_plain_ms, k2_plain = events_ms(lambda: [row_sw.sw_score_stack(profile, g.stack, gap=gap, strip=32) for g in packed.groups])
+    k2_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k2_out, k2_plain))
+    if k2_err or not all(torch.equal(a, b) for a, b in zip(k2_out, k2_plain)):
+        raise AssertionError(f"K2 at full scale differs from its plain version: max err {k2_err}")
+    k2_bound, k2_by = row_bound(qpad * ladder_cells, sum(g.stack.numel() + qpad * 32 + 4 * g.chunks * g.rows for g in packed.groups))
+    say("rows.k2", query=MAIN_QUERY, first_search_wall_s=first_wall, searches=runs, launches_first_search=k2_launches,
+        ladder_groups=len(packed.groups), ladder_chunks=sum(g.chunks for g in packed.groups),
+        seg_groups=len(packed.seg_groups), seg_chunks=sum(g.chunks for g in packed.seg_groups),
+        ladder_cells=ladder_cells, seg_cells=seg_cells, padded_cells_k2=qpad * ladder_cells,
+        padded_cells_seg16=qpad * seg_cells, resident_bytes=resident, k2_ms_per_search=k2_ms,
+        k2_plain_ms_per_search=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by, bound_share=k2_bound / k2_ms,
+        max_abs_err_vs_plain=k2_err, groups=dict(columns=["chunks", "rows", "width", "ms"],
+        rows=[(g.chunks, g.rows, g.width, ms) for g, ms in zip(packed.groups, k2_group_ms)]))
+
+    # --- fast16 + seg16 on the same pack, and the int16 parity mode on its own
+    modes = {}
+    fast = SearchEngine(SWConfig(use_wave=False), device="cuda")
+    res, modes["fast16_seg16"] = timed(fast, lambda: fast.search_packed(query, db, packed))
+    check("fast16 + seg16", res.scores)
+    i16 = SearchEngine(SWConfig(score_dtype="int16"), device="cuda")
+    t0 = time.perf_counter()
+    i16_packed = i16._resident_packed(db)
+    i16_pack_s = time.perf_counter() - t0
+    res, modes["int16"] = timed(i16, lambda: i16.search(query, db))
+    check("int16", res.scores)
+    modes["int16"].update(pack_seconds=i16_pack_s, ladder_groups=len(i16_packed.groups),
+                          resident_bytes=sum(g.stack.numel() for g in i16_packed.groups))
+
+    # --- K3 streamed: counts zeroed just before, read just after
+    streamed = SearchEngine(SWConfig(use_wave=False, use_pallas=True, device_resident=False), device="cuda")
+    plan = streamed.plan(db)
+    bucket_sw.sw_score_bucket_fused.launches = bucket_sw.sw_score_bucket.launches = 0
+    res, modes["k3_streamed"] = timed(streamed, lambda: streamed.search(query, db))
+    k3_launches = bucket_sw.sw_score_bucket.launches
+    if k3_launches != len(plan.batches) or bucket_sw.sw_score_bucket_fused.launches:
+        raise AssertionError(f"streamed search launched K3 {k3_launches} times for {len(plan.batches)} batches "
+                             f"(K2 {bucket_sw.sw_score_bucket_fused.launches})")
+    check("K3 streamed", res.scores)
+    modes["k3_streamed"].update(batches=len(plan.batches), pack_seconds=res.metrics.phases["pack_and_put"])
+    say("rows.modes", query=MAIN_QUERY, true_cells=true_cells, modes=modes, bit_equal_to_wavefront=True)
+
+    # --- K3 alone, batch by batch, against its plain version on the same batches
+    k3_ms = k3_plain_ms = 0.0
+    k3_err = 0
+    nbytes = 0
+    for batch, arr in iter_packed(db, plan):
+        subj = torch.from_numpy(arr).cuda()
+        ms, got = events_ms(lambda: bucket_sw.sw_score_bucket(profile, subj, gap=gap))
+        pms, plain = events_ms(lambda: row_sw.sw_score_bucket(profile, subj, gap=gap, strip=32))
+        k3_ms, k3_plain_ms = k3_ms + ms, k3_plain_ms + pms
+        k3_err = max(k3_err, int((got.long() - plain.long()).abs().max()))
+        nbytes += subj.numel() + profile.numel() + 4 * batch.rows
+    if k3_err:
+        raise AssertionError(f"K3 at full scale differs from its plain version: max err {k3_err}")
+    k3_bound, k3_by = row_bound(profile.shape[0] * plan.total_cells, nbytes)
+    say("rows.k3", batches=len(plan.batches), shapes=len(plan.shapes), cells=plan.total_cells,
+        padded_cells=profile.shape[0] * plan.total_cells, k3_ms_per_search=k3_ms, k3_plain_ms_per_search=k3_plain_ms,
+        bound_ms=k3_bound, bound_by=k3_by, bound_share=k3_bound / k3_ms, max_abs_err_vs_plain=k3_err)
+
+    # --- serving on the K2 engine, against the wavefront scores of each query
+    qs = [parse_query(qdir / f"{name}.fasta") for name in ROW_QUERIES]
+    wave = [wave_engine.search(q, db).scores for q in qs]
+    serving = {}
+    for name, run in (("search_many", k2_engine.search_many), ("search_queued", k2_engine.search_queued)):
+        t0 = time.perf_counter()
+        results = run(qs, db)
+        wall = time.perf_counter() - t0
+        for qname, r, w in zip(ROW_QUERIES, results, wave):
+            check(f"{name} {qname}", r.scores, w)
+        dev = sum(r.metrics.device_seconds for r in results)
+        cells = sum(q.length for q in qs) * db.length_sum
+        serving[name] = dict(device_seconds=dev, wall_seconds=wall, gcups_device=1e-9 * cells / dev,
+                             gcups_wall=1e-9 * cells / wall, launches=results[0].metrics.kernel_launches)
+    say("rows.serving", queries=ROW_QUERIES, **serving, bit_equal_to_wavefront=True)
+
+    # --- int16 top-K with E-values, against the full array's top-K
+    topk = SearchEngine(SWConfig(score_dtype="int16", top_k=10, evalue=True), device="cuda")
+    res = topk.search_packed(query, db, i16_packed)
+    full = SearchResult(scores=want, metrics=res.metrics)
+    if res.top_k(10) != full.top_k(10):
+        raise AssertionError("int16 top-K hits differ from the full array's")
+    stats = res.top_k_stats(10)
+    say("rows.topk", query=MAIN_QUERY, k=10, hits_equal_full_array=True, evalues=[h.evalue for h in stats[:3]],
+        bits=[h.bits for h in stats[:3]], max_memory_allocated=torch.cuda.max_memory_allocated(),
+        seconds=round(time.perf_counter() - t_phase, 3))
+    k2 = {
+        "name": "sw_rows_fused (K2)", "route": "cuda", "source": "swtpu_torch/csrc/sw_rows.cu",
+        "replaces": "swtpu/ops/pallas_sw.py:200", "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
+        "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+    }
+    k3 = {
+        "name": "sw_rows (K3)", "route": "cuda", "source": "swtpu_torch/csrc/sw_rows.cu",
+        "replaces": "swtpu/ops/pallas_sw.py:281", "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+        "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+    }
+    return k2, k3
+
+
 def main() -> int:
     try:
         import torch
@@ -742,12 +991,14 @@ def main() -> int:
         kernel_err = phase_kernel()
         multi_err = phase_kernel_multi()
         affine_err = phase_kernel_affine()
+        rows_err = phase_kernel_rows()
         phase_goldens()
         phase_goldens_affine()
         entry, db, engine, q1_bucket_ms = phase_scale()
         multi = phase_serving(db, engine, q1_bucket_ms)
         affine, affine_engine = phase_affine(db, q1_bucket_ms)
         phase_align(db, engine, affine_engine)
+        k2, k3 = phase_rows(db, engine)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -755,7 +1006,9 @@ def main() -> int:
     entry["max_abs_err"] = max(entry["max_abs_err"], kernel_err)
     multi["max_abs_err"] = max(multi["max_abs_err"], multi_err)
     affine["max_abs_err"] = max(affine["max_abs_err"], affine_err)
-    print(json.dumps({"kernels": [entry, multi, affine]}))
+    for k in (k2, k3):
+        k["max_abs_err"] = max(k["max_abs_err"], rows_err)
+    print(json.dumps({"kernels": [entry, multi, affine, k2, k3]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

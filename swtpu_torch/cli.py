@@ -3,9 +3,12 @@
 Required ``--query``/``--db``, the full ``id:score`` dump (or the ``--top-k``
 hits, with E-values and bit scores under ``--evalue``; or the
 ``--align-top-k`` alignments), and the METRICS block of the reference CLI.
-Linear gaps (``--gap``) or affine ones (``--gap-open``/``--gap-extend``).
-Runs on the card unless ``--device cpu``.  Flags of features not ported yet
-are not accepted.
+Linear gaps (``--gap``) or affine ones (``--gap-open``/``--gap-extend``);
+the wavefront kernel, or the row-parallel path (``--no-wave``, ``--pallas``
+for the CUDA kernels K2 and K3, ``--score-dtype int16`` for the narrow-type
+parity mode, ``--batch-rows``/``--length-quantum`` for its ladder).  Runs on
+the card unless ``--device cpu``.  Flags of features not ported yet are not
+accepted.
 
 Usage::
 
@@ -37,6 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="affine gaps (wavefront kernel): a length-L gap costs OPEN + (L-1)*EXTEND; requires --gap-extend",
     )
     p.add_argument("--gap-extend", type=int, default=None, help="affine gap extension penalty")
+    p.add_argument("--score-dtype", choices=["int32", "int16"], default="int32")
     p.add_argument("--top-k", type=int, default=None, help="print only the K best hits (device top-K)")
     p.add_argument(
         "--align-top-k",
@@ -60,6 +64,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--no-scores", action="store_true", help="skip the per-sequence score dump")
     p.add_argument("--json", action="store_true", help="emit metrics as one JSON line")
+    p.add_argument("--pallas", action="store_true", help="row path: score through the CUDA kernels K2 and K3")
+    p.add_argument("--no-pallas", action="store_true", help="row path: force the PyTorch scorers")
+    p.add_argument(
+        "--wave",
+        dest="wave",
+        action="store_true",
+        default=None,
+        help="force the wavefront kernel (default: auto, on unless --score-dtype int16)",
+    )
+    p.add_argument("--no-wave", dest="wave", action="store_false", help="disable the wavefront kernel")
+    p.add_argument("--batch-rows", type=int, default=8192)
+    p.add_argument("--length-quantum", type=int, default=128)
     return p
 
 
@@ -85,6 +101,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             gap_open=args.gap_open,
             gap_extend=args.gap_extend,
             matrix=args.matrix,
+            score_dtype=args.score_dtype,
+            batch_rows=args.batch_rows,
+            length_quantum=args.length_quantum,
+            use_pallas=args.pallas and not args.no_pallas,
+            use_wave=args.wave,
             top_k=args.top_k,
             evalue=args.evalue,
         )

@@ -2,12 +2,15 @@
 
 This package implements linear and affine (Gotoh) gaps on the wavefront
 kernel: single, batched, queued and streaming searches, the full score array
-or a device top-K, E-values, and the alignment traceback.  A knob of a
-feature that a later slice of the port brings (``ROADMAP.md`` Queue A) keeps
-its field and default here, and setting it to anything else raises
-``NotImplementedError`` naming that slice, so no setting is silently
-ignored.  The TPU-only ``interpret`` and
-``wave_unroll_block`` have no counterpart.
+or a device top-K, E-values, and the alignment traceback; and swtpu's
+row-parallel scoring family (``use_wave=False``, ``score_dtype="int16"``):
+ladder and segment packing, the int32, fast16, seg16 and int16-parity
+scorers with their exact rescore, and the CUDA kernels K2 and K3 behind
+``use_pallas``.  A knob of a feature that a later slice of the port brings
+(``ROADMAP.md`` Queue A) keeps its field and default here, and setting it to
+anything else raises ``NotImplementedError`` naming that slice, so no setting
+is silently ignored.  The TPU-only ``interpret`` and ``wave_unroll_block``
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -47,19 +50,30 @@ class SWConfig:
     # merges queries into shared launches, exact padding for single searches.
     query_ladder: Optional[bool] = None
 
-    # --- knobs of later slices: defaults only ---------------------------------
+    # --- the row-parallel path (implemented) ----------------------------------
+    # Score accumulation: "int32" (exact) or "int16" (saturating parity mode
+    # of the reference's narrow-type kernel, with an exact int32 rescore of
+    # saturated rows; always off the wavefront path).
     score_dtype: str = "int32"
-    length_quantum: int = 128
-    batch_rows: int = 8192
-    max_batch_cells: int = 1 << 23
+    length_quantum: int = 128  # the ladder planner's width quantum
+    batch_rows: int = 8192  # subjects per ladder batch
+    max_batch_cells: int = 1 << 23  # rows * width cap per ladder batch
     chunk_budget_residues: int = 64 * 1024 * 1024
+    # Bin sequences shorter than seg_widths[-1] into shared rows of up to
+    # seg_s_max segments (swtpu_torch.utils.segpack).
     segment_packing: bool = True
     seg_widths: Tuple[int, ...] = (512,)
     seg_s_max: int = 8
-    query_strip: int = 32
+    query_strip: int = 32  # query-row padding quantum of the row path
+    # int16 u-space scoring with an exact int32 rescore of saturated rows.
     fast_saturating: bool = True
-    use_wave: Optional[bool] = None  # the wavefront kernel is the only path: None or True
+    # The wavefront kernel; None = auto: on (the card stands where swtpu has
+    # its TPU), off in int16 parity mode.  False selects the row path.
+    use_wave: Optional[bool] = None
+    # Row path: ladder groups through K2, streamed batches through K3.
     use_pallas: bool = False
+
+    # --- knobs of later slices: defaults only ---------------------------------
     prefilter: Optional[float] = None
     prefilter_min_candidates: int = 256
     wave_compose: bool = False
@@ -77,6 +91,10 @@ class SWConfig:
                 raise ValueError("affine gaps need gap_open >= gap_extend >= 0")
             if self.score_dtype == "int16":
                 raise ValueError("affine gaps are exact-int32 only (wavefront kernel)")
+        if self.length_quantum < 1 or self.batch_rows < 1:
+            raise ValueError("length_quantum and batch_rows must be >= 1")
+        if self.score_dtype not in ("int32", "int16"):
+            raise ValueError(f"unsupported score_dtype {self.score_dtype!r}")
         if self.device_resident_cells < 0:
             raise ValueError("device_resident_cells must be >= 0")
         if self.top_k is not None and self.top_k < 1:
@@ -84,8 +102,6 @@ class SWConfig:
         defaults = SWConfig.__dataclass_fields__
         for name, later in _LATER_SLICES.items():
             value = getattr(self, name)
-            if name == "use_wave" and value is True:
-                continue
             if value != defaults[name].default:
                 raise NotImplementedError(
                     f"SWConfig.{name}={value!r} is not ported yet: it arrives with "
@@ -96,22 +112,8 @@ class SWConfig:
         return dataclasses.replace(self, **kw)
 
 
-_NON_WAVE = "slice A13 (non-wave scoring family)"
-
 # Field -> the slice of the port that implements it.
 _LATER_SLICES = {
-    "score_dtype": _NON_WAVE,
-    "length_quantum": _NON_WAVE,
-    "batch_rows": _NON_WAVE,
-    "max_batch_cells": _NON_WAVE,
-    "chunk_budget_residues": _NON_WAVE,
-    "segment_packing": _NON_WAVE,
-    "seg_widths": _NON_WAVE,
-    "seg_s_max": _NON_WAVE,
-    "query_strip": _NON_WAVE,
-    "fast_saturating": _NON_WAVE,
-    "use_wave": _NON_WAVE,
-    "use_pallas": _NON_WAVE,
     "prefilter": "slice A12 (prefilter)",
     "prefilter_min_candidates": "slice A12 (prefilter)",
     "wave_compose": "slice A11 (composed band-group dispatch)",

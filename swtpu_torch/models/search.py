@@ -1,11 +1,15 @@
 """The search pipeline: queries against a database packed on the device.
 
-Counterpart of the wavefront paths of ``swtpu.models.search``: pack the
-database once into wave buckets resident on the device, then per query
-build the profile, launch the wavefront kernel once per bucket, and scatter
-the lane-major flat scores back to file order.  Every score is exact int32,
-under linear gaps or, with ``SWConfig.gap_open``, affine (Gotoh) ones on
-every path below.
+Counterpart of ``swtpu.models.search`` on two paths.  The wavefront path
+(the default) packs the database once into wave buckets resident on the
+device, then per query builds the profile, launches the wavefront kernel
+once per bucket, and scatters the lane-major flat scores back to file order;
+every score is exact int32, under linear gaps or, with ``SWConfig.gap_open``,
+affine (Gotoh) ones on every path below.  The row path (``use_wave=False``,
+or ``score_dtype="int16"``) packs ladder batches and segment-packed rows and
+scores them with swtpu's row-parallel family (``ops.row_sw``; with
+``use_pallas``, the CUDA kernels K2 and K3 of ``ops.bucket_sw``), rescoring
+saturated rows exactly, so its scores are the same exact int32.
 
 Serving paths beside the single search:
 
@@ -36,9 +40,20 @@ import torch
 from ..config import SWConfig
 from ..io.fasta import Database, Query
 from ..matrices import get_matrix
-from ..ops import wave_sw
-from ..ops.profile import make_profile
-from ..utils.bucketing import PackedDatabase, iter_wave_groups, pack_database_wave, plan_wave_buckets
+from ..ops import bucket_sw, row_sw, wave_sw
+from ..ops.profile import PAD_SUBJECT, make_profile
+from ..utils import segpack
+from ..utils.bucketing import (
+    BatchPlan,
+    PackedDatabase,
+    iter_packed,
+    iter_wave_groups,
+    pack_database,
+    pack_database_wave,
+    plan_batches,
+    plan_wave_buckets,
+    scatter_scores,
+)
 from ..utils.memory import resident_cell_budget, scratch_budget_bytes
 from ..utils.metrics import PhaseTimer, SearchMetrics
 
@@ -151,6 +166,10 @@ def _null_moments(flat: torch.Tensor, bins: torch.Tensor, nb: int) -> torch.Tens
     return torch.cat([head, per_bin(nz), per_bin(f), per_bin(sq)], dim=-1)
 
 
+# Ladder and segment batch rows are a multiple of this (swtpu's sublane tile
+# on a one-device mesh).
+_ROW_MULTIPLE = 8
+
 # A device top-K key packs a score and its file id into one int64, score in
 # the high 32 bits and _ID_MASK - id in the low 32 (0 on pad slots), so one
 # descending torch.topk orders by (score desc, id asc) with no ties at all.
@@ -188,8 +207,19 @@ class SearchEngine:
         self._gaps = (
             dict(gap_open=config.gap_open, gap_extend=config.gap_extend) if self._affine else dict(gap=config.gap_penalty)
         )
+        self._wave_enabled = self._resolve_wave()
+        if self._affine and not self._wave_enabled:
+            raise ValueError(
+                "affine gaps (gap_open/gap_extend) run on the wavefront kernel only: "
+                "leave use_wave at None or True and score_dtype at 'int32'"
+            )
+        # int8 score staging of the int16 scorers is exact iff every folded
+        # score fits int8.
+        self._stage_int8 = int(self.matrix.max()) + config.gap_penalty <= 127
+        self._kernel = self._select_kernel()
         self._resident: Optional[Tuple[Database, PackedDatabase]] = None
         self._topk_cache = None
+        self.rescored_rows = 0  # saturated rows rescored exactly, since last set to 0
 
     # --- device plumbing -------------------------------------------------------
 
@@ -277,23 +307,130 @@ class SearchEngine:
             step = step + 32 if step < 256 else -(-int(step * 1.25) // 32) * 32
         return -(-step // quantum) * quantum
 
+    def _resolve_wave(self) -> bool:
+        """Whether the wavefront path is active: never in int16 parity mode
+        (whose saturating semantics the exact wavefront kernel does not
+        reproduce), else ``use_wave``, and on by default on either device.
+        swtpu's default is on with a TPU and off on the CPU; the scores are
+        the same either way."""
+        cfg = self.config
+        if cfg.score_dtype == "int16":
+            return False
+        return True if cfg.use_wave is None else cfg.use_wave
+
+    def _select_kernel(self):
+        """The streamed row path's scorer: kernel(profile, bucket) ->
+        (scores, rescore threshold | None).  Rows scoring >= the threshold
+        are saturated lower bounds, rescored exactly; None means exact."""
+        cfg = self.config
+        gap, strip = cfg.gap_penalty, cfg.query_strip
+        if cfg.score_dtype == "int16":
+            # Narrow-type saturating mode: int16 DP row, saturating at 32767.
+            return lambda prof, subj: (row_sw.sw_score_bucket_sat16(prof, subj, gap=gap, strip=strip), row_sw.SAT16_MAX)
+        if cfg.use_pallas:
+            return lambda prof, subj: (bucket_sw.sw_score_bucket(prof, subj, gap=gap, strip=strip), None)
+
+        def kernel(prof, subj):
+            sat = self._fast16_sat(subj.shape[1])
+            if sat is not None:
+                scores = row_sw.sw_score_bucket_fast16(prof, subj, gap=gap, strip=strip, sat=sat, stage_int8=self._stage_int8)
+                return scores, sat
+            return row_sw.sw_score_bucket(prof, subj, gap=gap, strip=strip), None
+
+        return kernel
+
+    def _fast16_sat(self, width: int) -> Optional[int]:
+        """fast16's ceiling for a ladder batch of this width, or None where
+        the row path scores it exactly instead: int16 parity mode,
+        ``fast_saturating`` off, or a ceiling under 4096 (wide batches, large
+        gaps).  Scores below the ceiling are exact; the rest are rescored."""
+        cfg = self.config
+        sat = row_sw.fast16_sat(cfg.gap_penalty, width)
+        return sat if cfg.score_dtype != "int16" and cfg.fast_saturating and sat >= 4096 else None
+
+    @staticmethod
+    def _launches() -> int:
+        """CUDA kernel launches of every wrapper so far (K1, K2, K3)."""
+        return wave_sw.sw_wave.launches + bucket_sw.sw_score_bucket_fused.launches + bucket_sw.sw_score_bucket.launches
+
+    def plan(self, db: Database) -> BatchPlan:
+        """The row path's ladder plan of ``db``."""
+        return self._ladder_plan(db.lengths)
+
+    def _ladder_plan(self, lengths: np.ndarray, min_width: int = 256) -> BatchPlan:
+        cfg = self.config
+        return plan_batches(
+            lengths,
+            batch_rows=cfg.batch_rows,
+            length_quantum=cfg.length_quantum,
+            max_batch_cells=min(cfg.chunk_budget_residues, cfg.max_batch_cells),
+            min_width=min_width,
+            min_rows=_ROW_MULTIPLE,
+        )
+
     def pack_to_device(self, db: Database, plan=None) -> PackedDatabase:
-        """Pack the whole database into wave buckets on the engine's device
-        (``plan``: a plan_wave_buckets result to reuse)."""
-        return pack_database_wave(db, device=self.device, chain=self._wave_chain, plan=plan)
+        """Pack the whole database on the engine's device: into wave buckets
+        on the wavefront path (``plan``: a plan_wave_buckets result), else
+        into ladder groups (``plan``: a BatchPlan) and, with segment packing,
+        segment-packed groups for every sequence shorter than
+        max(seg_widths)."""
+        if self._wave_enabled:
+            return pack_database_wave(db, device=self.device, chain=self._wave_chain, plan=plan)
+        cfg = self.config
+        # Segment packing needs a usable saturation ceiling; large gap
+        # penalties (or int16 mode) pack plain ladder batches.
+        seg_ok = (
+            cfg.segment_packing
+            and cfg.score_dtype != "int16"
+            and cfg.fast_saturating
+            and segpack.seg16_sat(cfg.gap_penalty, cfg.seg_widths[0], cfg.seg_s_max) >= 1024
+        )
+        if not seg_ok:
+            return pack_database(db, plan if plan is not None else self.plan(db), device=self.device)
+        lengths = db.lengths
+        s_max_for = lambda w: max(2, min(cfg.seg_s_max, cfg.seg_widths[0] * cfg.seg_s_max // w))  # noqa: E731
+        rows_for = lambda w: min(cfg.batch_rows, max(256, cfg.max_batch_cells // w))  # noqa: E731
+        # Zero-length records score 0 and never enter a packed row.
+        short = (lengths < cfg.seg_widths[-1]) & (lengths > 0)
+        short_idx = np.nonzero(short)[0]
+        seg_groups = []
+        for width, batches in segpack.plan_multiclass(lengths[short_idx], short_idx, cfg.seg_widths, s_max_for, rows_for):
+            seg_groups.extend(
+                segpack.pack_batches_to_groups(
+                    db, batches, gap=cfg.gap_penalty, width=width, s_max=s_max_for(width), device=self.device,
+                    row_multiple=_ROW_MULTIPLE,
+                )
+            )
+        long_idx = np.nonzero(~short)[0]
+        groups = ()
+        if long_idx.size:
+            long_plan = self._ladder_plan(lengths[long_idx], min_width=cfg.seg_widths[-1])
+            # the subset plan's positional ids -> database ids
+            remapped = dataclasses.replace(
+                long_plan,
+                batches=tuple(dataclasses.replace(b, ids=long_idx[b.ids].astype(np.int64)) for b in long_plan.batches),
+            )
+            groups = pack_database(db, remapped, device=self.device).groups
+        return PackedDatabase(groups=groups, n_sequences=db.n, seg_groups=tuple(seg_groups))
 
     def _resident_packed(self, db: Database) -> Optional[PackedDatabase]:
         """The cached device-resident pack for ``db``, packing it on first
         use; None when it must stream instead: residency is off, or the
-        plan's int8 bytes exceed ``device_resident_cells`` or a share of the
-        device's free memory."""
+        plan's int8 bytes (the wave plan, or on the row path the ladder
+        plan) exceed ``device_resident_cells`` or a share of the device's
+        free memory."""
         if self._resident is not None and self._resident[0] is db:
             return self._resident[1]
         if not self.config.device_resident:
             return None
-        plan = plan_wave_buckets(db, chain=self._wave_chain)
-        need = sum((width + wave_sw.W) * bpad for width, _, _, bpad, _ in plan)
-        if need > resident_cell_budget(self.config.device_resident_cells, self.device):
+        budget = resident_cell_budget(self.config.device_resident_cells, self.device)
+        if self._wave_enabled:
+            plan = plan_wave_buckets(db, chain=self._wave_chain)
+            need = sum((width + wave_sw.W) * bpad for width, _, _, bpad, _ in plan)
+        else:
+            plan = self.plan(db)
+            need = plan.total_cells
+        if need > budget:
             return None
         self._resident = (db, self.pack_to_device(db, plan))
         return self._resident[1]
@@ -325,17 +462,122 @@ class SearchEngine:
             return torch.zeros(*profile.shape[:-2], 0, dtype=torch.int32, device=self.device)
         return torch.cat(outs, dim=-1)
 
-    def _reduce_flat(self, flat_all: np.ndarray, packed: PackedDatabase) -> np.ndarray:
-        """Scatter lane-major flat scores back to file order (pads dropped;
-        zero-length records, which no bucket holds, keep score 0)."""
+    def _fused_step(self, profile: torch.Tensor, stack: torch.Tensor) -> int:
+        """Chunks per K2 launch over a (C, B, L) stack: all C, or as many as
+        keep the band carry within the scratch share of free device memory."""
+        C, B, L = stack.shape
+        per_chunk = bucket_sw.carry_bytes(-(-profile.shape[0] // bucket_sw.W), 1, B, L)
+        budget = scratch_budget_bytes(self.device)
+        if budget is None or per_chunk * C <= budget:
+            return max(C, 1)
+        return max(1, budget // per_chunk)
+
+    def _fused_stack(self, profile: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
+        """K2 over a (C, B, L) ladder stack: (C, B) exact int32, in launches
+        of ``_fused_step`` chunks."""
+        cfg = self.config
+        C = stack.shape[0]
+        step = self._fused_step(profile, stack)
+        return torch.cat([
+            bucket_sw.sw_score_bucket_fused(profile, stack[i : i + step], gap=cfg.gap_penalty, strip=cfg.query_strip)
+            for i in range(0, C, step)
+        ])
+
+    def _row_step(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
+        """Score every ladder and segment group of a row-path pack for one
+        (qpad, 32) profile; flat (total,) scores on the device, ladder groups
+        first.  Ladder groups run K2 with ``use_pallas``, else fast16 where
+        its ceiling is high enough, else exact int32; segment groups seg16."""
+        cfg = self.config
+        gap, strip = cfg.gap_penalty, cfg.query_strip
+        outs = []
+        for g in packed.groups:
+            sat = self._fast16_sat(g.width)
+            if cfg.use_pallas:
+                outs.append(self._fused_stack(profile, g.stack))
+            elif sat is not None:
+                outs.append(row_sw.sw_score_stack_fast16(
+                    profile, g.stack, gap=gap, strip=strip, sat=sat, stage_int8=self._stage_int8))
+            else:
+                outs.append(row_sw.sw_score_stack(profile, g.stack, gap=gap, strip=strip))
+        for g in packed.seg_groups:
+            outs.append(row_sw.sw_score_stack_seg16(
+                profile, g.stack, g.rebases, g.ends, gap=gap, strip=strip, sat=g.sat, stage_int8=self._stage_int8))
+        if not outs:
+            return torch.zeros(0, dtype=torch.int32, device=self.device)
+        return torch.cat([o.reshape(-1) for o in outs])
+
+    def _flat(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
+        """One query's flat scores against a resident pack, on the device."""
+        if self._wave_enabled:
+            return self._packed_step(profile, packed.wave_groups)
+        return self._row_step(profile, packed)
+
+    def _group_threshold(self, width: int) -> Optional[int]:
+        """Saturation (rescore) threshold of a ladder group of this width.
+        K2 is exact int32 at every width (the TPU kernel stops at 4096 and
+        routes wider groups to fast16)."""
+        cfg = self.config
+        if cfg.use_pallas:
+            return None
+        sat = self._fast16_sat(width)
+        if sat is not None:
+            return sat
+        return row_sw.SAT16_MAX if cfg.score_dtype == "int16" else None
+
+    def _reduce_flat(
+        self, flat_all: np.ndarray, packed: PackedDatabase, db: Optional[Database] = None, profile=None
+    ) -> np.ndarray:
+        """Scatter one query's flat scores back to file order (wave, then
+        ladder, then segment groups; pads dropped; zero-length records,
+        which no group holds, keep score 0) and rescore saturated rows
+        exactly against ``profile``, the query's profile on the device."""
         scores = np.zeros(packed.n_sequences, dtype=np.int32)
+        sat_ids = []
         off = 0
         for group in packed.wave_groups:
             vals = flat_all[off : off + group.rows]
             off += group.rows
             valid = group.ids >= 0
-            scores[group.ids[valid]] = vals[valid]
+            scores[group.ids[valid]] = vals[valid]  # exact int32: no rescore
+        for group in packed.groups:
+            size = group.chunks * group.rows
+            vals = flat_all[off : off + size]
+            off += size
+            ids = group.ids.ravel()
+            valid = ids >= 0
+            scores[ids[valid]] = vals[valid]
+            threshold = self._group_threshold(group.width)
+            if threshold is not None:
+                sat_ids.append(ids[valid][vals[valid] >= threshold])
+        for group in packed.seg_groups:
+            for batch in group.batches:
+                size = batch.rows * batch.s_max
+                z = flat_all[off : off + size].reshape(batch.rows, batch.s_max)
+                off += size
+                ids, vals = segpack.extract_scores(batch, z, group.sat)
+                scores[ids] = vals
+                sat_ids.append(ids[vals >= group.sat])
+        if sat_ids:
+            self._rescore(scores, np.concatenate(sat_ids), db, profile)
         return scores
+
+    def _rescore(self, scores: np.ndarray, sat_ids: np.ndarray, db: Database, profile: torch.Tensor) -> None:
+        """Rescore saturated rows exactly in int32 (row_sw.sw_score_bucket on
+        the engine's device), all in one bucket padded to a 256-residue
+        quantum; pad columns cannot change a score."""
+        if sat_ids.size == 0:
+            return
+        if db is None or profile is None:
+            raise ValueError("saturated rows need the database and the query profile to be rescored")
+        seqs = [db.sequence(int(i)) for i in sat_ids]
+        width = max(256, -(-max(len(x) for x in seqs) // 256) * 256)
+        subj = np.full((len(seqs), width), PAD_SUBJECT, dtype=np.int8)
+        for k, x in enumerate(seqs):
+            subj[k, : len(x)] = x
+        exact = row_sw.sw_score_bucket(profile, self._upload(subj), gap=self.config.gap_penalty, strip=self.config.query_strip)
+        scores[sat_ids] = exact.cpu().numpy()
+        self.rescored_rows += int(sat_ids.size)
 
     # --- device top-K and E-values ------------------------------------------------
 
@@ -475,9 +717,11 @@ class SearchEngine:
     # --- single search --------------------------------------------------------------
 
     def _profile(self, query: Query) -> torch.Tensor:
-        """A single search's (qpad, 32) profile on the device (exact padding
-        unless query_ladder=True)."""
-        return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=self._query_pad(query.length, wave_sw.W)))
+        """A single search's (qpad, 32) profile on the device: padded to the
+        wave band (W) or, on the row path, to ``query_strip``; exactly unless
+        query_ladder=True."""
+        quantum = wave_sw.W if self._wave_enabled else self.config.query_strip
+        return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=self._query_pad(query.length, quantum)))
 
     def search_packed(
         self, query: Query, db: Database, packed: PackedDatabase, skip_device_topk: bool = False
@@ -494,7 +738,7 @@ class SearchEngine:
         with timer.phase("plan"):
             profile = self._profile(query)
         qpad = profile.shape[0]
-        launches0 = wave_sw.sw_wave.launches
+        launches0 = self._launches()
 
         if cfg.top_k is not None and not skip_device_topk and packed.wave_groups:
             setup = self._topk_setup(db, packed)
@@ -506,7 +750,7 @@ class SearchEngine:
                 self._sync()
             metrics = self._metrics(
                 query, db, qpad * packed.total_cells, time.perf_counter() - t_start, self._seconds(t0, t1),
-                phases=dict(timer.phases), kernel_launches=wave_sw.sw_wave.launches - launches0,
+                phases=dict(timer.phases), kernel_launches=self._launches() - launches0,
             )
             return self._topk_result(
                 query, db, packed, setup, vals.numpy(), ids.numpy(), None if moms is None else moms.numpy(), metrics
@@ -514,7 +758,7 @@ class SearchEngine:
 
         with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells (query length {query.length})"):
             t0 = self._mark()
-            flat = self._packed_step(profile, packed.wave_groups)
+            flat = self._flat(profile, packed)
             t1 = self._mark()
             if self._on_cuda:
                 t1.synchronize()
@@ -524,21 +768,24 @@ class SearchEngine:
         transfer_seconds = time.perf_counter() - t_copy
 
         with timer.phase("reduce"):
-            scores = self._reduce_flat(flat_all, packed)
+            scores = self._reduce_flat(flat_all, packed, db, profile)
 
         metrics = self._metrics(
             query, db, qpad * packed.total_cells, time.perf_counter() - t_start, device_seconds,
             phases=dict(timer.phases), transfer_seconds=transfer_seconds,
-            kernel_launches=wave_sw.sw_wave.launches - launches0,
+            kernel_launches=self._launches() - launches0,
         )
         return self._attach_null(SearchResult(scores=scores, metrics=metrics), query, db)
 
     def search(self, query: Query, db: Database) -> SearchResult:
         """Search ``db``: resident (packed on its first search) when it fits
-        the budget, else streamed bucket by bucket with exact query padding."""
+        the budget, else streamed bucket by bucket (wave path) or batch by
+        batch (row path) with exact query padding."""
         packed = self._resident_packed(db)
         if packed is not None:
             return self.search_packed(query, db, packed)
+        if not self._wave_enabled:
+            return self._attach_null(self._search_rows_streaming(query, db), query, db)
         return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
 
     # --- batched serving ------------------------------------------------------------
@@ -618,6 +865,12 @@ class SearchEngine:
         """
         if not queries:
             return []
+        if not self._wave_enabled:
+            if packed is None:
+                packed = self._resident_packed(db)
+                if packed is None:
+                    return [self.search(q, db) for q in queries]
+            return self._search_many_rows(queries, db, packed)
         if packed is None:
             packed = self._resident_packed(db)
             if packed is None:
@@ -628,6 +881,51 @@ class SearchEngine:
         if not packed.wave_groups:  # every record is empty: nothing to launch
             return [self.search_packed(q, db, packed) for q in queries]
         return self._search_many_wave(queries, db, packed)
+
+    def _search_many_rows(self, queries: List[Query], db: Database, packed: PackedDatabase) -> List[SearchResult]:
+        """search_many on a row-path pack: queries sorted by length form
+        groups of at most 4 within 1.3x length (+ query_strip), each padded
+        to one row count; every query of a group is enqueued against every
+        group of the pack (one K2 launch per ladder group with
+        ``use_pallas``), then one sync per query group.  Per-query times are
+        cell-proportional shares (``SearchMetrics.attributed``)."""
+        cfg = self.config
+        order = sorted(range(len(queries)), key=lambda i: queries[i].length)
+        qgroups: List[List[int]] = []
+        for i in order:
+            if (
+                qgroups
+                and len(qgroups[-1]) < 4
+                and queries[i].length <= 1.3 * queries[qgroups[-1][0]].length + cfg.query_strip
+            ):
+                qgroups[-1].append(i)
+            else:
+                qgroups.append([i])
+        out: List[Optional[SearchResult]] = [None] * len(queries)
+        for qg in qgroups:
+            t_start = time.perf_counter()
+            launches0 = self._launches()
+            profiles = [make_profile(queries[i].residues, self.matrix, pad_rows_to=cfg.query_strip) for i in qg]
+            qpad = max(p.shape[0] for p in profiles)
+            stack = self._upload(np.stack([make_profile(queries[i].residues, self.matrix, pad_rows_to=qpad) for i in qg]))
+            with self._oom_hint(f"batched scoring of {len(qg)} queries vs {packed.total_cells} packed cells"):
+                t0 = self._mark()
+                flats = [self._row_step(stack[k], packed) for k in range(len(qg))]
+                t1 = self._mark()
+                flats = [self._to_host(f) for f in flats]
+                self._sync()
+            device_seconds = self._seconds(t0, t1)
+            launches = self._launches() - launches0
+            total_true = sum(queries[i].length for i in qg) * db.length_sum
+            for k, i in enumerate(qg):
+                scores = self._reduce_flat(flats[k].numpy(), packed, db, stack[k])
+                share = (queries[i].length * db.length_sum) / max(total_true, 1)
+                metrics = self._metrics(
+                    queries[i], db, qpad * packed.total_cells, (time.perf_counter() - t_start) * share,
+                    device_seconds * share, attributed=True, kernel_launches=launches,
+                )
+                out[i] = self._attach_null(SearchResult(scores=scores, metrics=metrics), queries[i], db)
+        return out  # type: ignore[return-value]
 
     # --- queued serving ---------------------------------------------------------------
 
@@ -651,34 +949,34 @@ class SearchEngine:
         setup = self._topk_setup(db, packed) if topk else None
 
         t_start = time.perf_counter()
-        launches0 = wave_sw.sw_wave.launches
+        launches0 = self._launches()
         pending = []
         with self._oom_hint(f"queued scoring of {len(queries)} queries"):
             t0 = self._mark()
             for q in queries:
                 profile = self._profile(q)
-                flat = self._packed_step(profile, packed.wave_groups)
+                flat = self._flat(profile, packed)
                 fetched = self._topk_reduce(flat, setup) if topk else (flat,)
                 # Each query's copy streams while later queries compute.
-                pending.append((profile.shape[0], [None if x is None else self._to_host(x) for x in fetched]))
+                pending.append((profile, [None if x is None else self._to_host(x) for x in fetched]))
             t1 = self._mark()
             self._sync()  # the one sync of the batch
         device_seconds = self._seconds(t0, t1)
-        launches = wave_sw.sw_wave.launches - launches0
+        launches = self._launches() - launches0
 
         results = []
         total_true = sum(q.length for q in queries) * max(db.length_sum, 1)
-        for q, (qpad, fetched) in zip(queries, pending):
+        for q, (profile, fetched) in zip(queries, pending):
             share = (q.length * db.length_sum) / max(total_true, 1)
             metrics = self._metrics(
-                q, db, qpad * packed.total_cells, (time.perf_counter() - t_start) * share,
+                q, db, profile.shape[0] * packed.total_cells, (time.perf_counter() - t_start) * share,
                 device_seconds * share, attributed=True, kernel_launches=launches,
             )
             if topk:
                 vals, ids, moms = (None if x is None else x.numpy() for x in fetched)
                 results.append(self._topk_result(q, db, packed, setup, vals, ids, moms, metrics))
             else:
-                scores = self._reduce_flat(fetched[0].numpy(), packed)
+                scores = self._reduce_flat(fetched[0].numpy(), packed, db, profile)
                 results.append(self._attach_null(SearchResult(scores=scores, metrics=metrics), q, db))
         return results
 
@@ -776,6 +1074,58 @@ class SearchEngine:
                 ),
             ))
         return results
+
+
+    def _search_rows_streaming(self, query: Query, db: Database) -> SearchResult:
+        """The row path for a database that is not resident: pack the ladder
+        plan batch by batch on the host, upload each, score it with the
+        streamed scorer (K3 with ``use_pallas``), scatter the scores to file
+        order, and rescore saturated rows exactly.  Device time is the sum of
+        the scorer's own spans (CUDA events), without the host packing."""
+        timer = PhaseTimer()
+        t_start = time.perf_counter()
+        with timer.phase("plan"):
+            plan = self.plan(db)
+            profile = self._upload(make_profile(query.residues, self.matrix, pad_rows_to=self.config.query_strip))
+        launches0 = self._launches()
+        batches = iter_packed(db, plan)
+        pending = []
+        pack_time = 0.0
+        with self._oom_hint(f"streaming {len(plan.batches)} batches ({plan.total_cells} cells)"):
+            while True:
+                t0 = time.perf_counter()
+                item = next(batches, None)
+                if item is not None:
+                    subj = self._upload(item[1])
+                pack_time += time.perf_counter() - t0
+                if item is None:
+                    break
+                m0 = self._mark()
+                out, threshold = self._kernel(profile, subj)
+                pending.append((self._to_host(out), threshold, m0, self._mark()))
+            with timer.phase("device_sync"):
+                self._sync()
+        timer.phases["pack_and_put"] = pack_time
+        device_seconds = sum(self._seconds(m0, m1) for _, _, m0, m1 in pending)
+        launches = self._launches() - launches0
+        per_batch = [host.numpy() for host, _, _, _ in pending]
+        with timer.phase("reduce"):
+            scores = scatter_scores(plan, per_batch)
+        with timer.phase("rescore_saturated"):
+            sat_ids = [
+                batch.ids[np.nonzero(vals[: batch.n_valid] >= threshold)[0]]
+                for batch, vals, (_, threshold, _, _) in zip(plan.batches, per_batch, pending)
+                if threshold is not None
+            ]
+            if sat_ids:
+                self._rescore(scores, np.concatenate(sat_ids).astype(np.int64), db, profile)
+        return SearchResult(
+            scores=scores,
+            metrics=self._metrics(
+                query, db, profile.shape[0] * plan.total_cells, time.perf_counter() - t_start, device_seconds,
+                phases=dict(timer.phases), kernel_launches=launches,
+            ),
+        )
 
 
 def search_file(query_path, db_path, config: SWConfig = SWConfig(), device=None) -> SearchResult:

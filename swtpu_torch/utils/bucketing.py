@@ -1,19 +1,24 @@
-"""Wave-bucket planning and packing (the wave half of ``swtpu.utils.bucketing``).
+"""Bucket planning and packing (``swtpu.utils.bucketing``).
 
-The planner sorts sequences onto a ladder of widths, merges rungs into
-buckets by a modeled cost, and picks per bucket how many subjects to chain
-end to end on a lane.  Its layout parameters are the TPU-derived ones of
-swtpu_torch.ops.wave_sw, so buckets come out identical to swtpu's.
+Two planners live here.  The wave planner sorts sequences onto a ladder of
+widths, merges rungs into buckets by a modeled cost, and picks per bucket how
+many subjects to chain end to end on a lane; its layout parameters are the
+TPU-derived ones of swtpu_torch.ops.wave_sw, so buckets come out identical to
+swtpu's.  Wave packing is a gather on the target device from the database's
+flat residue buffer, uploaded once: per bucket the host builds member offsets
+and lengths and the device computes each cell's source.
 
-Packing is a gather on the target device from the database's flat residue
-buffer, uploaded once: per bucket the host builds member offsets and lengths
-and the device computes each cell's source.
+The ladder planner (``plan_batches``) serves the row path: subjects sorted
+longest first into row-major ``(rows, width)`` batches whose widths sit on a
+quantised ladder, and same-shape batches stacked into ``(C, rows, width)``
+groups.  It packs with NumPy on the host (swtpu's non-native path) and
+uploads each stack to the engine's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,15 +85,42 @@ class WaveGroup:
 
 
 @dataclasses.dataclass(frozen=True)
-class PackedDatabase:
-    """A database packed into wave buckets on one device."""
+class PackedGroup:
+    """All of a plan's batches that share one (rows, width) shape, stacked.
 
-    wave_groups: Tuple[WaveGroup, ...]
+    ``stack`` is a (C, rows, width) int8 tensor on the engine's device;
+    ``ids`` is (C, rows) int64 with -1 marking pad rows.
+    """
+
+    rows: int
+    width: int
+    stack: torch.Tensor  # (C, rows, width) int8
+    ids: np.ndarray  # (C, rows) int64, -1 = pad slot
+
+    @property
+    def chunks(self) -> int:
+        return int(self.ids.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedDatabase:
+    """A database packed on one device: wave buckets (the wavefront path),
+    or ladder groups plus segment-packed groups (swtpu_torch.utils.segpack)
+    for the row path.  Flat scores run wave, then ladder, then segment
+    groups."""
+
+    groups: Tuple[PackedGroup, ...]
     n_sequences: int
+    seg_groups: Tuple = ()  # Tuple[segpack.PackedSegGroup, ...]
+    wave_groups: Tuple[WaveGroup, ...] = ()
 
     @property
     def total_cells(self) -> int:
-        return sum(g.cells for g in self.wave_groups)
+        return (
+            sum(g.chunks * g.rows * g.width for g in self.groups)
+            + sum(g.cells for g in self.seg_groups)
+            + sum(g.cells for g in self.wave_groups)
+        )
 
 
 # Chain factors the planner may consider.
@@ -236,7 +268,7 @@ def pack_database_wave(
         pack_wave_group(db, width, ids, bt, bpad, n_segs, residues=residues)
         for width, ids, bt, bpad, n_segs in plan
     )
-    return PackedDatabase(wave_groups=groups, n_sequences=db.n)
+    return PackedDatabase(groups=(), n_sequences=db.n, wave_groups=groups)
 
 
 def iter_wave_groups(db: Database, device="cpu", max_rows: int = 1 << 20, chain: bool = True) -> Iterator[WaveGroup]:
@@ -244,3 +276,163 @@ def iter_wave_groups(db: Database, device="cpu", max_rows: int = 1 << 20, chain:
     residues = upload_residues(db, device)
     for width, ids, bt, bpad, n_segs in plan_wave_buckets(db, max_rows, chain=chain):
         yield pack_wave_group(db, width, ids, bt, bpad, n_segs, residues=residues)
+
+
+# --- the ladder planner of the row path -------------------------------------------
+
+
+def width_edges(max_width: int, quantum: int = 128, ratio: float = 1.25) -> List[int]:
+    """Quantised width ladder covering [quantum, >=max_width]."""
+    edges = [quantum]
+    while edges[-1] < max_width:
+        nxt = max(edges[-1] + quantum, int(-(-edges[-1] * ratio // quantum) * quantum))
+        edges.append(nxt)
+    return edges
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(x, 1).bit_length() - 1)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << (max(x, 1) - 1).bit_length() if x > 1 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Batch:
+    """One static-shaped unit of row-path work."""
+
+    ids: np.ndarray  # (n_valid,) database sequence ids (file order)
+    rows: int  # batch row count
+    width: int  # padded subject length
+
+    @property
+    def n_valid(self) -> int:
+        return int(self.ids.shape[0])
+
+    @property
+    def cells(self) -> int:
+        return self.rows * self.width
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """A full packing plan for one database."""
+
+    batches: Tuple[Batch, ...]
+    n_sequences: int
+    shapes: Tuple[Tuple[int, int], ...]  # distinct (rows, width)
+
+    @property
+    def total_cells(self) -> int:
+        return sum(b.cells for b in self.batches)
+
+
+def plan_batches(
+    lengths: np.ndarray,
+    batch_rows: int = 8192,
+    length_quantum: int = 128,
+    max_batch_cells: int = 1 << 23,
+    min_rows: int = 8,
+    width_ratio: float = 1.25,
+    min_width: int = 256,
+    min_bucket_rows: int = 256,
+) -> BatchPlan:
+    """Plan static-shaped batches for a database given its sequence lengths.
+
+    Sequences sort longest first (stable, so equal lengths keep file order)
+    and pad to their own ladder edge; a width's run of sequences is cut into
+    batches of at most ``batch_rows`` rows, fewer for wide widths so rows *
+    width stays under ``max_batch_cells``.  ``min_width`` floors the ladder;
+    ``min_bucket_rows`` merges sparse narrower widths into a wider run
+    within a whole-plan padding budget.  Partial tail batches declare a
+    quantised row count (powers of two below 256, 128-steps above), a
+    multiple of ``min_rows``.
+    """
+    n = int(lengths.shape[0])
+    if n == 0:
+        return BatchPlan(batches=(), n_sequences=0, shapes=())
+    lengths = np.asarray(lengths, dtype=np.int64)
+    order = np.argsort(-lengths, kind="stable").astype(np.int32)
+    edges = np.array(
+        [e for e in width_edges(int(lengths.max()), quantum=length_quantum, ratio=width_ratio) if e >= min_width]
+        or [min_width],
+        dtype=np.int64,
+    )
+    if edges[0] > min_width:
+        edges = np.concatenate([[min_width], edges])
+    sorted_w = edges[np.searchsorted(edges, np.maximum(lengths[order], 1))]
+    batches: List[Batch] = []
+    pos = 0
+    # Whole-plan budget for merge padding: ~256k extra cells or 1/16 of the
+    # true work, whichever is smaller.
+    absorb_budget = min(1 << 18, int(lengths.sum()) >> 4)
+    while pos < n:
+        width = int(sorted_w[pos])
+        end = pos + int(np.searchsorted(-sorted_w[pos:], -width, side="right"))
+        while end < n and (end - pos) < min_bucket_rows:
+            w2 = int(sorted_w[end])
+            nxt = end + int(np.searchsorted(-sorted_w[end:], -w2, side="right"))
+            extra = (nxt - end) * (width - w2)
+            if extra > absorb_budget:
+                break
+            absorb_budget -= extra
+            end = nxt
+        rows = min(batch_rows, max(min_rows, _pow2_floor(max_batch_cells // width)))
+        rows = max(min_rows, rows - rows % min_rows)
+        while pos < end:
+            take = min(rows, end - pos)
+            decl = -(-take // 128) * 128 if take > 256 else _pow2_ceil(take)
+            decl = -(-max(min_rows, decl) // min_rows) * min_rows
+            decl = min(rows, decl)
+            batches.append(Batch(ids=order[pos : pos + take].copy(), rows=decl, width=width))
+            pos += take
+    shapes = tuple(sorted({(b.rows, b.width) for b in batches}))
+    return BatchPlan(batches=tuple(batches), n_sequences=n, shapes=shapes)
+
+
+def pack_batch(db: Database, batch: Batch) -> np.ndarray:
+    """Materialise a (rows, width) int8 subject array for a batch: one
+    vectorised gather from the flat residue buffer (pads PAD_SUBJECT)."""
+    W, R = batch.width, batch.rows
+    ids = batch.ids.astype(np.int64)
+    offs = db.offsets[ids][:, None]  # (V, 1)
+    lens = (db.offsets[ids + 1] - db.offsets[ids])[:, None]  # (V, 1)
+    cols = np.arange(W, dtype=np.int64)[None, :]  # (1, W)
+    valid = cols < lens  # (V, W)
+    src = np.minimum(offs + cols, max(db.residues.shape[0] - 1, 0))
+    out = np.full((R, W), PAD_SUBJECT, dtype=np.int8)
+    if db.residues.shape[0]:
+        out[: ids.shape[0]] = np.where(valid, db.residues[src], PAD_SUBJECT)
+    return out
+
+
+def iter_packed(db: Database, plan: BatchPlan) -> Iterator[Tuple[Batch, np.ndarray]]:
+    """Yield (batch, packed subjects) pairs in plan order."""
+    for b in plan.batches:
+        yield b, pack_batch(db, b)
+
+
+def pack_database(db: Database, plan: BatchPlan, device="cpu") -> PackedDatabase:
+    """Materialise the full plan as stacked same-shape groups on ``device``
+    (packed on the host, one upload per group)."""
+    by_shape: dict = {}
+    for batch in plan.batches:
+        by_shape.setdefault((batch.rows, batch.width), []).append(batch)
+    groups: List[PackedGroup] = []
+    for (rows, width), batches in sorted(by_shape.items()):
+        stack = np.empty((len(batches), rows, width), dtype=np.int8)
+        ids = np.full((len(batches), rows), -1, dtype=np.int64)
+        for c, b in enumerate(batches):
+            stack[c] = pack_batch(db, b)
+            ids[c, : b.n_valid] = b.ids
+        groups.append(PackedGroup(rows=rows, width=width, stack=torch.from_numpy(stack).to(device), ids=ids))
+    return PackedDatabase(groups=tuple(groups), n_sequences=plan.n_sequences)
+
+
+def scatter_scores(plan: BatchPlan, per_batch_scores: Sequence[np.ndarray]) -> np.ndarray:
+    """Zip per-batch score vectors back into file-order (n,) scores."""
+    out = np.zeros(plan.n_sequences, dtype=np.int32)
+    for batch, scores in zip(plan.batches, per_batch_scores):
+        out[batch.ids] = np.asarray(scores)[: batch.n_valid]
+    return out

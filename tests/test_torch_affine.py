@@ -230,15 +230,16 @@ def test_oracle_copy_matches_swtpu(name):
         (dict(gap_open=1, gap_extend=5), ValueError, "gap_open >= gap_extend"),
         (dict(gap_open=3, gap_extend=-1), ValueError, "gap_open >= gap_extend"),
         (dict(gap_open=10, gap_extend=1, score_dtype="int16"), ValueError, "int32"),
-        (dict(gap_open=10, gap_extend=1, use_wave=False), NotImplementedError, "slice A13"),
+        (dict(gap_open=10, gap_extend=1, use_wave=False), ValueError, "wavefront"),
     ],
 )
 def test_config_affine_validation(kw, exc, match):
+    """The config refuses the gaps themselves; the engine refuses affine
+    gaps off the wavefront path, as swtpu's does."""
     with pytest.raises(exc, match=match):
-        SWConfig(**kw)
-    if exc is ValueError:  # swtpu refuses the same settings
-        with pytest.raises(ValueError):
-            JConfig(**kw)
+        SearchEngine(SWConfig(**kw), device="cpu")
+    with pytest.raises(ValueError):  # swtpu refuses the same settings
+        JEngine(JConfig(**kw))
 
 
 # --- the engine -------------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """CUDA kernel and engine on the card (marker ``gpu``).
 
 These tests need an NVIDIA GPU with nvcc; elsewhere the ``cuda`` fixture
-skips them.  The kernel (one query and a query axis) is held exactly to its
-plain PyTorch version on the same card, linear and affine, and the engine's
-single, batched, queued, streaming and top-K paths to the committed goldens;
-align_top_k on the card gives the alignments it gives on the CPU.
+skips them.  The wavefront kernel (one query and a query axis) is held
+exactly to its plain PyTorch version on the same card, linear and affine,
+and the engine's single, batched, queued, streaming and top-K paths to the
+committed goldens; align_top_k on the card gives the alignments it gives on
+the CPU.  The row kernels K2 and K3 are held to their plain versions, and
+the ``use_pallas`` engine (resident through K2, streamed through K3) to the
+goldens.
 """
 
 from pathlib import Path
@@ -18,7 +21,7 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import Query, parse_database, parse_query
 from swtpu_torch.matrices import blosum50_ref
 from swtpu_torch.models.search import SearchEngine, SearchResult
-from swtpu_torch.ops import wave_sw
+from swtpu_torch.ops import bucket_sw, row_sw, wave_sw
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -166,3 +169,42 @@ def test_affine_kernel_chained_equals_unchained(cuda):
     kw = dict(gap_open=10, gap_extend=2)
     got = wave_sw.sw_wave(prof, torch.from_numpy(chained).to(cuda), n_segs=S, **kw)[:n]
     assert torch.equal(got, wave_sw.sw_wave(prof, torch.from_numpy(single).to(cuda), **kw))
+
+
+@pytest.mark.parametrize(
+    "qlen,C,B,L,gap",
+    [(1, 1, 1, 8, 2), (20, 3, 77, 40, 1), (33, 17, 129, 128, 2), (100, 3, 333, 200, 11), (464, 1, 9, 4100, 2),
+     (300, 3, 31, 6000, 1)],
+)
+def test_row_kernels_match_plain(cuda, qlen, C, B, L, gap):
+    rng = np.random.default_rng(qlen + C)
+    prof = make_profile(rng.integers(0, 25, qlen).astype(np.int8), blosum50_ref(), pad_rows_to=32)
+    stack = np.full((C, B, L), PAD_SUBJECT, dtype=np.int8)
+    for c in range(C):
+        for b in range(B - (c == C - 1)):  # the last row of the last chunk stays empty
+            n = int(rng.integers(1, L + 1))
+            stack[c, b, :n] = rng.integers(0, 25, n)
+    prof, stack = torch.from_numpy(prof).to(cuda), torch.from_numpy(stack).to(cuda)
+    before = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
+    fused = bucket_sw.sw_score_bucket_fused(prof, stack, gap=gap)
+    single = bucket_sw.sw_score_bucket(prof, stack[C // 2], gap=gap)
+    torch.cuda.synchronize()
+    assert (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches) == (before[0] + 1, before[1] + 1)
+    assert fused.shape == (C, B) and torch.equal(fused, row_sw.sw_score_stack(prof, stack, gap=gap, strip=32))
+    assert torch.equal(single, row_sw.sw_score_bucket(prof, stack[C // 2], gap=gap, strip=32))
+
+
+@pytest.mark.parametrize("resident", [True, False], ids=["K2 resident", "K3 streamed"])
+def test_pallas_engine_subset_goldens_on_card(cuda, resident):
+    db = parse_database(DATA / "uniprot_subset.fasta")
+    eng = SearchEngine(SWConfig(use_wave=False, use_pallas=True, device_resident=resident), device=cuda)
+    for query in ("P02232", "P01008", "P05013"):
+        before = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
+        res = eng.search(parse_query(DATA / "queries" / f"{query}.fasta"), db)
+        assert np.array_equal(res.scores, np.loadtxt(DATA / f"golden_{query}_subset.txt", dtype=np.int64))
+        k2 = bucket_sw.sw_score_bucket_fused.launches - before[0]
+        k3 = bucket_sw.sw_score_bucket.launches - before[1]
+        if resident:
+            assert (k2, k3) == (len(eng._resident_packed(db).groups), 0) and k2 > 0
+        else:
+            assert (k2, k3) == (0, len(eng.plan(db).batches))

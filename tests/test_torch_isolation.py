@@ -1,11 +1,11 @@
 """The port stands alone and never hides the device.
 
-* importing swtpu_torch (its stats copy included) and running a search and
-  a batched top-K with E-values loads neither JAX nor swtpu (a subprocess:
-  every pytest process here has imported JAX already);
+* importing swtpu_torch (its stats copy included) and running a search, a
+  row-path search and a batched top-K with E-values loads neither JAX nor
+  swtpu (a subprocess: every pytest process here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
 * every knob of a later slice raises instead of being ignored, and the
-  serving and affine-gap knobs are accepted.
+  serving, affine-gap and row-path knobs are accepted.
 """
 
 import subprocess
@@ -26,12 +26,15 @@ def test_port_imports_neither_jax_nor_swtpu():
 import sys
 import swtpu_torch.cli, swtpu_torch.models.search, swtpu_torch.synth, swtpu_torch.ops._build, swtpu_torch.stats
 import swtpu_torch.models.align, swtpu_torch.ops.oracle
+import swtpu_torch.ops.row_sw, swtpu_torch.ops.bucket_sw, swtpu_torch.utils.segpack
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
 q, db = parse_query("tests/data/queries/P05013.fasta"), parse_database("tests/data/uniprot_subset.fasta")
 res = SearchEngine(SWConfig(), device="cpu").search(q, db)
 assert res.scores.shape == (111,)
+rows = SearchEngine(SWConfig(use_wave=False, use_pallas=True), device="cpu").search(q, db)
+assert (rows.scores == res.scores).all()
 hits = SearchEngine(SWConfig(top_k=3, evalue=True), device="cpu").search_many([q], db)[0].top_k_stats(3)
 assert len(hits) == 3
 alns = swtpu_torch.models.align.align_top_k(q, db, k=2, config=SWConfig(gap_open=10, gap_extend=1), device="cpu")
@@ -71,10 +74,6 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
         ("mesh_shape", (2,)),
         ("query_shard", True),
         ("wave_compose", True),
-        ("score_dtype", "int16"),
-        ("use_pallas", True),
-        ("use_wave", False),
-        ("segment_packing", False),
     ],
 )
 def test_unported_knobs_raise(knob, value):
@@ -84,7 +83,10 @@ def test_unported_knobs_raise(knob, value):
 
 @pytest.mark.parametrize(
     "knob,value",
-    [("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True), ("gap_open", 11)],
+    [
+        ("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True), ("gap_open", 11),
+        ("score_dtype", "int16"), ("use_pallas", True), ("use_wave", False), ("segment_packing", False),
+    ],
 )
 def test_serving_knobs_accepted(knob, value):
     extra = {"gap_extend": 1} if knob == "gap_open" else {}  # affine gaps are set as a pair
