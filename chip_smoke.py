@@ -48,12 +48,15 @@ Phases (one line each; any failure exits non-zero with no result line):
               strings by an independent scorer equals its device score
   9. rows     the row path on the same resident database with P01008, every
               score array bit-equal to the wavefront path's: K2 resident
-              (use_pallas; K2's counts zeroed just before the first search,
-              read just after), fast16 plus seg16 and the int16 parity mode
-              with their exact rescore, K3 streamed (its counts equal the
-              plan's batches), search_many and search_queued for three suite
-              queries, int16 top-K with E-values; K2 and K3 alone against
-              their plain versions on the same work
+              (use_wave=False, whose use_pallas resolves to the row kernels
+              on the card; K2's counts zeroed just before the first search,
+              read just after), the PyTorch scorers (use_pallas=False:
+              fast16 plus seg16) and the int16 parity mode, through K2 and
+              through the PyTorch scorers, with their exact rescore, K3
+              streamed (its counts equal the plan's batches), search_many
+              and search_queued for three suite queries, int16 top-K with
+              E-values; K2 and K3 alone against their plain versions on the
+              same work
  10. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time and the card's lower bound for the same work
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
@@ -844,7 +847,7 @@ def phase_rows(db, wave_engine):
 
     # --- K2 resident: this phase's main path, counts zeroed just before, read just after
     torch.cuda.reset_peak_memory_stats()
-    k2_engine = SearchEngine(SWConfig(use_wave=False, use_pallas=True), device="cuda")
+    k2_engine = SearchEngine(SWConfig(use_wave=False), device="cuda")  # use_pallas auto: K2 on the card
     bucket_sw.sw_score_bucket_fused.launches = bucket_sw.sw_score_bucket.launches = 0
     t0 = time.perf_counter()
     first = k2_engine.search(query, db)  # packs the database on the card, then scores
@@ -885,9 +888,10 @@ def phase_rows(db, wave_engine):
         max_abs_err_vs_plain=k2_err, groups=dict(columns=["chunks", "rows", "width", "ms"],
         rows=[(g.chunks, g.rows, g.width, ms) for g, ms in zip(packed.groups, k2_group_ms)]))
 
-    # --- fast16 + seg16 on the same pack, and the int16 parity mode on its own
+    # --- the PyTorch scorers on the same pack (fast16 + seg16), and the int16
+    # parity mode on its own pack, through K2 (auto) and the PyTorch scorers
     modes = {}
-    fast = SearchEngine(SWConfig(use_wave=False), device="cuda")
+    fast = SearchEngine(SWConfig(use_wave=False, use_pallas=False), device="cuda")
     res, modes["fast16_seg16"] = timed(fast, lambda: fast.search_packed(query, db, packed))
     check("fast16 + seg16", res.scores)
     i16 = SearchEngine(SWConfig(score_dtype="int16"), device="cuda")
@@ -896,11 +900,16 @@ def phase_rows(db, wave_engine):
     i16_pack_s = time.perf_counter() - t0
     res, modes["int16"] = timed(i16, lambda: i16.search(query, db))
     check("int16", res.scores)
+    if modes["int16"]["launches"] == 0:
+        raise AssertionError("int16 resident search launched no row kernel on the card")
     modes["int16"].update(pack_seconds=i16_pack_s, ladder_groups=len(i16_packed.groups),
                           resident_bytes=sum(g.stack.numel() for g in i16_packed.groups))
+    i16_torch = SearchEngine(SWConfig(score_dtype="int16", use_pallas=False), device="cuda")
+    res, modes["int16_pytorch"] = timed(i16_torch, lambda: i16_torch.search_packed(query, db, i16_packed))
+    check("int16 (PyTorch scorers)", res.scores)
 
     # --- K3 streamed: counts zeroed just before, read just after
-    streamed = SearchEngine(SWConfig(use_wave=False, use_pallas=True, device_resident=False), device="cuda")
+    streamed = SearchEngine(SWConfig(use_wave=False, device_resident=False), device="cuda")
     plan = streamed.plan(db)
     bucket_sw.sw_score_bucket_fused.launches = bucket_sw.sw_score_bucket.launches = 0
     res, modes["k3_streamed"] = timed(streamed, lambda: streamed.search(query, db))
@@ -930,7 +939,8 @@ def phase_rows(db, wave_engine):
         padded_cells=profile.shape[0] * plan.total_cells, k3_ms_per_search=k3_ms, k3_plain_ms_per_search=k3_plain_ms,
         bound_ms=k3_bound, bound_by=k3_by, bound_share=k3_bound / k3_ms, max_abs_err_vs_plain=k3_err)
 
-    # --- serving on the K2 engine, against the wavefront scores of each query
+    # --- serving on the K2 engine (search_many is search_queued on the row
+    # path), against the wavefront scores of each query
     qs = [parse_query(qdir / f"{name}.fasta") for name in ROW_QUERIES]
     wave = [wave_engine.search(q, db).scores for q in qs]
     serving = {}

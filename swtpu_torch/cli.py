@@ -64,7 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--no-scores", action="store_true", help="skip the per-sequence score dump")
     p.add_argument("--json", action="store_true", help="emit metrics as one JSON line")
-    p.add_argument("--pallas", action="store_true", help="row path: score through the CUDA kernels K2 and K3")
+    p.add_argument(
+        "--pallas",
+        action="store_true",
+        help="row path: score through the CUDA kernels K2 and K3 (default: auto, on with a CUDA device)",
+    )
     p.add_argument("--no-pallas", action="store_true", help="row path: force the PyTorch scorers")
     p.add_argument(
         "--wave",
@@ -104,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             score_dtype=args.score_dtype,
             batch_rows=args.batch_rows,
             length_quantum=args.length_quantum,
-            use_pallas=args.pallas and not args.no_pallas,
+            use_pallas=False if args.no_pallas else (True if args.pallas else None),
             use_wave=args.wave,
             top_k=args.top_k,
             evalue=args.evalue,

@@ -70,8 +70,10 @@ class SWConfig:
     # The wavefront kernel; None = auto: on (the card stands where swtpu has
     # its TPU), off in int16 parity mode.  False selects the row path.
     use_wave: Optional[bool] = None
-    # Row path: ladder groups through K2, streamed batches through K3.
-    use_pallas: bool = False
+    # Row path: ladder groups through K2, streamed batches through K3.  None
+    # = auto: on for a CUDA device, off on the CPU; False keeps the PyTorch
+    # scorers (swtpu's XLA family) on the card too.
+    use_pallas: Optional[bool] = None
 
     # --- knobs of later slices: defaults only ---------------------------------
     prefilter: Optional[float] = None

@@ -14,7 +14,8 @@ saturated rows exactly, so its scores are the same exact int32.
 Serving paths beside the single search:
 
 * ``search_many`` folds queries of equal padded length into one launch per
-  bucket (the kernel's multi-query mode) and syncs once per such piece;
+  bucket (the kernel's multi-query mode) and syncs once per such piece; on
+  the row path, whose kernels have no query axis, it is ``search_queued``;
 * ``search_queued`` enqueues every query's launches on the current stream
   and syncs once for the whole batch;
 * a database over the residency budget, or with ``device_resident=False``,
@@ -216,6 +217,8 @@ class SearchEngine:
         # int8 score staging of the int16 scorers is exact iff every folded
         # score fits int8.
         self._stage_int8 = int(self.matrix.max()) + config.gap_penalty <= 127
+        # The row kernels K2/K3 on the card, the PyTorch scorers on the CPU.
+        self._use_pallas = self._on_cuda if config.use_pallas is None else config.use_pallas
         self._kernel = self._select_kernel()
         self._resident: Optional[Tuple[Database, PackedDatabase]] = None
         self._topk_cache = None
@@ -327,7 +330,7 @@ class SearchEngine:
         if cfg.score_dtype == "int16":
             # Narrow-type saturating mode: int16 DP row, saturating at 32767.
             return lambda prof, subj: (row_sw.sw_score_bucket_sat16(prof, subj, gap=gap, strip=strip), row_sw.SAT16_MAX)
-        if cfg.use_pallas:
+        if self._use_pallas:
             return lambda prof, subj: (bucket_sw.sw_score_bucket(prof, subj, gap=gap, strip=strip), None)
 
         def kernel(prof, subj):
@@ -493,7 +496,7 @@ class SearchEngine:
         outs = []
         for g in packed.groups:
             sat = self._fast16_sat(g.width)
-            if cfg.use_pallas:
+            if self._use_pallas:
                 outs.append(self._fused_stack(profile, g.stack))
             elif sat is not None:
                 outs.append(row_sw.sw_score_stack_fast16(
@@ -518,7 +521,7 @@ class SearchEngine:
         K2 is exact int32 at every width (the TPU kernel stops at 4096 and
         routes wider groups to fast16)."""
         cfg = self.config
-        if cfg.use_pallas:
+        if self._use_pallas:
             return None
         sat = self._fast16_sat(width)
         if sat is not None:
@@ -866,11 +869,9 @@ class SearchEngine:
         if not queries:
             return []
         if not self._wave_enabled:
-            if packed is None:
-                packed = self._resident_packed(db)
-                if packed is None:
-                    return [self.search(q, db) for q in queries]
-            return self._search_many_rows(queries, db, packed)
+            # The row kernels have no query axis: each query keeps its own
+            # launches, and the batch syncs once.
+            return self.search_queued(queries, db, packed)
         if packed is None:
             packed = self._resident_packed(db)
             if packed is None:
@@ -882,69 +883,27 @@ class SearchEngine:
             return [self.search_packed(q, db, packed) for q in queries]
         return self._search_many_wave(queries, db, packed)
 
-    def _search_many_rows(self, queries: List[Query], db: Database, packed: PackedDatabase) -> List[SearchResult]:
-        """search_many on a row-path pack: queries sorted by length form
-        groups of at most 4 within 1.3x length (+ query_strip), each padded
-        to one row count; every query of a group is enqueued against every
-        group of the pack (one K2 launch per ladder group with
-        ``use_pallas``), then one sync per query group.  Per-query times are
-        cell-proportional shares (``SearchMetrics.attributed``)."""
-        cfg = self.config
-        order = sorted(range(len(queries)), key=lambda i: queries[i].length)
-        qgroups: List[List[int]] = []
-        for i in order:
-            if (
-                qgroups
-                and len(qgroups[-1]) < 4
-                and queries[i].length <= 1.3 * queries[qgroups[-1][0]].length + cfg.query_strip
-            ):
-                qgroups[-1].append(i)
-            else:
-                qgroups.append([i])
-        out: List[Optional[SearchResult]] = [None] * len(queries)
-        for qg in qgroups:
-            t_start = time.perf_counter()
-            launches0 = self._launches()
-            profiles = [make_profile(queries[i].residues, self.matrix, pad_rows_to=cfg.query_strip) for i in qg]
-            qpad = max(p.shape[0] for p in profiles)
-            stack = self._upload(np.stack([make_profile(queries[i].residues, self.matrix, pad_rows_to=qpad) for i in qg]))
-            with self._oom_hint(f"batched scoring of {len(qg)} queries vs {packed.total_cells} packed cells"):
-                t0 = self._mark()
-                flats = [self._row_step(stack[k], packed) for k in range(len(qg))]
-                t1 = self._mark()
-                flats = [self._to_host(f) for f in flats]
-                self._sync()
-            device_seconds = self._seconds(t0, t1)
-            launches = self._launches() - launches0
-            total_true = sum(queries[i].length for i in qg) * db.length_sum
-            for k, i in enumerate(qg):
-                scores = self._reduce_flat(flats[k].numpy(), packed, db, stack[k])
-                share = (queries[i].length * db.length_sum) / max(total_true, 1)
-                metrics = self._metrics(
-                    queries[i], db, qpad * packed.total_cells, (time.perf_counter() - t_start) * share,
-                    device_seconds * share, attributed=True, kernel_launches=launches,
-                )
-                out[i] = self._attach_null(SearchResult(scores=scores, metrics=metrics), queries[i], db)
-        return out  # type: ignore[return-value]
-
     # --- queued serving ---------------------------------------------------------------
 
-    def search_queued(self, queries: List[Query], db: Database) -> List[SearchResult]:
+    def search_queued(
+        self, queries: List[Query], db: Database, packed: Optional[PackedDatabase] = None
+    ) -> List[SearchResult]:
         """Throughput protocol: enqueue every query's own launches back to
         back on the current stream, then sync once for the whole batch.
 
-        Unlike :meth:`search_many` each query keeps its own launches (any
-        length mix, exact padding).  With ``config.top_k`` each query's
-        launches end in the device top-K and only candidate rows transfer.
-        Per-query times are cell-proportional shares
-        (``SearchMetrics.attributed``).  A database that cannot be resident
-        falls back to sequential :meth:`search` (which streams).
+        Unlike :meth:`search_many` on the wavefront path, each query keeps
+        its own launches (any length mix, exact padding).  With
+        ``config.top_k`` each query's launches end in the device top-K and
+        only candidate rows transfer.  Per-query times are cell-proportional
+        shares (``SearchMetrics.attributed``).  A database that cannot be
+        resident falls back to sequential :meth:`search` (which streams).
         """
         if not queries:
             return []
-        packed = self._resident_packed(db)
         if packed is None:
-            return [self.search(q, db) for q in queries]
+            packed = self._resident_packed(db)
+            if packed is None:
+                return [self.search(q, db) for q in queries]
         topk = self.config.top_k is not None and bool(packed.wave_groups)
         setup = self._topk_setup(db, packed) if topk else None
 

@@ -304,19 +304,22 @@ def test_row_serving_paths_equal_single_searches(hot, name):
     assert all(r.metrics.attributed for r in many) and eng.search_many([], db) == []
 
 
-def test_row_search_many_groups_queries_like_swtpu(monkeypatch):
-    """At most four queries within 1.3x length (+ strip) share a profile
-    stack; every query of a group is scored against every packed group."""
+def test_row_search_many_is_search_queued(monkeypatch):
+    """The row kernels have no query axis: search_many enqueues each query's
+    own exactly padded profile, in input order, and syncs once."""
     lengths = [40, 41, 52, 70, 75, 200, 30, 45]
     qs = [Query(f"q{k}", np.zeros(n, np.int8), "") for k, n in enumerate(lengths)]
     db = database_from_sequences(["ACDEFGHIKL" * 3, "MNPQ" * 200])
     eng = SearchEngine(SWConfig(use_wave=False), device="cpu")
-    stacks = []
+    packed = eng._resident_packed(db)
+    stacks, syncs = [], []
     real = eng._row_step
     monkeypatch.setattr(eng, "_row_step", lambda prof, packed: stacks.append(tuple(prof.shape)) or real(prof, packed))
-    eng.search_many(qs, db)
-    # sorted by length: 30 40 41 45 (the cap of four) | 52 70 75 | 200 (over 1.3 * 52 + 32)
-    assert stacks == [(64, 32)] * 4 + [(96, 32)] * 3 + [(224, 32)]
+    monkeypatch.setattr(eng, "_sync", lambda: syncs.append(1))
+    for run in (lambda: eng.search_many(qs, db), lambda: eng.search_many(qs, db, packed)):
+        stacks.clear(), syncs.clear()
+        run()
+        assert stacks == [(-(-n // 32) * 32, 32) for n in lengths] and syncs == [1]
 
 
 def test_row_topk_evalues_int16_match_swtpu():
@@ -377,6 +380,18 @@ def test_row_config_checks_match_swtpu(kw):
         SWConfig(**kw)
     with pytest.raises(ValueError):
         JConfig(**kw)
+
+
+@pytest.mark.parametrize(
+    "device,use_pallas,want", [("cpu", None, False), ("cuda", None, True), ("cuda", False, False), ("cpu", True, True)]
+)
+def test_use_pallas_resolves_from_the_device(monkeypatch, device, use_pallas, want):
+    """Auto: the row kernels K2/K3 on a CUDA device, the PyTorch scorers on
+    the CPU; an explicit setting wins on either.  No kernel runs here."""
+    monkeypatch.setattr(tsearch, "resolve_device", lambda d=None: torch.device(device))
+    eng = SearchEngine(SWConfig(use_wave=False, use_pallas=use_pallas))
+    assert eng._use_pallas is want
+    assert (eng._group_threshold(640) is None) is want  # K2 is exact int32; fast16 rows are rescored
 
 
 def test_int16_forces_the_row_path():
