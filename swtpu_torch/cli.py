@@ -6,7 +6,8 @@ hits, with E-values and bit scores under ``--evalue``; or the
 Linear gaps (``--gap``) or affine ones (``--gap-open``/``--gap-extend``);
 the wavefront kernel, or the row-parallel path (``--no-wave``, ``--pallas``
 for the CUDA kernels K2 and K3, ``--score-dtype int16`` for the narrow-type
-parity mode, ``--batch-rows``/``--length-quantum`` for its ladder).  Runs on
+parity mode, ``--batch-rows``/``--length-quantum`` for its ladder);
+``--compose`` for composed band-group dispatch.  Runs on
 the card unless ``--device cpu``.  Flags of features not ported yet are not
 accepted.
 
@@ -78,6 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="force the wavefront kernel (default: auto, on unless --score-dtype int16)",
     )
     p.add_argument("--no-wave", dest="wave", action="store_false", help="disable the wavefront kernel")
+    p.add_argument(
+        "--compose",
+        action="store_true",
+        help="composed band-group dispatch (wave_compose): each query's bands run as a chain of "
+        "power-of-two band groups handing the band carry on, the same scores",
+    )
     p.add_argument("--batch-rows", type=int, default=8192)
     p.add_argument("--length-quantum", type=int, default=128)
     return p
@@ -112,6 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             use_wave=args.wave,
             top_k=args.top_k,
             evalue=args.evalue,
+            wave_compose=args.compose,
         )
     except ValueError as e:
         print(f"swtpu_torch: error: {e}", file=sys.stderr)

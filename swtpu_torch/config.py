@@ -6,11 +6,12 @@ or a device top-K, E-values, and the alignment traceback; and swtpu's
 row-parallel scoring family (``use_wave=False``, ``score_dtype="int16"``):
 ladder and segment packing, the int32, fast16, seg16 and int16-parity
 scorers with their exact rescore, and the CUDA kernels K2 and K3 behind
-``use_pallas``.  A knob of a feature that a later slice of the port brings
-(``ROADMAP.md`` Queue A) keeps its field and default here, and setting it to
-anything else raises ``NotImplementedError`` naming that slice, so no setting
-is silently ignored.  The TPU-only ``interpret`` and ``wave_unroll_block``
-have no counterpart.
+``use_pallas``; and composed band-group dispatch (``wave_compose``).  A
+knob of a feature that a later slice of the port brings (``ROADMAP.md``
+Queue A) keeps its field and default here, and setting it to anything else
+raises ``NotImplementedError`` naming that slice, so no setting is silently
+ignored.  The TPU-only ``interpret`` and ``wave_unroll_block`` have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -75,10 +76,20 @@ class SWConfig:
     # scorers (swtpu's XLA family) on the card too.
     use_pallas: Optional[bool] = None
 
+    # --- composed band-group dispatch (implemented) -----------------------------
+    # Score a query on a resident wavefront pack as a chain of power-of-two
+    # band groups (up to 128 bands), each launch handing its bottom-row carry
+    # to the next (sw_wave top_in/return_carry), instead of one launch per
+    # bucket over all bands.  swtpu uses it to bound its compiled kernels to
+    # O(log) rungs; the CUDA kernel takes any shape, so on the card it costs
+    # the extra launches and carry traffic and buys no compile time.
+    # search_many serves a piece through the composed per-query chains until
+    # warmup_many_background has run its fused shape.
+    wave_compose: bool = False
+
     # --- knobs of later slices: defaults only ---------------------------------
     prefilter: Optional[float] = None
     prefilter_min_candidates: int = 256
-    wave_compose: bool = False
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("db",)
     query_shard: bool = False
@@ -101,6 +112,11 @@ class SWConfig:
             raise ValueError("device_resident_cells must be >= 0")
         if self.top_k is not None and self.top_k < 1:
             raise ValueError("top_k must be >= 1 (None for the full score array)")
+        if self.wave_compose and self.query_shard:  # swtpu's error, before the later-slice check
+            raise ValueError(
+                "wave_compose is incompatible with query_shard: both own the "
+                "kernel's band-carry chain (query_shard ships it between devices)"
+            )
         defaults = SWConfig.__dataclass_fields__
         for name, later in _LATER_SLICES.items():
             value = getattr(self, name)
@@ -118,7 +134,6 @@ class SWConfig:
 _LATER_SLICES = {
     "prefilter": "slice A12 (prefilter)",
     "prefilter_min_candidates": "slice A12 (prefilter)",
-    "wave_compose": "slice A11 (composed band-group dispatch)",
     "mesh_shape": "slice A14 (multi-GPU)",
     "mesh_axes": "slice A14 (multi-GPU)",
     "query_shard": "slice A14 (multi-GPU)",

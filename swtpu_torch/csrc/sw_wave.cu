@@ -5,10 +5,11 @@
 // Replaces the TPU kernel swtpu/ops/wave_sw.py::_wave_kernel (launched by
 // sw_wave) in its linear modes -- one query, unchained (n_segs = 1) and
 // chained (n_segs > 1), and Q queries in one launch (a 4-D lhsB there) --
-// and in its affine mode (gap_open/gap_extend), in each of those.  It
-// computes what that kernel computes -- for every query and every (lane,
-// segment) of a transposed (L2, B) int8 bucket, the Smith-Waterman maximum
-// of the query's profile against the segment's seg_cols columns, flat at
+// in its affine mode (gap_open/gap_extend), in each of those, and in its
+// band-carry hand-off (top_in/return_carry, one query).  It computes what
+// that kernel computes -- for every query and every (lane, segment) of a
+// transposed (L2, B) int8 bucket, the Smith-Waterman maximum of the query's
+// profile against the segment's seg_cols columns, flat at
 // out[query][lane * n_segs + seg] -- and not how: the TPU's MXU skew
 // staging, banded profile, 8-aligned DMAs and one-hot hoisting are not
 // carried over.
@@ -47,6 +48,25 @@
 // every later E and F is >= -open, so NEG - ext cannot wrap.  Segments are
 // separate threads, so the TPU kernel's separator resets of E and F come for
 // free here too.
+//
+// Carry hand-off (template parameter HAND_OFF, and two runtime flags
+// tested once a band): a query's bands can run as a chain of launches, each
+// launch a group of bands.  With has_top_in, band 0 reads its top boundary
+// from the carry, as every later band does, instead of H = 0 (and F = NEG);
+// with put_last, the last band also writes its bottom row there.  The carry
+// is then an input and an output: (n_segs * seg_cols, B) int32 H, or int2
+// (H, F) slots in affine mode, row = the bucket column (the TPU's (B/Bt,
+// L2+w, Bt) tiles with row = column + w are its own layout).  It is
+// overwritten in place, column j's bottom after column j + 1's top is read,
+// so one buffer a bucket serves the whole chain.  A hand-off launch scores
+// one query, as in swtpu (the wrapper refuses a profile stack).  A launch
+// with either flag runs the HAND_OFF instantiation, and the other modes'
+// kernels compile as they did before the flags.  Measured on an H100 with
+// wave_ab.py, P01008's 27 fused launches: 123.8 ms linear as before, and
+// 132.6 ms with the flags tested in the one kernel of every mode; the 108
+// launches of a composed search: 144.7 ms, and 172.5 ms with both flags
+// made compile-time constants in the hand-off kernel (ptxas then schedules
+// the linear sweep worse).
 //
 // What bounds it: int32 ALU operations.  The linear recurrence needs about 6
 // a cell (add, two max, subtract, clamp at 0, running-best max); the form
@@ -107,20 +127,22 @@ __device__ __forceinline__ void cell_affine(int& h, int& e, int s, int& diag, in
 }
 
 // gap is the linear penalty, or the affine open penalty with ext beside it.
-template <bool AFFINE>
+template <bool AFFINE, bool HAND_OFF>
 __global__ void __launch_bounds__(BLOCK)
 sw_wave_kernel(const int8_t* __restrict__ profile,                   // (Q, n_bands * W, A)
                const int8_t* __restrict__ subjT,                     // (L2, B)
-               typename Carry<AFFINE>::Slot* __restrict__ carry,     // (Q, n_segs * seg_cols, B), unused if n_bands == 1
+               typename Carry<AFFINE>::Slot* __restrict__ carry,     // (Q, n_segs * seg_cols, B); unused if
+                                                                     // n_bands == 1 and neither flag is set
                int32_t* __restrict__ out,                            // (Q, B * n_segs)
-               int n_bands, int B, int n_segs, int seg_cols, int gap, int ext) {
+               int n_bands, int B, int n_segs, int seg_cols, int gap, int ext, bool has_top_in,
+               bool put_last) {
   using Slot = typename Carry<AFFINE>::Slot;
   __shared__ __align__(16) int32_t sprof[A * STRIDE];
   const size_t query = blockIdx.y;
   const size_t slots = static_cast<size_t>(B) * n_segs;
   profile += query * n_bands * W * A;
   out += query * slots;
-  if (n_bands > 1) carry += query * seg_cols * slots;
+  if (n_bands > 1) carry += query * seg_cols * slots;  // a hand-off launch has one query: no offset
   const long long t = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
   const bool active = t < static_cast<long long>(B) * n_segs;
   const int seg = active ? static_cast<int>(t / B) : 0;
@@ -143,8 +165,8 @@ sw_wave_kernel(const int8_t* __restrict__ profile,                   // (Q, n_ba
     }
     __syncthreads();
     if (!active) continue;  // idle threads still reach both barriers
-    const bool has_top = band > 0;
-    const bool put_bottom = band + 1 < n_bands;
+    const bool has_top = band > 0 || (HAND_OFF && has_top_in);
+    const bool put_bottom = band + 1 < n_bands || (HAND_OFF && put_last);
     if constexpr (AFFINE) {
       int h[W], e[W];
 #pragma unroll
@@ -212,15 +234,16 @@ sw_wave_kernel(const int8_t* __restrict__ profile,                   // (Q, n_ba
 
 template <bool AFFINE>
 int launch(const void* profile, const void* subjT, void* carry, void* out, int n_queries, int n_bands, int B,
-           int n_segs, int seg_cols, int gap, int ext, int device, void* stream) {
+           int n_segs, int seg_cols, int gap, int ext, int has_top_in, int put_last, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long threads = static_cast<long long>(B) * n_segs;
   const dim3 grid(static_cast<unsigned>((threads + BLOCK - 1) / BLOCK), static_cast<unsigned>(n_queries));
-  sw_wave_kernel<AFFINE><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = has_top_in || put_last ? sw_wave_kernel<AFFINE, true> : sw_wave_kernel<AFFINE, false>;
+  kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(profile), static_cast<const int8_t*>(subjT),
       static_cast<typename Carry<AFFINE>::Slot*>(carry), static_cast<int32_t*>(out), n_bands, B, n_segs,
-      seg_cols, gap, ext);
+      seg_cols, gap, ext, has_top_in != 0, put_last != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -230,20 +253,21 @@ extern "C" {
 
 // Launch for `n_queries` queries on `stream` of `device`; return
 // cudaGetLastError() (0 = launched).  Linear gaps: `carry` holds one int32
-// per slot.
+// per slot.  Nonzero `has_top_in` / `put_last` hand the carry on (one query).
 int sw_wave_launch(const void* profile, const void* subjT, void* carry, void* out, int n_queries,
-                   int n_bands, int B, int n_segs, int seg_cols, int gap, int device, void* stream) {
-  return launch<false>(profile, subjT, carry, out, n_queries, n_bands, B, n_segs, seg_cols, gap, 0, device,
-                       stream);
+                   int n_bands, int B, int n_segs, int seg_cols, int gap, int has_top_in, int put_last,
+                   int device, void* stream) {
+  return launch<false>(profile, subjT, carry, out, n_queries, n_bands, B, n_segs, seg_cols, gap, 0, has_top_in,
+                       put_last, device, stream);
 }
 
 // The same with affine gaps (a length-L gap costs gap_open + (L-1) *
 // gap_extend): `carry` holds two int32 (H, F) per slot.
 int sw_wave_affine_launch(const void* profile, const void* subjT, void* carry, void* out, int n_queries,
                           int n_bands, int B, int n_segs, int seg_cols, int gap_open, int gap_extend,
-                          int device, void* stream) {
+                          int has_top_in, int put_last, int device, void* stream) {
   return launch<true>(profile, subjT, carry, out, n_queries, n_bands, B, n_segs, seg_cols, gap_open,
-                      gap_extend, device, stream);
+                      gap_extend, has_top_in, put_last, device, stream);
 }
 
 const char* sw_wave_error_string(int code) {

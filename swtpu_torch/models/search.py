@@ -22,7 +22,13 @@ Serving paths beside the single search:
   streams bucket by bucket, every query scored against each upload;
 * with ``SWConfig.top_k`` the top-K reduces on the device and only candidate
   rows transfer; with ``SWConfig.evalue`` the null distribution's moments
-  reduce there too, in int64.
+  reduce there too, in int64;
+* with ``SWConfig.wave_compose`` a query on a resident pack runs as a chain
+  of power-of-two band groups, each launch handing its band carry to the
+  next (the kernel's hand-off mode), and ``search_many`` serves a piece
+  through those chains until ``warmup_many_background`` has run its fused
+  shape; ``warmup`` and ``warmup_background`` run each shape a batch needs
+  once, ahead of it.
 
 The engine runs on the card unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises rather than fall back.
@@ -32,7 +38,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -209,6 +218,11 @@ class SearchEngine:
             dict(gap_open=config.gap_open, gap_extend=config.gap_extend) if self._affine else dict(gap=config.gap_penalty)
         )
         self._wave_enabled = self._resolve_wave()
+        if config.wave_compose and not self._wave_enabled:
+            raise ValueError(
+                "wave_compose requires the wavefront path: leave use_wave at None or True "
+                "and score_dtype at 'int32'"
+            )
         if self._affine and not self._wave_enabled:
             raise ValueError(
                 "affine gaps (gap_open/gap_extend) run on the wavefront kernel only: "
@@ -223,6 +237,13 @@ class SearchEngine:
         self._resident: Optional[Tuple[Database, PackedDatabase]] = None
         self._topk_cache = None
         self.rescored_rows = 0  # saturated rows rescored exactly, since last set to 0
+        # Composed serving: fused single-query profile rows (_fused_key) and
+        # fused (qpad, Q) piece shapes that warmup_background and
+        # warmup_many_background have run; those leave the composed route.
+        self._fused_warm: set = set()
+        self._fused_many_warm: set = set()
+        self._warmup_bg_error: Optional[BaseException] = None  # a background warmer's failure
+        self._warmup_many_bg_error: Optional[BaseException] = None
 
     # --- device plumbing -------------------------------------------------------
 
@@ -510,8 +531,12 @@ class SearchEngine:
             return torch.zeros(0, dtype=torch.int32, device=self.device)
         return torch.cat([o.reshape(-1) for o in outs])
 
-    def _flat(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
-        """One query's flat scores against a resident pack, on the device."""
+    def _flat(self, profile: torch.Tensor, packed: PackedDatabase, compose: bool = False) -> torch.Tensor:
+        """One query's flat scores against a resident pack, on the device:
+        through the composed chain with ``compose``, else one launch per
+        bucket (or the row path's scorers)."""
+        if compose:
+            return self._composed_flat(profile, packed)
         if self._wave_enabled:
             return self._packed_step(profile, packed.wave_groups)
         return self._row_step(profile, packed)
@@ -719,12 +744,12 @@ class SearchEngine:
 
     # --- single search --------------------------------------------------------------
 
-    def _profile(self, query: Query) -> torch.Tensor:
-        """A single search's (qpad, 32) profile on the device: padded to the
-        wave band (W) or, on the row path, to ``query_strip``; exactly unless
-        query_ladder=True."""
-        quantum = wave_sw.W if self._wave_enabled else self.config.query_strip
-        return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=self._query_pad(query.length, quantum)))
+    def _profile(self, query: Query, compose: bool = False) -> torch.Tensor:
+        """A single search's (qpad, 32) profile on the device: ``_fused_key``
+        rows, or for a composed chain exactly padded to the wave band
+        whatever ``query_ladder`` says (swtpu's _composed_flat)."""
+        rows = -(-max(query.length, 1) // wave_sw.W) * wave_sw.W if compose else self._fused_key(query)
+        return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=rows))
 
     def search_packed(
         self, query: Query, db: Database, packed: PackedDatabase, skip_device_topk: bool = False
@@ -739,7 +764,8 @@ class SearchEngine:
         timer = PhaseTimer()
         t_start = time.perf_counter()
         with timer.phase("plan"):
-            profile = self._profile(query)
+            compose = self._compose_for(query, packed)
+            profile = self._profile(query, compose)
         qpad = profile.shape[0]
         launches0 = self._launches()
 
@@ -747,7 +773,7 @@ class SearchEngine:
             setup = self._topk_setup(db, packed)
             with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells"):
                 t0 = self._mark()
-                vals, ids, moms = self._topk_reduce(self._packed_step(profile, packed.wave_groups), setup)
+                vals, ids, moms = self._topk_reduce(self._flat(profile, packed, compose), setup)
                 t1 = self._mark()
                 vals, ids, moms = (None if x is None else self._to_host(x) for x in (vals, ids, moms))
                 self._sync()
@@ -761,7 +787,7 @@ class SearchEngine:
 
         with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells (query length {query.length})"):
             t0 = self._mark()
-            flat = self._flat(profile, packed)
+            flat = self._flat(profile, packed, compose)
             t1 = self._mark()
             if self._on_cuda:
                 t1.synchronize()
@@ -820,12 +846,21 @@ class SearchEngine:
     def _search_many_wave(self, queries: List[Query], db: Database, packed: PackedDatabase) -> List[SearchResult]:
         """Batched serving on a resident pack: one launch per (bucket,
         piece), one host sync per piece.  Per-query times are
-        cell-proportional shares of the piece (``SearchMetrics.attributed``)."""
+        cell-proportional shares of the piece (``SearchMetrics.attributed``).
+
+        With ``wave_compose``, a piece whose (qpad, Q) shape
+        ``warmup_many_background`` has not run yet is served per query
+        through the composed chains (``search_queued``) instead."""
         cfg = self.config
         out: List[Optional[SearchResult]] = [None] * len(queries)
         topk = cfg.top_k is not None
         setup = self._topk_setup(db, packed) if topk else None
+        compose = self._compose_active(packed)
         for qpad, piece in self._query_pieces(queries):
+            if compose and (qpad, len(piece)) not in self._fused_many_warm:
+                for i, res in zip(piece, self.search_queued([queries[i] for i in piece], db, packed)):
+                    out[i] = res
+                continue
             t_start = time.perf_counter()
             launches0 = wave_sw.sw_wave.launches
             profiles = self._piece_profiles(queries, qpad, piece)
@@ -862,7 +897,9 @@ class SearchEngine:
         Queries of equal padded length (the serving ladder in auto mode)
         fold into the kernel's query axis and share one launch per bucket;
         the reference's Performance suite runs 17 queries back to back
-        (test/swissprot_tests.cpp:99-115), here they share launches.  A
+        (test/swissprot_tests.cpp:99-115), here they share launches.  Under
+        ``wave_compose`` a piece whose shape ``warmup_many_background`` has
+        not run is served through the composed per-query chains.  A
         database that cannot be resident streams, every query scored against
         each bucket upload.
         """
@@ -892,7 +929,8 @@ class SearchEngine:
         back on the current stream, then sync once for the whole batch.
 
         Unlike :meth:`search_many` on the wavefront path, each query keeps
-        its own launches (any length mix, exact padding).  With
+        its own launches (any length mix, exact padding), through the
+        composed chain where ``_compose_for`` says so.  With
         ``config.top_k`` each query's launches end in the device top-K and
         only candidate rows transfer.  Per-query times are cell-proportional
         shares (``SearchMetrics.attributed``).  A database that cannot be
@@ -913,8 +951,9 @@ class SearchEngine:
         with self._oom_hint(f"queued scoring of {len(queries)} queries"):
             t0 = self._mark()
             for q in queries:
-                profile = self._profile(q)
-                flat = self._flat(profile, packed)
+                compose = self._compose_for(q, packed)
+                profile = self._profile(q, compose)
+                flat = self._flat(profile, packed, compose)
                 fetched = self._topk_reduce(flat, setup) if topk else (flat,)
                 # Each query's copy streams while later queries compute.
                 pending.append((profile, [None if x is None else self._to_host(x) for x in fetched]))
@@ -938,6 +977,190 @@ class SearchEngine:
                 scores = self._reduce_flat(fetched[0].numpy(), packed, db, profile)
                 results.append(self._attach_null(SearchResult(scores=scores, metrics=metrics), q, db))
         return results
+
+    # --- composed band-group dispatch ---------------------------------------------------
+
+    # Largest band group of a composed chain (swtpu's COMPOSE_MAX_RUNG): 128
+    # bands = 4,096 query rows a launch; the longest suite query (4,548 aa,
+    # 143 bands) composes as 128+8+4+2+1.
+    COMPOSE_MAX_RUNG = 128
+
+    @staticmethod
+    def _compose_groups(n_bands: int) -> Tuple[int, ...]:
+        """Greedy binary decomposition of a band count into power-of-two
+        group sizes <= COMPOSE_MAX_RUNG (largest first, in band order)."""
+        if n_bands < 1:
+            raise ValueError("n_bands must be >= 1")
+        out = []
+        rem = n_bands
+        while rem:
+            out.append(min(SearchEngine.COMPOSE_MAX_RUNG, 1 << (rem.bit_length() - 1)))
+            rem -= out[-1]
+        return tuple(out)
+
+    def _compose_active(self, packed: Optional[PackedDatabase]) -> bool:
+        """Composed dispatch applies: enabled, and a pack on the device
+        with wave buckets (the carry hand-off is a wavefront-kernel mode;
+        ``wave_compose`` is refused off the wavefront path)."""
+        return self.config.wave_compose and packed is not None and bool(packed.wave_groups)
+
+    def _fused_key(self, q: Query) -> int:
+        """Rows of a query's fused (one launch a bucket) profile: the shape
+        warmup_background runs and marks warm, and _compose_for checks."""
+        return self._query_pad(q.length, wave_sw.W if self._wave_enabled else self.config.query_strip)
+
+    def _compose_for(self, q: Query, packed: Optional[PackedDatabase]) -> bool:
+        """Tiered routing: compose unless warmup_background has run this
+        query's fused shape."""
+        return self._compose_active(packed) and self._fused_key(q) not in self._fused_warm
+
+    def _chain_bytes(self, groups) -> int:
+        """Device bytes of one composed chain's carries, all held at once:
+        a full carry for every bucket (4 bytes a column and lane, 8 affine)."""
+        return sum(wave_sw.carry_bytes(1, g.n_segs, g.seg_cols, g.lanes, self._affine, hand_off=True) for g in groups)
+
+    def _composed_flat(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
+        """One query's flat scores (``_packed_step``'s layout) through the
+        composed chain: for each band group of ``_compose_groups`` in band
+        order, one hand-off launch per bucket in plan order, each consuming
+        and rewriting its bucket's carry in place, and the running max of
+        the groups' scores.  The chain holds every bucket's carry at once;
+        past the scratch share of free device memory it raises (swtpu does
+        not split a chain either)."""
+        groups = packed.wave_groups
+        need, budget = self._chain_bytes(groups), scratch_budget_bytes(self.device)
+        if budget is not None and need > budget:
+            raise torch.cuda.OutOfMemoryError(
+                f"a composed chain holds {need} bytes of band carries, over the scratch share of {budget}"
+            )
+        carries = [wave_sw.virgin_carry(g.stack, self._affine) for g in groups]
+        flats: List[Optional[torch.Tensor]] = [None] * len(groups)
+        band = 0
+        for rung in self._compose_groups(profile.shape[0] // wave_sw.W):
+            part = profile[band * wave_sw.W : (band + rung) * wave_sw.W]
+            band += rung
+            for k, g in enumerate(groups):
+                scores, carries[k] = wave_sw.sw_wave(
+                    part, g.stack, carries[k], n_segs=g.n_segs, return_carry=True, **self._gaps
+                )
+                flats[k] = scores if flats[k] is None else torch.maximum(flats[k], scores)
+        return torch.cat(flats)
+
+    # --- warmups ------------------------------------------------------------------------
+
+    def warmup(self, queries: List[Query], db: Database, threads: int = 8) -> float:
+        """Run, from a thread pool, one real search dispatch for every
+        distinct shape ``queries`` will need, ahead of them; returns the
+        seconds spent.  A shape is a band-group rung under composition (a
+        dummy query of exactly that many bands), else a fused profile's rows
+        (``_fused_key``); with ``top_k`` the dispatch ends in the device
+        top-K, as the searches will.  On the card the first dispatch builds
+        or loads the kernel library, and any one packs the database resident
+        and warms the caching allocator; nothing is compiled per shape.  A
+        failure in a worker is raised here.  No-op (0.0) for a database that
+        streams, as :meth:`search_queued` then falls back to searches."""
+        packed = self._resident_packed(db)
+        if packed is None or not queries:
+            return 0.0
+        t0 = time.perf_counter()
+        seen: dict = {}
+        if self._compose_active(packed):
+            rng = np.random.default_rng(0)
+            for q in queries:
+                for g in self._compose_groups(-(-max(q.length, 1) // wave_sw.W)):
+                    if g not in seen:
+                        seen[g] = Query(f"_warm{g}", rng.integers(0, 25, g * wave_sw.W).astype(np.int8), "")
+            # Each composed chain in flight holds a full carry set (~0.9 GB
+            # linear at SwissProt scale): at most ~3 GB of them at once.
+            threads = max(1, min(threads, int(3e9 // max(self._chain_bytes(packed.wave_groups), 1))))
+        else:
+            for q in queries:
+                seen.setdefault(self._fused_key(q), q)
+        setup = self._topk_setup(db, packed) if self.config.top_k is not None and packed.wave_groups else None
+
+        def fire(q: Query) -> None:
+            compose = self._compose_for(q, packed)
+            flat = self._flat(self._profile(q, compose), packed, compose)
+            if setup is not None:
+                self._topk_reduce(flat, setup)
+            self._sync()  # this thread's stream: the dispatch has run
+
+        with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
+            list(ex.map(fire, seen.values()))  # raises the first worker's exception
+        return time.perf_counter() - t0
+
+    def _spawn_warmer(self, fire, items, error_attr: str, threads: int) -> threading.Thread:
+        """A daemon thread running ``fire`` over ``items`` from a pool.  A
+        failure is kept on ``error_attr`` (one slot a warmer, so the single
+        and batched warmers keep their own) and logged, never raised into
+        serving, which stays on the composed route.  A warmer launches on
+        its threads' current stream (the default stream), beside the serving
+        thread's launches: launch counts read while it runs are not exact."""
+
+        def worker():
+            try:
+                with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
+                    list(ex.map(fire, items))
+            except Exception as e:  # never crash serving from the warmer
+                setattr(self, error_attr, e)
+                logging.getLogger(__name__).warning(
+                    "background fused warmup failed (serving stays on the composed path): %s", e
+                )
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        return t
+
+    def warmup_background(self, queries: List[Query], db: Database, threads: int = 8) -> threading.Thread:
+        """Tiered serving: run each query's fused shape (``_fused_key``, and
+        its device top-K with ``top_k``) in a daemon thread while the
+        composed route serves, and move each shape off the composed route
+        (``_fused_warm``) once it has run.  Returns the thread (``join()``
+        it; a failure is kept on ``_warmup_bg_error``).  Does nothing when
+        composition is not active for this database."""
+        packed = self._resident_packed(db)
+        if not self._compose_active(packed) or not queries:
+            return self._spawn_warmer(lambda item: None, (), "_warmup_bg_error", 1)
+        seen: dict = {}
+        for q in queries:
+            seen.setdefault(self._fused_key(q), q)
+        setup = self._topk_setup(db, packed) if self.config.top_k is not None else None
+
+        def fire(item) -> None:
+            key, q = item
+            flat = self._packed_step(self._profile(q), packed.wave_groups)
+            if setup is not None:
+                self._topk_reduce(flat, setup)
+            self._sync()
+            self._fused_warm.add(key)
+
+        return self._spawn_warmer(fire, list(seen.items()), "_warmup_bg_error", threads)
+
+    def warmup_many_background(self, queries: List[Query], db: Database, threads: int = 4) -> threading.Thread:
+        """Tiered batched serving: run the fused multi-query shape of every
+        (qpad, Q) piece ``search_many`` cuts from ``queries`` (with its
+        device top-K under ``top_k``) in a daemon thread while the composed
+        per-query chains serve, and move each piece shape onto its folded
+        launches (``_fused_many_warm``) once it has run.  The batched
+        analogue of :meth:`warmup_background`, with its own error slot
+        (``_warmup_many_bg_error``)."""
+        packed = self._resident_packed(db)
+        if not self._compose_active(packed) or not queries:
+            return self._spawn_warmer(lambda item: None, (), "_warmup_many_bg_error", 1)
+        seen: dict = {}
+        for qpad, piece in self._query_pieces(queries):
+            seen.setdefault((qpad, len(piece)), (qpad, [queries[i] for i in piece]))
+        setup = self._topk_setup(db, packed) if self.config.top_k is not None else None
+
+        def fire(item) -> None:
+            key, (qpad, qs) = item
+            flat = self._packed_step(self._piece_profiles(qs, qpad, list(range(len(qs)))), packed.wave_groups)
+            if setup is not None:
+                self._topk_reduce(flat, setup)
+            self._sync()
+            self._fused_many_warm.add(key)
+
+        return self._spawn_warmer(fire, list(seen.items()), "_warmup_many_bg_error", threads)
 
     # --- streaming ----------------------------------------------------------------------
 

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -28,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -69,8 +71,10 @@ def build(*names: str) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)[name]["path"]))
+    """The built library for ``csrc/<name>.cu``, building it if needed.
+    Thread-safe: the engine's warmers launch from several threads at once."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)[name]["path"]))
     return lib

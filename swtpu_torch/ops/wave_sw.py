@@ -1,8 +1,9 @@
 """Wavefront Smith-Waterman scoring of one or Q queries against a transposed bucket.
 
 Counterpart of ``swtpu.ops.wave_sw.sw_wave`` in its linear and affine
-(Gotoh) modes.  A bucket is a ``(L2, B)`` int8 array of subjects laid along
-lanes (``L2 = width + W``, the last ``W`` columns pad); with ``n_segs > 1``
+(Gotoh) modes, for one query or Q, and in its band-carry hand-off.  A
+bucket is a ``(L2, B)`` int8 array of subjects laid along lanes (``L2 =
+width + W``, the last ``W`` columns pad); with ``n_segs > 1``
 each lane holds ``n_segs`` subjects end to end in equal segments of
 ``seg_cols = (L2 - W) / n_segs`` columns.  The result is the exact int32
 Smith-Waterman maximum of each (lane, segment), flat and lane-major:
@@ -10,6 +11,17 @@ Smith-Waterman maximum of each (lane, segment), flat and lane-major:
 queries in one launch (swtpu's 4-D ``lhsB``) and gives ``(Q, B * n_segs)``.
 Gaps are linear (``gap=``) or affine (``gap_open=``, ``gap_extend=``: a
 length-L gap costs ``gap_open + (L-1) * gap_extend``).
+
+Band-carry hand-off (one query): a query's bands can be scored as a chain of
+calls, each on a group of its profile's bands.  ``top_in`` seeds band 0's top
+boundary with a previous call's carry instead of H = 0 (and F = NEG), and
+``return_carry`` returns this call's last band's bottom row as the next
+call's ``top_in``.  The carry is ``(n_segs * seg_cols, B)`` int32 H, or
+``(n_segs * seg_cols, B, 2)`` int32 (H, F) under affine gaps, row = the
+bucket column (swtpu's ``(B/Bt, L2+w, Bt)`` tiles with row = column + w are
+a TPU layout); ``virgin_carry`` makes the one a chain starts from.  A call
+overwrites ``top_in`` in place with the new carry, and with ``return_carry``
+returns that same tensor.
 
 ``sw_wave`` launches the hand-written CUDA kernel (``csrc/sw_wave.cu``) for
 tensors on the card and runs ``sw_wave_plain`` for tensors on the CPU.  It
@@ -125,42 +137,80 @@ def _check(profile: torch.Tensor, subjT: torch.Tensor, n_segs: int) -> int:
     return cols // n_segs
 
 
+def _carry_shape(subjT: torch.Tensor, affine: bool) -> Tuple[int, ...]:
+    cols, lanes = subjT.shape[0] - W, subjT.shape[1]
+    return (cols, lanes, 2) if affine else (cols, lanes)
+
+
+def _check_hand_off(profile, subjT, top_in, return_carry: bool, affine: bool) -> None:
+    if top_in is None and not return_carry:
+        return
+    if profile.dim() == 3:
+        raise ValueError("top_in / return_carry band-carry hand-off requires a single query")
+    if top_in is None:
+        return
+    want = _carry_shape(subjT, affine)
+    if top_in.dtype != torch.int32 or tuple(top_in.shape) != want:
+        raise ValueError(f"top_in must be {want} int32, got {tuple(top_in.shape)} {top_in.dtype}")
+    if top_in.device != subjT.device:
+        raise ValueError(f"top_in on {top_in.device} but subjT on {subjT.device}")
+    if not top_in.is_contiguous() or top_in.data_ptr() % 8:
+        raise ValueError("top_in must be contiguous and 8-byte aligned")
+
+
+def virgin_carry(subjT: torch.Tensor, affine: bool = False) -> torch.Tensor:
+    """The carry a chain starts from, on subjT's device: no band above, so
+    H = 0 and, under affine gaps, F = NEG (no gap may start above band 0)."""
+    carry = torch.zeros(_carry_shape(subjT, affine), dtype=torch.int32, device=subjT.device)
+    if affine:
+        carry[..., 1] = NEG
+    return carry
+
+
 def sw_wave(
     profile: torch.Tensor,
     subjT: torch.Tensor,
+    top_in: Optional[torch.Tensor] = None,
     *,
     gap: Optional[int] = None,
     n_segs: int = 1,
     gap_open: Optional[int] = None,
     gap_extend: Optional[int] = None,
-) -> torch.Tensor:
+    return_carry: bool = False,
+):
     """Exact int32 SW max of one or Q query profiles vs every (lane, segment).
 
     Args:
       profile: (qpad, 32) int8 query profile (swtpu_torch.ops.profile), or a
         (Q, qpad, 32) stack of Q equal-length profiles; qpad % W == 0.
       subjT: (L2, B) int8 transposed bucket, pads PAD_SUBJECT.
+      top_in: a previous band group's carry (module docstring), read as
+        band 0's top boundary and overwritten; one query only.
       gap: linear gap penalty.
       n_segs: subjects chained per lane.
       gap_open, gap_extend: affine (Gotoh) gaps instead of ``gap``: a
         length-L gap costs gap_open + (L-1) * gap_extend.
+      return_carry: also return the last band's bottom row, the next band
+        group's ``top_in`` (``top_in`` itself when given); one query only.
 
     Returns:
       (B * n_segs,) int32 on the inputs' device, lane-major; (Q, B * n_segs)
-      for a profile stack.
+      for a profile stack; with return_carry, a (scores, carry) tuple.
     """
     gaps = gap_model(gap, gap_open, gap_extend)
     seg_cols = _check(profile, subjT, n_segs)
+    _check_hand_off(profile, subjT, top_in, return_carry, gaps[1] is not None)
     if subjT.device.type == "cpu":
-        return _plain(profile, subjT, gaps, n_segs, seg_cols)
+        return _plain(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry)
     if subjT.device.type != "cuda":
         raise ValueError(f"sw_wave runs on CPU or CUDA tensors, not {subjT.device}")
-    return _sw_wave_cuda(profile, subjT, gaps, n_segs, seg_cols)
+    return _sw_wave_cuda(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry)
 
 
 sw_wave.launches = 0  # kernel launches since the count was last set to 0
 sw_wave.multi_launches = 0  # of those, launches with a (Q, qpad, 32) profile stack
 sw_wave.affine_launches = 0  # of those, launches with affine gaps
+sw_wave.carry_launches = 0  # of those, launches with top_in or return_carry
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -168,59 +218,74 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = load("sw_wave")
     if lib.sw_wave_launch.argtypes is None:
-        lib.sw_wave_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.sw_wave_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.sw_wave_launch.restype = ctypes.c_int
-        lib.sw_wave_affine_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.sw_wave_affine_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.sw_wave_affine_launch.restype = ctypes.c_int
         lib.sw_wave_error_string.argtypes = [ctypes.c_int]
         lib.sw_wave_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def carry_bytes(n_bands: int, n_segs: int, seg_cols: int, lanes: int, affine: bool = False) -> int:
+def carry_bytes(
+    n_bands: int, n_segs: int, seg_cols: int, lanes: int, affine: bool = False, hand_off: bool = False
+) -> int:
     """Device bytes of one query's band carry in a launch: the bottom H row
     of each band, one int32 per column and lane, and in affine mode the
-    bottom F row beside it.  A single band has no successor and needs none."""
+    bottom F row beside it.  A single band needs none unless it hands the
+    carry on (``hand_off``: top_in or return_carry)."""
     planes = 2 if affine else 1
-    return 4 * planes * n_segs * seg_cols * lanes if n_bands > 1 else 0
+    return 4 * planes * n_segs * seg_cols * lanes if n_bands > 1 or hand_off else 0
 
 
-def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols) -> torch.Tensor:
+def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry):
     lib = _kernel_lib()
     dev = subjT.device
     multi = profile.dim() == 3
     affine = gaps[1] is not None
+    hand_off = top_in is not None or return_carry
     prof3 = profile if multi else profile[None]
     n_q, n_bands = prof3.shape[0], prof3.shape[1] // W
     B = subjT.shape[1]
     out = torch.empty(n_q, B * n_segs, dtype=torch.int32, device=dev)
+    if top_in is not None:
+        carry = top_in  # read as band 0's top, then overwritten in place
+    elif return_carry:
+        carry = torch.empty(_carry_shape(subjT, affine), dtype=torch.int32, device=dev)
+    else:
+        # Each query has its own carry slice: blocks of different queries run at once.
+        carry = torch.empty(n_q * carry_bytes(n_bands, n_segs, seg_cols, B, affine) // 4, dtype=torch.int32, device=dev)
+    scores = out if multi else out[0]
     if B == 0:
-        return out if multi else out[0]
-    # Each query has its own carry slice: blocks of different queries run at once.
-    carry = torch.empty(n_q * carry_bytes(n_bands, n_segs, seg_cols, B, affine) // 4, dtype=torch.int32, device=dev)
+        return (scores, carry) if return_carry else scores
     args = (prof3.data_ptr(), subjT.data_ptr(), carry.data_ptr(), out.data_ptr(), n_q, n_bands, B, n_segs, seg_cols)
+    # A hand-off always writes the last band's bottom: top_in then holds the new carry.
+    flags = (int(top_in is not None), int(hand_off))
     where = (dev.index if dev.index is not None else torch.cuda.current_device(), torch.cuda.current_stream(dev).cuda_stream)
     if affine:
-        rc = lib.sw_wave_affine_launch(*args, gaps[0], gaps[1], *where)
+        rc = lib.sw_wave_affine_launch(*args, gaps[0], gaps[1], *flags, *where)
     else:
-        rc = lib.sw_wave_launch(*args, gaps[0], *where)
+        rc = lib.sw_wave_launch(*args, gaps[0], *flags, *where)
     if rc != 0:
         raise RuntimeError(f"sw_wave kernel launch failed: {lib.sw_wave_error_string(rc).decode()} ({rc})")
     sw_wave.launches += 1
     sw_wave.multi_launches += int(multi)
     sw_wave.affine_launches += int(affine)
-    return out if multi else out[0]
+    sw_wave.carry_launches += int(hand_off)
+    return (scores, carry) if return_carry else scores
 
 
 def sw_wave_plain(
     profile: torch.Tensor,
     subjT: torch.Tensor,
+    top_in: Optional[torch.Tensor] = None,
     *,
     gap: Optional[int] = None,
     n_segs: int = 1,
     gap_open: Optional[int] = None,
     gap_extend: Optional[int] = None,
-) -> torch.Tensor:
+    return_carry: bool = False,
+):
     """Plain PyTorch version of the kernel, on any device (same arguments).
 
     Un-chains the bucket into (B * n_segs, seg_cols) rows and runs a row
@@ -228,18 +293,24 @@ def sw_wave_plain(
     query after another for a profile stack: the u-space recurrence of
     swtpu.ops.xla_sw.sw_score_bucket for linear gaps, the closed-form Gotoh
     row of swtpu.ops.oracle.sw_affine_matrices for affine ones.  When pads
-    score <= 0 (every profile from make_profile), rows that hold no residue
-    score 0 and trailing all-pad columns cannot raise a max, under either
-    gap model, so both are dropped before the recurrence.
+    score <= 0 (every profile from make_profile) and no carry is handed on,
+    rows that hold no residue score 0 and trailing all-pad columns cannot
+    raise a max, under either gap model, so both are dropped before the
+    recurrence; a carry is an output (or input) at every column, so with
+    ``top_in`` or ``return_carry`` nothing is dropped.
     """
     gaps = gap_model(gap, gap_open, gap_extend)
-    return _plain(profile, subjT, gaps, n_segs, _check(profile, subjT, n_segs))
+    seg_cols = _check(profile, subjT, n_segs)
+    _check_hand_off(profile, subjT, top_in, return_carry, gaps[1] is not None)
+    return _plain(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry)
 
 
-def _plain(profile: torch.Tensor, subjT: torch.Tensor, gaps: Gaps, n_segs: int, seg_cols: int) -> torch.Tensor:
+def _plain(profile, subjT, gaps: Gaps, n_segs: int, seg_cols: int, top_in=None, return_carry=False):
     if profile.dim() == 3:
         return torch.stack([_plain_one(p, subjT, gaps, n_segs, seg_cols) for p in profile])
-    return _plain_one(profile, subjT, gaps, n_segs, seg_cols)
+    if top_in is None and not return_carry:
+        return _plain_one(profile, subjT, gaps, n_segs, seg_cols)
+    return _plain_hand_off(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry)
 
 
 def _plain_one(profile: torch.Tensor, subjT: torch.Tensor, gaps: Gaps, n_segs: int, seg_cols: int) -> torch.Tensor:
@@ -256,50 +327,83 @@ def _plain_one(profile: torch.Tensor, subjT: torch.Tensor, gaps: Gaps, n_segs: i
         if keep.numel() == 0:
             return out
         idx = idx[keep, : int(cols.max()) + 1]
-    best = _sw_rows(prof, idx, gaps[0]) if gaps[1] is None else _sw_rows_affine(prof, idx, *gaps)
+    best = _sw_rows(prof, idx, gaps[0])[0] if gaps[1] is None else _sw_rows_affine(prof, idx, *gaps)[0]
     if keep is None:
         return best
     out[keep] = best
     return out
 
 
-def _sw_rows(prof: torch.Tensor, idx: torch.Tensor, gap: int) -> torch.Tensor:
-    """(N,) int32 SW max of a (qpad, 32) int32 profile vs (N, L) index rows.
+def _plain_hand_off(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry):
+    """One query with a carry handed in or out, every row and column kept.
+    The carry's (n_segs * seg_cols, B) columns map to the un-chained rows
+    as the bucket's subjects do: row lane * n_segs + seg, column c of
+    segment seg = carry row seg * seg_cols + c."""
+    B = subjT.shape[1]
+    n_rows = B * n_segs
+    idx = subjT[: n_segs * seg_cols].T.reshape(n_rows, seg_cols).long() & (A32 - 1)
+    prof = profile.to(torch.int32)
+    affine = gaps[1] is not None
+    top = None if top_in is None else top_in.transpose(0, 1).reshape(n_rows, seg_cols, *top_in.shape[2:])
+    if affine:
+        best, h, f = _sw_rows_affine(prof, idx, *gaps, top=top)
+        carry = torch.stack([h, f], dim=-1)
+    else:
+        best, carry = _sw_rows(prof, idx, gaps[0], top=top)
+    carry = carry.reshape(B, n_segs * seg_cols, *carry.shape[2:]).transpose(0, 1)
+    if top_in is not None:
+        top_in.copy_(carry)  # the kernel's in-place hand-off
+        carry = top_in
+    return (best, carry.contiguous()) if return_carry else best
+
+
+def _sw_rows(prof: torch.Tensor, idx: torch.Tensor, gap: int, top: Optional[torch.Tensor] = None):
+    """SW of a (qpad, 32) int32 profile vs (N, L) index rows: the (N,)
+    int32 max, and the (N, L) int32 H of the last query row.
 
     u[j] = H[j] + gap*j turns the in-row recurrence H[j] = max(T[j],
     H[j-1] - gap) into u = cummax(T + gap*j); the max of H is the max of
-    t_u - gap*j over all rows.
+    t_u - gap*j over all rows.  ``top``, (N, L) int32, is the H row above
+    the first query row (zeros when None); it enters the recurrence and not
+    the max.
     """
     N, L = idx.shape
     rebase = torch.arange(L, dtype=torch.int32, device=idx.device) * gap
     prof_g = prof + gap
     edge = torch.full((N, 1), -gap, dtype=torch.int32, device=idx.device)  # column -1: H = 0
-    u = rebase.expand(N, L)
-    bestu = u
+    bestu = rebase.expand(N, L)
+    u = bestu if top is None else top + rebase
     for i in range(prof.shape[0]):
         diag = torch.cat([edge, u[:, :-1]], dim=1)
         t = torch.maximum(torch.maximum(diag + prof_g[i][idx], u - gap), rebase)
         u = torch.cummax(t, dim=1).values
         bestu = torch.maximum(bestu, t)
-    return (bestu - rebase).amax(dim=1).to(torch.int32)
+    return (bestu - rebase).amax(dim=1).to(torch.int32), u - rebase
 
 
-def _sw_rows_affine(prof: torch.Tensor, idx: torch.Tensor, gap_open: int, gap_extend: int) -> torch.Tensor:
-    """(N,) int32 Gotoh SW max of a (qpad, 32) int32 profile vs (N, L) index rows.
+def _sw_rows_affine(
+    prof: torch.Tensor, idx: torch.Tensor, gap_open: int, gap_extend: int, top: Optional[torch.Tensor] = None
+):
+    """Gotoh SW of a (qpad, 32) int32 profile vs (N, L) index rows: the (N,)
+    int32 max, and the (N, L) int32 H and F of the last query row.
 
     Per query row: F = max(H_up - open, F_up - ext) elementwise from the
     previous row; T = max(0, diag + s, F); and, because open >= ext, the
     in-row E chain is closed-form: E[c] = max over k <= c of (V[k] + ext*k)
     - open - ext*c, with V[0] = 0 (the left boundary's H) and V[k] = T[k-1],
-    which is one cummax; H = max(T, E).
+    which is one cummax; H = max(T, E).  ``top``, (N, L, 2) int32, holds the
+    H and F rows above the first query row (H = 0, F = NEG when None); it
+    enters the recurrence and not the max.
     """
     N, L = idx.shape
     dev = idx.device
     ramp = torch.arange(L, dtype=torch.int32, device=dev) * gap_extend
     zero = torch.zeros((N, 1), dtype=torch.int32, device=dev)
-    h = torch.zeros((N, L), dtype=torch.int32, device=dev)
-    f = torch.full((N, L), NEG, dtype=torch.int32, device=dev)  # F above row 0
-    best = h
+    best = torch.zeros((N, L), dtype=torch.int32, device=dev)
+    if top is None:
+        h, f = best, torch.full((N, L), NEG, dtype=torch.int32, device=dev)  # F above row 0
+    else:
+        h, f = top[..., 0], top[..., 1]
     for i in range(prof.shape[0]):
         f = torch.maximum(h - gap_open, f - gap_extend)
         diag = torch.cat([zero, h[:, :-1]], dim=1)
@@ -307,4 +411,4 @@ def _sw_rows_affine(prof: torch.Tensor, idx: torch.Tensor, gap_open: int, gap_ex
         u = torch.cummax(torch.cat([zero, t[:, :-1]], dim=1) + ramp, dim=1).values
         h = torch.maximum(t, u - ramp - gap_open)
         best = torch.maximum(best, h)
-    return best.amax(dim=1).to(torch.int32)
+    return best.amax(dim=1).to(torch.int32), h, f

@@ -7,7 +7,8 @@ and the engine's single, batched, queued, streaming and top-K paths to the
 committed goldens; align_top_k on the card gives the alignments it gives on
 the CPU.  The row kernels K2 and K3 are held to their plain versions, and
 the ``use_pallas`` engine (resident through K2, streamed through K3) to the
-goldens.
+goldens.  The kernel's band-carry hand-off is held to its plain version rung
+by rung, carry and scores, and the composed engine to the fused one.
 """
 
 from pathlib import Path
@@ -208,3 +209,52 @@ def test_pallas_engine_subset_goldens_on_card(cuda, resident):
             assert (k2, k3) == (len(eng._resident_packed(db).groups), 0) and k2 > 0
         else:
             assert (k2, k3) == (0, len(eng.plan(db).batches))
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+@pytest.mark.parametrize("qlen,ws,S,B", [(20, 32, 1, 64), (470, 96, 3, 1000), (1000, 40, 8, 129), (300, 4100, 1, 65)])
+def test_hand_off_kernel_matches_plain_rung_by_rung(cuda, gaps, qlen, ws, S, B):
+    rng = np.random.default_rng(qlen + S)
+    _, stack = _bucket(rng, 1, ws, S, B)
+    qpad = -(-qlen // 32) * 32
+    prof = torch.from_numpy(make_profile(rng.integers(0, 25, qlen).astype(np.int8), blosum50_ref(), pad_rows_to=qpad))
+    kw = dict(n_segs=S, gap=2) if gaps is None else dict(n_segs=S, gap_open=gaps[0], gap_extend=gaps[1])
+    prof, stack = prof.to(cuda), stack.to(cuda)
+    carry = wave_sw.virgin_carry(stack, gaps is not None)
+    plain_carry = carry.clone()
+    best = None
+    band = 0
+    for rung in SearchEngine._compose_groups(qpad // 32):
+        part = prof[band * 32 : (band + rung) * 32]
+        band += rung
+        before = wave_sw.sw_wave.carry_launches
+        scores, carry = wave_sw.sw_wave(part, stack, carry, return_carry=True, **kw)
+        torch.cuda.synchronize()
+        assert wave_sw.sw_wave.carry_launches == before + 1
+        want, plain_carry = wave_sw.sw_wave_plain(part, stack, plain_carry, return_carry=True, **kw)
+        assert torch.equal(scores, want) and torch.equal(carry, plain_carry)
+        best = scores if best is None else torch.maximum(best, scores)
+    assert torch.equal(best, wave_sw.sw_wave(prof, stack, **kw))
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+def test_composed_engine_matches_fused_on_card(cuda, gaps):
+    db = parse_database(DATA / "uniprot_subset.fasta")
+    queries = [parse_query(DATA / "queries" / f"{q}.fasta") for q in ("P02232", "P01008", "P05013")]
+    extra = {} if gaps is None else dict(gap_open=gaps[0], gap_extend=gaps[1])
+    fused = SearchEngine(SWConfig(**extra), device=cuda)
+    composed = SearchEngine(SWConfig(wave_compose=True, **extra), device=cuda)
+    n_buckets = len(composed._resident_packed(db).wave_groups)
+    for q in queries:
+        before = wave_sw.sw_wave.carry_launches
+        res = composed.search(q, db)
+        rungs = SearchEngine._compose_groups(-(-q.length // 32))
+        assert wave_sw.sw_wave.carry_launches - before == len(rungs) * n_buckets
+        assert np.array_equal(res.scores, fused.search(q, db).scores)
+    for got, q in zip(composed.search_queued(queries, db), queries):
+        assert np.array_equal(got.scores, fused.search(q, db).scores)
+    topk = SearchEngine(SWConfig(wave_compose=True, top_k=10, evalue=True, **extra), device=cuda)
+    ref = SearchEngine(SWConfig(top_k=10, evalue=True, **extra), device=cuda)
+    for q in queries:
+        got, want = topk.search(q, db), ref.search(q, db)
+        assert got.hits == want.hits and got.top_k_stats(10) == want.top_k_stats(10)

@@ -5,7 +5,7 @@
   swtpu (a subprocess: every pytest process here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
 * every knob of a later slice raises instead of being ignored, and the
-  serving, affine-gap and row-path knobs are accepted.
+  serving, affine-gap and row-path and composed-dispatch knobs are accepted.
 """
 
 import subprocess
@@ -73,7 +73,6 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
         ("prefilter", 0.1),
         ("mesh_shape", (2,)),
         ("query_shard", True),
-        ("wave_compose", True),
     ],
 )
 def test_unported_knobs_raise(knob, value):
@@ -86,6 +85,7 @@ def test_unported_knobs_raise(knob, value):
     [
         ("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True), ("gap_open", 11),
         ("score_dtype", "int16"), ("use_pallas", True), ("use_wave", False), ("segment_packing", False),
+        ("wave_compose", True),
     ],
 )
 def test_serving_knobs_accepted(knob, value):
