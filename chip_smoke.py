@@ -22,7 +22,16 @@ Phases (one line each; any failure exits non-zero with no result line):
               linear and affine, as a chain of power-of-two band groups from
               a zero and from a seeded carry: the carry after every group
               and every group's scores equal the plain version's, and a
-              chain's running max equals one launch over all the bands
+              chain's running max equals one launch over all the bands;
+              then K7's coarse_counts on seeded 0/1 signatures with a few
+              +-5 entries (n = 1 to 100,003, Q = 1 to 17, dim 64, 1024,
+              2048) and its mma_probe, and K8's chain, against their plain
+              versions: exact equality
+ 3b. roofline K7's int8 MAC rate and K8's int32 chain rate at full
+              occupancy (swtpu_torch.tools.roofline; counts zeroed just
+              before, read just after) beside the data-sheet and derived
+              figures and their plain versions, and the SASS instructions
+              of a chain link (the chain's loop body)
   4. goldens  the committed subset, 10k-scale and saturation goldens through
               SearchEngine(device="cuda"): exact equality; the subset under
               affine gaps (10, 1) against the NumPy oracle
@@ -74,8 +83,21 @@ Phases (one line each; any failure exits non-zero with no result line):
               hot swap, and warmup's seconds with a first search after it
               against one on a fresh engine; the hand-off launches of a
               P01008 search alone against their plain version
- 11. kernels  one JSON line per kernel and mode: launches on its path, error,
-              time, plain time and the card's lower bound for the same work
+ 11. prefilter the k-mer prefilter on the same resident database: the NumPy
+              signature pass and the signatures' bytes on the card; P01008
+              at prefilter 0.05, top-K 10 (counts zeroed just before, read
+              just after: one coarse_counts launch and one sw_wave launch a
+              width class), its hits equal to the exhaustive top-10 of the
+              candidate set and that set to the plain coarse pass's; three
+              timed searches; the coarse kernel alone at Q = 1 and 17
+              against its bound, plain version and torch._int_mm;
+              search_many for the suite (one coarse launch, hits equal to
+              single searches); the E-value null equal to the exhaustive
+              scores' at the calibration sample; swtpu's planted-homolog
+              recall check (tools/tpu_validate.py check 9)
+ 12. kernels  one JSON line per kernel and mode: launches on its path, error,
+              time, plain time, the card's lower bound for the same work and
+              the library call's time, where one computes the same function
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
 """
 
@@ -96,6 +118,8 @@ OPS_PER_CELL = 6  # add, max, subtract, max, clamp at 0, running-best max
 # E and F: two subtracts and a max each; H: add and three max (the clamp
 # included); the running best.
 OPS_PER_CELL_AFFINE = 11
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak of an H100 SXM (data sheet): 989.5e12 MACs
+SASS_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "IADD3", "IMMA", "S2UR", "LDG", "STG")
 AFFINE = dict(gap_open=10, gap_extend=2)  # the affine cell's gaps
 GAP_PAIRS = ((10, 2), (10, 1), (5, 5))  # the affine kernel phase's (open, extend)
 # Kernel phase cases: (longest query, segment width, n_segs, lanes, Q or None for one query).
@@ -114,6 +138,9 @@ ROW_CASES = (
     (464, 17, 257, 640, 2), (1000, 3, 65, 2048, 1), (300, 1, 31, 4100, 2), (4548, 3, 9, 6000, 2),
 )
 ROW_QUERIES = ("P02232", "P05013", "P14942")  # the row phase's search_many and search_queued
+# kernel.mma's coarse-count cases: every (subjects n, queries Q, signature width) combination.
+MMA_NS, MMA_QS, MMA_DIMS = (1, 15, 17, 4097, 100_003), (1, 2, 8, 17), (64, 1024, 2048)
+PREFILTER = dict(prefilter=0.05, top_k=10)  # the prefilter cell's knobs
 N_SEQS = 559_228
 MAIN_QUERY = "P01008"
 # The reference Performance suite's queries (bench.py --full), in its order.
@@ -162,12 +189,16 @@ def phase_build():
     t0 = time.perf_counter()
     built = _build.build(*names)
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    out = {}
 
-    def label(mangled):  # sw_wave_kernel<AFFINE, HAND_OFF>; sw_rows.cu's K2 and K3
+    def label(mangled):  # sw_wave_kernel<AFFINE, HAND_OFF>; sw_rows.cu's K2 and K3; K7 and K8
         if "sw_rows_fused_kernel" in mangled:
             return "K2 sw_rows_fused_kernel"
         if "sw_rows_kernel" in mangled:
             return "K3 sw_rows_kernel"
+        for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7"), ("vpu_chain_kernel", "K8")):
+            if kernel in mangled:
+                return f"{tag} {kernel}"
         wave = re.search(r"sw_wave_kernelILb([01])ELb([01])E", mangled)
         if wave is None:
             return mangled
@@ -190,10 +221,35 @@ def phase_build():
                                   text=True, timeout=120).stdout
             parts = re.split(r"Function : (\S+)", sass)
             for mangled, body in zip(parts[1::2], parts[2::2]):
-                ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("VIADDMNMX", "VIMNMX3", "S2UR", "LDG", "STG")}
+                ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPCODES}
                 kernels.setdefault(label(mangled), {})["sass_opcodes"] = ops
+                if "vpu_chain_kernel" in mangled:  # the chain's rolled loop: its body alone
+                    kernels[label(mangled)]["loop_body_opcodes"] = loop_body_opcodes(body)
         say("build", source=f"swtpu_torch/csrc/{name}.cu", seconds=round(time.perf_counter() - t0, 3),
             kernels=kernels, cuobjdump=cuobjdump.exists())
+        out[name] = kernels
+    return out
+
+
+def loop_body_opcodes(sass):
+    """Opcode counts of the instructions of a kernel's SASS (cuobjdump) that
+    lie between a backward branch's target and the branch: its rolled
+    loops' bodies."""
+    import re
+
+    ins = []
+    for ln in sass.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*\s*(.*)", ln)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    counts = {}
+    for addr, op, rest in ins:
+        target = re.match(r"(0x[0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            for a, o, _ in ins:
+                if int(target.group(1), 16) <= a < addr:
+                    counts[o] = counts.get(o, 0) + 1
+    return counts
 
 
 def random_bucket(rng, qlen, ws, n_segs, lanes, n_queries=None):
@@ -1297,6 +1353,299 @@ def phase_compose(db, engine, affine_engine, suite_scores):
     }
 
 
+def phase_kernel_mma():
+    """K7's two entry points against their plain versions: coarse_counts on
+    seeded 0/1 signatures with a few +-5 entries, every (n, Q, dim) of
+    MMA_NS x MMA_QS x MMA_DIMS, then mma_probe at small iteration counts."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.ops import int8_mma
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    worst, cases = 0, 0
+    for dim in MMA_DIMS:
+        db = torch.randint(0, 2, (max(MMA_NS), dim), dtype=torch.int8, device="cuda", generator=gen)
+        qs = torch.randint(0, 2, (max(MMA_QS), dim), dtype=torch.int8, device="cuda", generator=gen)
+        db[5, :7], db[16, 3:9], qs[0, :4], qs[-1, 1:5] = 5, -5, -5, 5  # the sign, in rows of every case
+        for n in MMA_NS:
+            for n_q in MMA_QS:
+                before = int8_mma.coarse_counts.launches
+                got = int8_mma.coarse_counts(qs[:n_q], db[:n])
+                want = int8_mma.coarse_counts_plain(qs[:n_q], db[:n])
+                torch.cuda.synchronize()
+                err = int((got.long() - want.long()).abs().max())
+                worst, cases = max(worst, err), cases + 1
+                if int8_mma.coarse_counts.launches != before + 1 or err or not torch.equal(got, want):
+                    raise AssertionError(f"coarse_counts != plain at n={n} Q={n_q} dim={dim}: max err {err}")
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(-5, 5, (128, 384), dtype=np.int8)).cuda()
+    b = torch.from_numpy(rng.integers(0, 2, (384, 512), dtype=np.int8)).cuda()
+    probe_worst = 0
+    for iters, unroll in ((1, 1), (2, 4), (3, 100)):
+        got = int8_mma.mma_probe(a, b, iters, unroll)
+        want = int8_mma.mma_probe_plain(a, b, iters, unroll)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        probe_worst = max(probe_worst, err)
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"mma_probe != plain at iters={iters} unroll={unroll}: max err {err}")
+    say("kernel.mma", coarse_counts_cases=cases, n=MMA_NS, queries=MMA_QS, dims=MMA_DIMS, signs="0/1 and +-5",
+        probe_cases=[(1, 1), (2, 4), (3, 100)], max_abs_err=max(worst, probe_worst), tolerance="exact",
+        seconds=round(time.perf_counter() - t0, 3))
+    return worst, probe_worst
+
+
+def phase_kernel_chain():
+    """K8's chain against its plain version at small iteration counts."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.ops import vpu_chain
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(0, 1000, (32, 512), dtype=np.int32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 3, (32, 512), dtype=np.int32)).cuda()
+    worst = 0
+    for iters in (0, 1, 5):
+        got = vpu_chain.vpu_chain(x, y, iters)
+        want = vpu_chain.vpu_chain_plain(x, y, iters)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"vpu_chain != plain at iters={iters}: max err {err}")
+    say("kernel.chain", iters=[0, 1, 5], links_per_iter=vpu_chain.UNROLL, max_abs_err=worst, tolerance="exact")
+    return worst
+
+
+def phase_roofline(built):
+    """K7's MAC rate and K8's chain rate at full occupancy (the port of
+    tools/roofline.py; counts zeroed just before, read just after), each
+    against its data-sheet or derived figure and its plain version on the
+    same inputs; the SASS instructions of a chain link."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.ops import int8_mma, vpu_chain
+    from swtpu_torch.tools import roofline
+
+    t0 = time.perf_counter()
+    int8_mma.mma_probe.launches = vpu_chain.vpu_chain.launches = 0
+    iters = 16384  # K8's chain a quarter as long as tools/roofline.py's: ~17 ms a launch, and its plain version ~1 s
+    mxu, mxu_ms, macs = roofline.measure_mxu_staging()
+    chain, chain_ms, ops = roofline.measure_vpu_chain(iters=iters)
+    launched = {"mma_probe": int8_mma.mma_probe.launches, "vpu_chain": vpu_chain.vpu_chain.launches}
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the rate probes launched {launched}")
+    # The same inputs again: the kernels' results against their plain versions.
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(-5, 5, (128, 384), dtype=np.int8)).cuda()
+    b = torch.from_numpy(rng.integers(0, 2, (384, 512), dtype=np.int8)).cuda()
+    probe = int8_mma.mma_probe(a, b, 512, 64)
+    probe_plain_ms, probe_plain = events_ms(lambda: int8_mma.mma_probe_plain(a, b, 512, 64))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(0, 1000, (32, 512), dtype=np.int32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 3, (32, 512), dtype=np.int32)).cuda()
+    tile = vpu_chain.vpu_chain(x, y, iters)
+    chain_plain_ms, tile_plain = events_ms(lambda: vpu_chain.vpu_chain_plain(x, y, iters))
+    probe_err = int((probe.long() - probe_plain.long()).abs().max())
+    chain_err = int((tile.long() - tile_plain.long()).abs().max())
+    if probe_err or chain_err:
+        raise AssertionError(f"full-occupancy runs differ from their plain versions: probe {probe_err}, chain {chain_err}")
+    links = vpu_chain.UNROLL * vpu_chain.ROWS  # links of the chain's loop body
+    k8 = built["vpu_chain"]["K8 vpu_chain_kernel"]
+    body = k8.get("loop_body_opcodes", {})
+    per_link = {op: count / links for op, count in body.items()}
+    chain_ops = ("VIADDMNMX", "IADD3", "VIMNMX", "IMNMX", "VIMNMX3")  # an add, a max, or both fused
+    say("roofline", mma_probe=dict(shape=[[128, 384], [384, 512]], iters=512, unroll=64, ms=mxu_ms, macs=macs,
+                                   mac_per_s=mxu, peak_mac_per_s=INT8_OPS_PER_S / 2, share_of_peak=2 * mxu / INT8_OPS_PER_S,
+                                   plain_ms=probe_plain_ms, max_abs_err_vs_plain=probe_err),
+        vpu_chain=dict(tile=[32, 512], iters=iters, links_per_iter=vpu_chain.UNROLL, ms=chain_ms, ops=ops, ops_per_s=chain,
+                       derived_ops_per_s=INT32_OPS_PER_S, ratio_to_derived=chain / INT32_OPS_PER_S,
+                       plain_ms=chain_plain_ms, max_abs_err_vs_plain=chain_err),
+        chain_link_sass=dict(links_in_loop_body=links, loop_body_opcodes=body, per_link=per_link,
+                             add_max_instructions_per_link=sum(per_link.get(op, 0) for op in chain_ops),
+                             fused=per_link.get("VIADDMNMX", 0) == 1 and body.get("VIMNMX", 0) == 0),
+        launches=launched, seconds=round(time.perf_counter() - t0, 3))
+    probe_entry = {
+        "name": "mma_probe (K7 int8 mma)", "route": "cuda", "source": "swtpu_torch/csrc/int8_mma.cu",
+        "replaces": "tools/roofline.py:65", "launches": launched["mma_probe"], "max_abs_err": probe_err,
+        "ms": mxu_ms, "plain_ms": probe_plain_ms, "bound_ms": 1e3 * 2 * macs / INT8_OPS_PER_S,
+        "bound_by": "operations", "library_ms": None,
+    }
+    chain_entry = {
+        "name": "vpu_chain (K8)", "route": "cuda", "source": "swtpu_torch/csrc/vpu_chain.cu",
+        "replaces": "tools/roofline.py:101", "launches": launched["vpu_chain"], "max_abs_err": chain_err,
+        "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": 1e3 * ops / INT32_OPS_PER_S,
+        "bound_by": "operations", "library_ms": None,
+    }
+    return probe_entry, chain_entry
+
+
+def null_equal(a, b):
+    """Two NullStats hold the same numbers, field by field."""
+    import dataclasses
+
+    import numpy as np
+
+    return all(np.array_equal(np.asarray(getattr(a, f.name)), np.asarray(getattr(b, f.name)))
+               for f in dataclasses.fields(a))
+
+
+def phase_prefilter(db, engine):
+    """The k-mer prefilter on the resident database: signatures, P01008's
+    two-phase search (counts zeroed just before, read just after), its
+    exactness against the exhaustive scores, the coarse kernel alone
+    against its bound, plain version and torch._int_mm, search_many for the
+    suite, E-values, and the planted-homolog recall of swtpu's battery."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch import stats as st
+    from swtpu_torch import synth
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine, SearchResult
+    from swtpu_torch.ops import int8_mma, wave_sw
+    from swtpu_torch.ops import prefilter as pf
+    from swtpu_torch.utils.metrics import PhaseTimer
+
+    t_phase = time.perf_counter()
+    qdir = ROOT / "tests" / "data" / "queries"
+    queries = [parse_query(qdir / f"{name}.fasta") for name in SUITE]
+    query = queries[SUITE.index(MAIN_QUERY)]
+    exhaustive = engine.search(query, db).scores  # the resident exhaustive search of phase_scale's engine
+    cfg = SWConfig(**PREFILTER)
+    eng = SearchEngine(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # --- this phase's path: counts zeroed just before, read just after
+    int8_mma.coarse_counts.launches = wave_sw.sw_wave.launches = 0
+    t0 = time.perf_counter()
+    first = eng.search(query, db)  # builds the signatures and puts them on the card, then searches
+    first_wall = time.perf_counter() - t0
+    launched = {"coarse_counts": int8_mma.coarse_counts.launches, "sw_wave": wave_sw.sw_wave.launches}
+    sig, pop, _, _ = eng._prefilter_signatures(db)
+    n_cand = eng._n_cand(db.n)
+    qsig = torch.from_numpy(pf.signature(query.residues)).cuda()
+    packed = pf.coarse_candidates(sig, pop, qsig, n_cand).cpu().numpy()
+    cand = pf.merge_candidates(packed[0], packed[1], n_cand)
+    _, jobs, _, _ = eng._prefilter_exact_enqueue(query, db, cand, PhaseTimer())
+    if launched != {"coarse_counts": 1, "sw_wave": len(jobs)} or first.metrics.kernel_launches != 1 + len(jobs):
+        raise AssertionError(f"prefiltered search launched {launched} for 1 coarse pass and {len(jobs)} exact buckets")
+    say("prefilter.signatures", sequences=db.n, dim=pf.DIM, k=pf.K, signature_bytes_on_card=sig.numel(),
+        signatures_and_upload_host_s=first.metrics.phases["prefilter_signatures"], first_search_wall_s=first_wall)
+
+    # --- exactness: hits are the exhaustive top-10 of the candidate set, the
+    # candidate set is the plain coarse pass's
+    counts_plain = int8_mma.coarse_counts_plain(qsig[None], sig)
+    counts = int8_mma.coarse_counts(qsig[None], sig)
+    counts_err = int((counts.long() - counts_plain.long()).abs().max())
+    plain_packed = pf.candidates_from_counts(counts_plain, pop, qsig[None], n_cand)[0].cpu().numpy()
+    if counts_err or not np.array_equal(pf.merge_candidates(plain_packed[0], plain_packed[1], n_cand), cand):
+        raise AssertionError(f"the coarse pass differs from its plain version: counts max err {counts_err}")
+    order = np.lexsort((cand, -exhaustive[cand]))[: cfg.top_k]
+    want = [(int(cand[i]), int(exhaustive[cand[i]])) for i in order]
+    if first.hits != want or any(s != exhaustive[i] for i, s in first.hits):
+        raise AssertionError(f"prefiltered hits {first.hits} are not the candidates' exhaustive top-10 {want}")
+    full_top = [i for i, _ in SearchResult(scores=exhaustive, metrics=None).top_k(cfg.top_k)]
+    runs = []
+    for _ in range(3):
+        res = eng.search(query, db)
+        if res.hits != first.hits:
+            raise AssertionError("a timed prefiltered search differs from the first")
+        runs.append(res.metrics)
+    exact_ms, _ = events_ms(lambda: eng._prefilter_exact_enqueue(query, db, cand, PhaseTimer())[0], reps=3)
+
+    # --- the coarse kernel alone (Q = 1 and the suite's Q = 17) against its
+    # bound, its plain version and torch._int_mm on the same product
+    def coarse_times(qs):
+        ms, _ = events_ms(lambda: int8_mma.coarse_counts(qs, sig), reps=10)
+        plain_ms, _ = events_ms(lambda: int8_mma.coarse_counts_plain(qs, sig))
+        n_q, (n, dim) = qs.shape[0], sig.shape
+        nbytes = n * dim + n_q * dim + 4 * n_q * n
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 2 * n_q * n * dim / INT8_OPS_PER_S
+        padded = torch.zeros(-(-n_q // 8) * 8, dim, dtype=torch.int8, device="cuda")
+        padded[:n_q] = qs
+        try:  # the library's int8 GEMM (cuBLASLt), timed as a yardstick; the port never calls it
+            lib = torch._int_mm(sig, padded.t())
+            library_equal = torch.equal(lib[:, :n_q].t(), int8_mma.coarse_counts(qs, sig))
+            library_ms, _ = events_ms(lambda: torch._int_mm(sig, padded.t()), reps=10)
+            library_error = None
+        except RuntimeError as e:
+            library_ms, library_equal, library_error = None, None, str(e)[:200]
+        return dict(queries=n_q, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+                    library_ms=library_ms, library_equal=library_equal, library_error=library_error)
+
+    qsigs = torch.from_numpy(np.stack([pf.signature(q.residues) for q in queries])).cuda()
+    coarse1, coarse17 = coarse_times(qsig[None].contiguous()), coarse_times(qsigs)
+    say("prefilter.search", query=MAIN_QUERY, knobs=PREFILTER, candidates=n_cand, merged=int(cand.shape[0]),
+        exact_buckets=[(int(part.shape[0]), width, int(cp.shape[0])) for part, width, cp in jobs],
+        launches_first_search=launched, hits=first.hits, hits_exact=True, candidates_equal_plain=True,
+        exhaustive_top10_in_candidates=sum(i in set(cand.tolist()) for i in full_top),
+        wall_seconds=[m.wall_seconds for m in runs], device_seconds=[m.device_seconds for m in runs],
+        packed_cells=runs[-1].packed_cells, host_phases_seconds=[m.phases for m in runs], exact_phase_ms=exact_ms,
+        coarse_q1=coarse1, coarse_q17=coarse17, max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # --- search_many for the suite: one coarse launch, hits equal to single searches
+    singles = [eng.search(q, db) for q in queries]
+    int8_mma.coarse_counts.launches = 0
+    t0 = time.perf_counter()
+    many = eng.search_many(queries, db)
+    many_wall = time.perf_counter() - t0
+    if int8_mma.coarse_counts.launches != 1:
+        raise AssertionError(f"prefiltered search_many launched the coarse kernel {int8_mma.coarse_counts.launches} times")
+    for name, a, b in zip(SUITE, many, singles):
+        if a.hits != b.hits:
+            raise AssertionError(f"prefiltered search_many: {name} differs from its single search")
+    say("prefilter.many", queries=len(queries), coarse_launches=1, wall_seconds=many_wall,
+        device_seconds=sum(r.metrics.device_seconds for r in many), launches=many[0].metrics.kernel_launches,
+        single_wall_seconds=sum(r.metrics.wall_seconds for r in singles),
+        single_device_seconds=sum(r.metrics.device_seconds for r in singles), hits_equal_single=True)
+
+    # --- E-values: the sampled null is the exhaustive scores' at the sample
+    eng_e = SearchEngine(cfg.replace(evalue=True), device="cuda")
+    res = eng_e.search(query, db)
+    sample = eng_e._evalue_sample(db)
+    null = st.null_stats_from_scores(exhaustive[sample], n_subjects=db.n, query_length=query.length,
+                                     mean_subject_length=db.length_sum / db.n, lengths=db.lengths[sample],
+                                     population_lengths=db.lengths)
+    if not null_equal(res.null_stats, null) or any(s != exhaustive[i] for i, s in res.hits):
+        raise AssertionError("prefiltered E-value null differs from the exhaustive scores' at the sample")
+    stats = res.top_k_stats(3)
+    say("prefilter.evalue", query=MAIN_QUERY, sample=int(sample.shape[0]), null_equal_exhaustive=True,
+        evalues=[h.evalue for h in stats], bits=[h.bits for h in stats], wall_seconds=res.metrics.wall_seconds)
+
+    # --- recall: swtpu's battery check 9, five planted mutants of P02232 in the 10k golden database
+    q = parse_query(qdir / "P02232.fasta")
+    rng = np.random.default_rng(21)
+    mutants = []
+    for frac in (0.1, 0.2, 0.3, 0.4, 0.5):
+        mres = q.residues.copy()
+        idx = rng.choice(mres.shape[0], int(frac * mres.shape[0]), replace=False)
+        mres[idx] = rng.integers(0, 25, idx.shape[0]).astype(np.int8)
+        mutants.append(mres)
+    seqs = synth.synth_scale_db(q.residues)
+    db_hom = synth.database_from_arrays(seqs + mutants)
+    exact5 = SearchEngine(SWConfig(top_k=5), device="cuda").search(q, db_hom).top_k(5)
+    pre = SearchEngine(SWConfig(prefilter=0.05, top_k=5, prefilter_min_candidates=64), device="cuda").search(q, db_hom)
+    planted = set(range(len(seqs), len(seqs) + 5))
+    if pre.hits != exact5:
+        raise AssertionError(f"planted-homolog recall: prefiltered {pre.hits} != exhaustive {exact5}")
+    say("prefilter.recall", database=db_hom.n, planted=sorted(planted), hits=pre.hits, hits_equal_exhaustive=True,
+        recall_of_exhaustive_top5=f"{len(set(exact5) & set(pre.hits))}/5",
+        planted_in_exhaustive_top5=len(planted & {i for i, _ in exact5}), seconds=round(time.perf_counter() - t_phase, 3))
+    return {
+        "name": "coarse_counts (K7 int8 mma)", "route": "cuda", "source": "swtpu_torch/csrc/int8_mma.cu",
+        "replaces": "tools/roofline.py:65", "launches": launched["coarse_counts"], "max_abs_err": counts_err,
+        "ms": coarse1["ms"], "plain_ms": coarse1["plain_ms"], "bound_ms": coarse1["bound_ms"],
+        "bound_by": coarse1["bound_by"], "library_ms": coarse1["library_ms"],
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1315,12 +1664,15 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         smi = phase_card()
-        phase_build()
+        built = phase_build()
         kernel_err = phase_kernel()
         multi_err = phase_kernel_multi()
         affine_err = phase_kernel_affine()
         rows_err = phase_kernel_rows()
         carry_err = phase_kernel_carry()
+        counts_err, probe_err = phase_kernel_mma()
+        chain_err = phase_kernel_chain()
+        probe, chain = phase_roofline(built)
         phase_goldens()
         phase_goldens_affine()
         entry, db, engine, q1_bucket_ms = phase_scale()
@@ -1329,6 +1681,7 @@ def main() -> int:
         phase_align(db, engine, affine_engine)
         k2, k3 = phase_rows(db, engine)
         carry = phase_compose(db, engine, affine_engine, suite_scores)
+        coarse = phase_prefilter(db, engine)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1339,7 +1692,10 @@ def main() -> int:
     for k in (k2, k3):
         k["max_abs_err"] = max(k["max_abs_err"], rows_err)
     carry["max_abs_err"] = max(carry["max_abs_err"], carry_err)
-    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry]}))
+    coarse["max_abs_err"] = max(coarse["max_abs_err"], counts_err)
+    probe["max_abs_err"] = max(probe["max_abs_err"], probe_err)
+    chain["max_abs_err"] = max(chain["max_abs_err"], chain_err)
+    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, coarse, probe, chain]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ Linear gaps (``--gap``) or affine ones (``--gap-open``/``--gap-extend``);
 the wavefront kernel, or the row-parallel path (``--no-wave``, ``--pallas``
 for the CUDA kernels K2 and K3, ``--score-dtype int16`` for the narrow-type
 parity mode, ``--batch-rows``/``--length-quantum`` for its ladder);
-``--compose`` for composed band-group dispatch.  Runs on
+``--compose`` for composed band-group dispatch; ``--prefilter FRAC`` for the
+heuristic two-phase search (k-mer coarse pass, exact rescore of the top
+candidates; requires ``--top-k``).  Runs on
 the card unless ``--device cpu``.  Flags of features not ported yet are not
 accepted.
 
@@ -85,6 +87,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="composed band-group dispatch (wave_compose): each query's bands run as a chain of "
         "power-of-two band groups handing the band carry on, the same scores",
     )
+    p.add_argument(
+        "--prefilter",
+        type=float,
+        default=None,
+        metavar="FRAC",
+        help="heuristic two-phase mode: k-mer int8 coarse pass, then exact rescore of the top FRAC "
+        "of the database (requires --top-k; reported scores are exact, but hits outside the "
+        "candidate set are missed)",
+    )
     p.add_argument("--batch-rows", type=int, default=8192)
     p.add_argument("--length-quantum", type=int, default=128)
     return p
@@ -120,6 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             top_k=args.top_k,
             evalue=args.evalue,
             wave_compose=args.compose,
+            prefilter=args.prefilter,
         )
     except ValueError as e:
         print(f"swtpu_torch: error: {e}", file=sys.stderr)

@@ -6,7 +6,9 @@ or a device top-K, E-values, and the alignment traceback; and swtpu's
 row-parallel scoring family (``use_wave=False``, ``score_dtype="int16"``):
 ladder and segment packing, the int32, fast16, seg16 and int16-parity
 scorers with their exact rescore, and the CUDA kernels K2 and K3 behind
-``use_pallas``; and composed band-group dispatch (``wave_compose``).  A
+``use_pallas``; composed band-group dispatch (``wave_compose``); and the
+k-mer prefilter (``prefilter``), whose coarse pass is the CUDA kernel of
+``ops.int8_mma``.  A
 knob of a feature that a later slice of the port brings (``ROADMAP.md``
 Queue A) keeps its field and default here, and setting it to anything else
 raises ``NotImplementedError`` naming that slice, so no setting is silently
@@ -87,9 +89,16 @@ class SWConfig:
     # warmup_many_background has run its fused shape.
     wave_compose: bool = False
 
-    # --- knobs of later slices: defaults only ---------------------------------
+    # --- heuristic prefilter (implemented) ------------------------------------
+    # A k-mer coarse pass (swtpu_torch.ops.prefilter) scores the whole
+    # database in one int8 product, then only the top ``prefilter`` fraction
+    # (at least prefilter_min_candidates and 4 * top_k) is scored exactly.
+    # Reported hits are exact; hits outside the candidate set are missed.
+    # Requires top_k.
     prefilter: Optional[float] = None
     prefilter_min_candidates: int = 256
+
+    # --- knobs of later slices: defaults only ---------------------------------
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("db",)
     query_shard: bool = False
@@ -117,6 +126,16 @@ class SWConfig:
                 "wave_compose is incompatible with query_shard: both own the "
                 "kernel's band-carry chain (query_shard ships it between devices)"
             )
+        if self.prefilter is not None:
+            if not (0.0 < self.prefilter <= 1.0):
+                raise ValueError(f"prefilter must be a fraction in (0, 1] (got {self.prefilter})")
+            if self.top_k is None:
+                raise ValueError(
+                    "prefilter requires top_k: the heuristic two-phase search "
+                    "only reports a top-K (most scores are never computed)"
+                )
+            if self.prefilter_min_candidates < 1:
+                raise ValueError("prefilter_min_candidates must be >= 1")
         defaults = SWConfig.__dataclass_fields__
         for name, later in _LATER_SLICES.items():
             value = getattr(self, name)
@@ -132,8 +151,6 @@ class SWConfig:
 
 # Field -> the slice of the port that implements it.
 _LATER_SLICES = {
-    "prefilter": "slice A12 (prefilter)",
-    "prefilter_min_candidates": "slice A12 (prefilter)",
     "mesh_shape": "slice A14 (multi-GPU)",
     "mesh_axes": "slice A14 (multi-GPU)",
     "query_shard": "slice A14 (multi-GPU)",

@@ -62,6 +62,18 @@ class Database:
     def sequence(self, i: int) -> np.ndarray:
         return self.residues[int(self.offsets[i]) : int(self.offsets[i + 1])]
 
+    def take(self, ids: np.ndarray) -> "Database":
+        """Gather the given record ids (ascending or not) into a compact
+        database; record i of the result is ``ids[i]`` of this one (the
+        prefilter hands its candidate set to the exact engine this way)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        lens = self.lengths[ids]
+        off = np.zeros(ids.shape[0] + 1, dtype=np.int64)
+        np.cumsum(lens, out=off[1:])
+        # Each output position's source: its record's start plus its place in the record.
+        src = np.repeat(self.offsets[ids] - off[:-1], lens) + np.arange(int(off[-1]), dtype=np.int64)
+        return Database(residues=self.residues[src], offsets=off)
+
 
 def _split_records(data: bytes) -> List[Tuple[bytes, bytes]]:
     """Split FASTA bytes into (header, sequence bytes without whitespace)."""

@@ -23,6 +23,9 @@ Serving paths beside the single search:
 * with ``SWConfig.top_k`` the top-K reduces on the device and only candidate
   rows transfer; with ``SWConfig.evalue`` the null distribution's moments
   reduce there too, in int64;
+* with ``SWConfig.prefilter`` ``search`` and ``search_many`` run the k-mer
+  prefilter: one int8 coarse launch (``ops.int8_mma``) ranks the database,
+  and the top candidates are gathered on the device and scored exactly;
 * with ``SWConfig.wave_compose`` a query on a resident pack runs as a chain
   of power-of-two band groups, each launch handing its band carry to the
   next (the kernel's hand-off mode), and ``search_many`` serves a piece
@@ -50,7 +53,8 @@ import torch
 from ..config import SWConfig
 from ..io.fasta import Database, Query
 from ..matrices import get_matrix
-from ..ops import bucket_sw, row_sw, wave_sw
+from ..ops import bucket_sw, int8_mma, row_sw, wave_sw
+from ..ops import prefilter as pf
 from ..ops.profile import PAD_SUBJECT, make_profile
 from ..utils import segpack
 from ..utils.bucketing import (
@@ -63,6 +67,7 @@ from ..utils.bucketing import (
     plan_batches,
     plan_wave_buckets,
     scatter_scores,
+    wave_width_edges,
 )
 from ..utils.memory import resident_cell_budget, scratch_budget_bytes
 from ..utils.metrics import PhaseTimer, SearchMetrics
@@ -244,6 +249,12 @@ class SearchEngine:
         self._fused_many_warm: set = set()
         self._warmup_bg_error: Optional[BaseException] = None  # a background warmer's failure
         self._warmup_many_bg_error: Optional[BaseException] = None
+        # The prefilter's per-database state (signatures and residues on the
+        # device, the pinned mid width, the E-value sample) and exact engine.
+        self._sig_cache = None
+        self._prefilter_edge_cache = None
+        self._evalue_sample_cache = None
+        self._exact: Optional["SearchEngine"] = None
 
     # --- device plumbing -------------------------------------------------------
 
@@ -374,8 +385,14 @@ class SearchEngine:
 
     @staticmethod
     def _launches() -> int:
-        """CUDA kernel launches of every wrapper so far (K1, K2, K3)."""
-        return wave_sw.sw_wave.launches + bucket_sw.sw_score_bucket_fused.launches + bucket_sw.sw_score_bucket.launches
+        """CUDA kernel launches of every wrapper of a search so far (K1, K2,
+        K3 and the coarse counts)."""
+        return (
+            wave_sw.sw_wave.launches
+            + bucket_sw.sw_score_bucket_fused.launches
+            + bucket_sw.sw_score_bucket.launches
+            + int8_mma.coarse_counts.launches
+        )
 
     def plan(self, db: Database) -> BatchPlan:
         """The row path's ladder plan of ``db``."""
@@ -437,12 +454,17 @@ class SearchEngine:
             groups = pack_database(db, remapped, device=self.device).groups
         return PackedDatabase(groups=groups, n_sequences=db.n, seg_groups=tuple(seg_groups))
 
-    def _resident_packed(self, db: Database) -> Optional[PackedDatabase]:
+    def _resident_packed(self, db: Database, plan: Optional[BatchPlan] = None) -> Optional[PackedDatabase]:
         """The cached device-resident pack for ``db``, packing it on first
         use; None when it must stream instead: residency is off, or the
         plan's int8 bytes (the wave plan, or on the row path the ladder
         plan) exceed ``device_resident_cells`` or a share of the device's
-        free memory."""
+        free memory.
+
+        ``plan`` (a BatchPlan, ``plan(db)``'s by default) packs the row
+        path's ladder groups; the wavefront path plans its own buckets, as
+        swtpu's pack does.  As in swtpu the cache is keyed by the database
+        object alone: a plan given once ``db`` is resident does not repack."""
         if self._resident is not None and self._resident[0] is db:
             return self._resident[1]
         if not self.config.device_resident:
@@ -452,7 +474,8 @@ class SearchEngine:
             plan = plan_wave_buckets(db, chain=self._wave_chain)
             need = sum((width + wave_sw.W) * bpad for width, _, _, bpad, _ in plan)
         else:
-            plan = self.plan(db)
+            if plan is None:
+                plan = self.plan(db)
             need = plan.total_cells
         if need > budget:
             return None
@@ -806,15 +829,19 @@ class SearchEngine:
         )
         return self._attach_null(SearchResult(scores=scores, metrics=metrics), query, db)
 
-    def search(self, query: Query, db: Database) -> SearchResult:
+    def search(self, query: Query, db: Database, plan: Optional[BatchPlan] = None) -> SearchResult:
         """Search ``db``: resident (packed on its first search) when it fits
         the budget, else streamed bucket by bucket (wave path) or batch by
-        batch (row path) with exact query padding."""
-        packed = self._resident_packed(db)
+        batch (row path) with exact query padding.  ``plan``: the row path's
+        ladder plan (``_resident_packed``); with ``config.prefilter`` the
+        two-phase heuristic search runs instead (``_search_prefiltered``)."""
+        if self.config.prefilter is not None:
+            return self._search_prefiltered(query, db)
+        packed = self._resident_packed(db, plan)
         if packed is not None:
             return self.search_packed(query, db, packed)
         if not self._wave_enabled:
-            return self._attach_null(self._search_rows_streaming(query, db), query, db)
+            return self._attach_null(self._search_rows_streaming(query, db, plan), query, db)
         return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
 
     # --- batched serving ------------------------------------------------------------
@@ -858,7 +885,7 @@ class SearchEngine:
         compose = self._compose_active(packed)
         for qpad, piece in self._query_pieces(queries):
             if compose and (qpad, len(piece)) not in self._fused_many_warm:
-                for i, res in zip(piece, self.search_queued([queries[i] for i in piece], db, packed)):
+                for i, res in zip(piece, self.search_queued([queries[i] for i in piece], db, packed=packed)):
                     out[i] = res
                 continue
             t_start = time.perf_counter()
@@ -901,14 +928,18 @@ class SearchEngine:
         ``wave_compose`` a piece whose shape ``warmup_many_background`` has
         not run is served through the composed per-query chains.  A
         database that cannot be resident streams, every query scored against
-        each bucket upload.
+        each bucket upload.  With ``config.prefilter`` one coarse launch
+        scores the whole batch and the exact phases sync once
+        (``_search_many_prefiltered``).
         """
         if not queries:
             return []
+        if self.config.prefilter is not None:
+            return self._search_many_prefiltered(queries, db)
         if not self._wave_enabled:
             # The row kernels have no query axis: each query keeps its own
             # launches, and the batch syncs once.
-            return self.search_queued(queries, db, packed)
+            return self.search_queued(queries, db, packed=packed)
         if packed is None:
             packed = self._resident_packed(db)
             if packed is None:
@@ -923,7 +954,12 @@ class SearchEngine:
     # --- queued serving ---------------------------------------------------------------
 
     def search_queued(
-        self, queries: List[Query], db: Database, packed: Optional[PackedDatabase] = None
+        self,
+        queries: List[Query],
+        db: Database,
+        plan: Optional[BatchPlan] = None,
+        *,
+        packed: Optional[PackedDatabase] = None,
     ) -> List[SearchResult]:
         """Throughput protocol: enqueue every query's own launches back to
         back on the current stream, then sync once for the whole batch.
@@ -933,15 +969,17 @@ class SearchEngine:
         composed chain where ``_compose_for`` says so.  With
         ``config.top_k`` each query's launches end in the device top-K and
         only candidate rows transfer.  Per-query times are cell-proportional
-        shares (``SearchMetrics.attributed``).  A database that cannot be
-        resident falls back to sequential :meth:`search` (which streams).
+        shares (``SearchMetrics.attributed``).  ``plan`` as in
+        :meth:`search`; ``packed``, a pack already on the device, skips the
+        residency lookup.  A database that cannot be resident falls back to
+        sequential :meth:`search` (which streams).
         """
         if not queries:
             return []
         if packed is None:
-            packed = self._resident_packed(db)
+            packed = self._resident_packed(db, plan)
             if packed is None:
-                return [self.search(q, db) for q in queries]
+                return [self.search(q, db, plan) for q in queries]
         topk = self.config.top_k is not None and bool(packed.wave_groups)
         setup = self._topk_setup(db, packed) if topk else None
 
@@ -1048,7 +1086,9 @@ class SearchEngine:
 
     # --- warmups ------------------------------------------------------------------------
 
-    def warmup(self, queries: List[Query], db: Database, threads: int = 8) -> float:
+    def warmup(
+        self, queries: List[Query], db: Database, plan: Optional[BatchPlan] = None, threads: int = 8
+    ) -> float:
         """Run, from a thread pool, one real search dispatch for every
         distinct shape ``queries`` will need, ahead of them; returns the
         seconds spent.  A shape is a band-group rung under composition (a
@@ -1058,8 +1098,9 @@ class SearchEngine:
         or loads the kernel library, and any one packs the database resident
         and warms the caching allocator; nothing is compiled per shape.  A
         failure in a worker is raised here.  No-op (0.0) for a database that
-        streams, as :meth:`search_queued` then falls back to searches."""
-        packed = self._resident_packed(db)
+        streams, as :meth:`search_queued` then falls back to searches.
+        ``plan`` as in :meth:`search`."""
+        packed = self._resident_packed(db, plan)
         if packed is None or not queries:
             return 0.0
         t0 = time.perf_counter()
@@ -1111,14 +1152,17 @@ class SearchEngine:
         t.start()
         return t
 
-    def warmup_background(self, queries: List[Query], db: Database, threads: int = 8) -> threading.Thread:
+    def warmup_background(
+        self, queries: List[Query], db: Database, plan: Optional[BatchPlan] = None, threads: int = 8
+    ) -> threading.Thread:
         """Tiered serving: run each query's fused shape (``_fused_key``, and
         its device top-K with ``top_k``) in a daemon thread while the
         composed route serves, and move each shape off the composed route
         (``_fused_warm``) once it has run.  Returns the thread (``join()``
         it; a failure is kept on ``_warmup_bg_error``).  Does nothing when
-        composition is not active for this database."""
-        packed = self._resident_packed(db)
+        composition is not active for this database.  ``plan`` as in
+        :meth:`search`."""
+        packed = self._resident_packed(db, plan)
         if not self._compose_active(packed) or not queries:
             return self._spawn_warmer(lambda item: None, (), "_warmup_bg_error", 1)
         seen: dict = {}
@@ -1136,15 +1180,17 @@ class SearchEngine:
 
         return self._spawn_warmer(fire, list(seen.items()), "_warmup_bg_error", threads)
 
-    def warmup_many_background(self, queries: List[Query], db: Database, threads: int = 4) -> threading.Thread:
+    def warmup_many_background(
+        self, queries: List[Query], db: Database, plan: Optional[BatchPlan] = None, threads: int = 4
+    ) -> threading.Thread:
         """Tiered batched serving: run the fused multi-query shape of every
         (qpad, Q) piece ``search_many`` cuts from ``queries`` (with its
         device top-K under ``top_k``) in a daemon thread while the composed
         per-query chains serve, and move each piece shape onto its folded
         launches (``_fused_many_warm``) once it has run.  The batched
         analogue of :meth:`warmup_background`, with its own error slot
-        (``_warmup_many_bg_error``)."""
-        packed = self._resident_packed(db)
+        (``_warmup_many_bg_error``).  ``plan`` as in :meth:`search`."""
+        packed = self._resident_packed(db, plan)
         if not self._compose_active(packed) or not queries:
             return self._spawn_warmer(lambda item: None, (), "_warmup_many_bg_error", 1)
         seen: dict = {}
@@ -1161,6 +1207,271 @@ class SearchEngine:
             self._fused_many_warm.add(key)
 
         return self._spawn_warmer(fire, list(seen.items()), "_warmup_many_bg_error", threads)
+
+    # --- the k-mer prefilter ----------------------------------------------------------------
+
+    def _exact_engine(self) -> "SearchEngine":
+        """Lazy exhaustive engine for the exact phase off the wavefront
+        path: the same config without the heuristic knobs, unchained (as
+        swtpu's), and without E-values (the caller fits its null from the
+        calibration sample, not from the candidates' biased scores)."""
+        if self._exact is None:
+            self._exact = SearchEngine(
+                self.config.replace(prefilter=None, top_k=None, wave_chain=False, evalue=False), device=self.device
+            )
+        return self._exact
+
+    def _prefilter_signatures(self, db: Database):
+        """(signatures (n, DIM) int8, popcounts (n,) int32, residues, int64
+        offsets) on the engine's device, built and uploaded once per
+        database object: the coarse pass reads the first two, gather_stack
+        the last two (int64 offsets: no 2**31-residue limit on the gather)."""
+        cached = self._sig_cache
+        if cached is not None and cached[0] is db:
+            return cached[1]
+        self._sig_cache = None  # release the previous database's tensors first
+        sig = self._upload(pf.database_signatures(db))
+        resident = (sig, sig.sum(dim=1, dtype=torch.int32), self._upload(db.residues), self._upload(db.offsets.astype(np.int64)))
+        self._sig_cache = (db, resident)
+        return resident
+
+    def _n_cand(self, n: int) -> int:
+        """Candidates a query keeps: the ``prefilter`` fraction of n, at least
+        ``prefilter_min_candidates`` and 4 * top_k, at most n."""
+        cfg = self.config
+        if n == 0:
+            return 0
+        return min(max(int(np.ceil(cfg.prefilter * n)), min(cfg.prefilter_min_candidates, n), 4 * cfg.top_k), n)
+
+    def _search_prefiltered(self, query: Query, db: Database) -> SearchResult:
+        """Two-phase heuristic search (``ops.prefilter``): the int8 coarse
+        pass over k-mer signatures, then an exact rescore of the top
+        candidates.  Hits are exact SW scores with file-order ids; ``scores``
+        is None (most of the array was never computed).  Device seconds are
+        the coarse pass's span plus the exact phase's."""
+        cfg = self.config
+        timer = PhaseTimer()
+        t_start = time.perf_counter()
+        launches0 = self._launches()
+        with timer.phase("prefilter_signatures"):
+            sig, pop, _, _ = self._prefilter_signatures(db)
+            qsig = pf.signature(query.residues)
+        coarse_s = 0.0
+        cand = np.arange(db.n, dtype=np.int64)
+        # A degenerate signal (a query shorter than K, an empty database)
+        # falls back to exhaustive candidates rather than arbitrary hits.
+        if db.n and qsig.any():
+            n_cand = self._n_cand(db.n)
+            with timer.phase("prefilter_coarse"):
+                t0 = self._mark()
+                packed = pf.coarse_candidates(sig, pop, self._upload(qsig), n_cand)
+                t1 = self._mark()
+                packed = packed.cpu().numpy()
+                coarse_s = self._seconds(t0, t1)
+            # No shared bucket anywhere (every subject shorter than K): no
+            # signal either, and ranking by it would pick an id prefix.
+            if int(packed[2, 0]) != 0:
+                cand = pf.merge_candidates(packed[0], packed[1], n_cand)
+        if cfg.evalue:
+            # Null calibration: a fixed random sample is scored exactly too,
+            # for an unbiased sampled fit.
+            cand = np.union1d(cand, self._evalue_sample(db))
+        null = None
+        k = min(cfg.top_k, int(cand.shape[0]))
+        if self._wave_enabled and cand.shape[0] < db.n:
+            hits, dev_s, cells, ids_sc, sc = self._prefilter_exact_hits(query, db, cand, k, timer)
+            if cfg.evalue:
+                null = self._null_from_sample(query, db, ids_sc, sc)
+        else:
+            # The row path, and the exhaustive fallback, ride the exact engine.
+            with timer.phase("prefilter_gather"):
+                sub = db.take(cand)
+            sub_result = self._exact_engine().search(query, sub)
+            # Candidate ids ascend, so the sub-engine's id-ascending
+            # tie-break maps straight onto file-order ids.
+            hits = [(int(cand[i]), s) for i, s in sub_result.top_k(k)]
+            dev_s = sub_result.metrics.device_seconds
+            cells = sub_result.metrics.packed_cells
+            timer.phases.update(sub_result.metrics.phases)
+            if cfg.evalue:
+                null = self._null_from_sample(query, db, cand, np.asarray(sub_result.scores))
+        metrics = self._metrics(
+            query, db, cells, time.perf_counter() - t_start, coarse_s + dev_s,
+            phases=dict(timer.phases), kernel_launches=self._launches() - launches0,
+        )
+        return SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
+
+    def _search_many_prefiltered(self, queries: List[Query], db: Database) -> List[SearchResult]:
+        """Batched heuristic serving: one coarse launch scores the whole
+        batch against the resident signatures, every query's exact phase is
+        enqueued, and one sync drains them.  Degenerate queries (no k-mer,
+        no shared bucket) take the single path; off the wavefront path, or
+        when the candidates are the whole database, every query does.
+        Per-query times are cell-proportional shares of the batch."""
+        cfg = self.config
+        n_cand = self._n_cand(db.n)
+        if not self._wave_enabled or n_cand >= db.n:
+            return [self._search_prefiltered(q, db) for q in queries]
+        t_start = time.perf_counter()
+        timer = PhaseTimer()
+        launches0 = self._launches()
+        with timer.phase("prefilter_signatures"):
+            sig, pop, _, _ = self._prefilter_signatures(db)
+            qsigs = np.stack([pf.signature(q.residues) for q in queries])
+        out: List[Optional[SearchResult]] = [None] * len(queries)
+        good = [i for i in range(len(queries)) if qsigs[i].any()]
+        for i in sorted(set(range(len(queries))) - set(good)):
+            out[i] = self._search_prefiltered(queries[i], db)
+        if not good:
+            return out  # type: ignore[return-value]
+        with timer.phase("prefilter_coarse"):
+            t0 = self._mark()
+            packed = pf.coarse_candidates_many(sig, pop, self._upload(qsigs[good]), n_cand)
+            t1 = self._mark()
+            packed = packed.cpu().numpy()
+            device_seconds = self._seconds(t0, t1)
+        pend = []
+        for row, qi in enumerate(good):
+            if int(packed[row, 2, 0]) == 0:  # no shared bucket anywhere
+                out[qi] = self._search_prefiltered(queries[qi], db)
+                continue
+            cand = pf.merge_candidates(packed[row, 0], packed[row, 1], n_cand)
+            if cfg.evalue:
+                cand = np.union1d(cand, self._evalue_sample(db))
+            flat, jobs, cells, span = self._prefilter_exact_enqueue(queries[qi], db, cand, timer)
+            pend.append((qi, self._to_host(flat), jobs, cells, span, min(cfg.top_k, int(cand.shape[0]))))
+        self._sync()  # the one sync of the batch's exact phases
+        resolved = []
+        for qi, host, jobs, cells, span, k in pend:
+            ids, scores = self._prefilter_exact_scores(host, jobs)
+            null = self._null_from_sample(queries[qi], db, ids, scores) if cfg.evalue else None
+            resolved.append((qi, self._hits_from(ids, scores, k), cells, null))
+            device_seconds += self._seconds(*span)
+        wall = time.perf_counter() - t_start
+        launches = self._launches() - launches0
+        total_cells = max(sum(c for _, _, c, _ in resolved), 1)
+        for qi, hits, cells, null in resolved:
+            share = cells / total_cells
+            metrics = self._metrics(
+                queries[qi], db, cells, wall * share, device_seconds * share,
+                phases=dict(timer.phases), attributed=True, kernel_launches=launches,
+            )
+            out[qi] = SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
+        return out  # type: ignore[return-value]
+
+    def _prefilter_exact_hits(self, query: Query, db: Database, cand: np.ndarray, k: int, timer):
+        """Exact wavefront rescore of a candidate id set: (hits, device
+        seconds, packed cells, ids, scores), hits in (score desc, id asc)
+        order, (ids, scores) the whole rescored set (the E-value
+        calibration sample lies inside it)."""
+        flat, jobs, cells, span = self._prefilter_exact_enqueue(query, db, cand, timer)
+        host = self._to_host(flat)
+        self._sync()
+        ids, scores = self._prefilter_exact_scores(host, jobs)
+        return self._hits_from(ids, scores, k), self._seconds(*span), cells, ids, scores
+
+    def _prefilter_exact_enqueue(self, query: Query, db: Database, cand: np.ndarray, timer):
+        """Enqueue, without a sync, the exact rescore of one query's
+        candidates: one wavefront launch per width class, its bucket
+        gathered on the device from the resident residue buffer
+        (``pf.gather_stack``).  Returns (flat scores on the device, jobs,
+        packed cells, (start, end) marks) for ``_prefilter_exact_scores``.
+
+        Widths are pinned per database as swtpu pins them (there to bound
+        its compiled shapes; here they keep ``packed_cells`` equal to
+        swtpu's): 992, the ladder's fine/coarse boundary; the edge covering
+        the 99.9% length quantile, so one multi-kilo-residue outlier does
+        not pad every longer candidate; and the edge covering the longest
+        sequence.  Lane counts are powers of two from 256.
+        """
+        lens = db.lengths[cand]
+        largest = int(db.lengths.max())
+        edges = wave_width_edges(max(largest, 1))
+        long_edge = next(e for e in edges if e >= largest)
+        cached = self._prefilter_edge_cache
+        if cached is not None and cached[0] is db:
+            mid_edge = cached[1]
+        else:
+            q999 = int(np.quantile(db.lengths, 0.999))
+            # A small database may have no edge >= 993: then the long bucket
+            # takes every candidate over 992.
+            mid_edge = next((e for e in edges if e >= max(q999, 993)), long_edge)
+            self._prefilter_edge_cache = (db, mid_edge)
+        if mid_edge >= long_edge:
+            parts = [(cand[lens <= 992], 992), (cand[lens > 992], long_edge)]
+        else:
+            parts = [
+                (cand[lens <= 992], 992),
+                (cand[(lens > 992) & (lens <= mid_edge)], mid_edge),
+                (cand[lens > mid_edge], long_edge),
+            ]
+        _, _, flat, offsets = self._prefilter_signatures(db)
+        with timer.phase("prefilter_pack"):
+            qpad = self._query_pad(query.length, wave_sw.W, serving=True)
+            profile = self._upload(make_profile(query.residues, self.matrix, pad_rows_to=qpad))
+            jobs, cells = [], 0
+            for part, width in parts:
+                if part.shape[0] == 0:
+                    continue
+                bpad = max(256, 1 << (int(part.shape[0]) - 1).bit_length())
+                cand_pad = np.full(bpad, -1, dtype=np.int64)
+                cand_pad[: part.shape[0]] = part
+                jobs.append((part, width, cand_pad))
+                cells += qpad * bpad * (width + wave_sw.W)
+        t0 = self._mark()
+        outs = [
+            wave_sw.sw_wave(profile, pf.gather_stack(flat, offsets, self._upload(cand_pad), width), **self._gaps)
+            for _, width, cand_pad in jobs
+        ]
+        t1 = self._mark()
+        return torch.cat(outs), jobs, cells, (t0, t1)
+
+    @staticmethod
+    def _prefilter_exact_scores(flat_host: torch.Tensor, jobs):
+        """(candidate ids, exact scores) of an enqueued exact phase, from its
+        flat scores on the host after the sync (pad lanes dropped)."""
+        flat = flat_host.numpy()
+        split, pieces = 0, []
+        for part, _, cand_pad in jobs:
+            pieces.append(flat[split : split + part.shape[0]])
+            split += cand_pad.shape[0]
+        return np.concatenate([part for part, _, _ in jobs]), np.concatenate(pieces)
+
+    @staticmethod
+    def _hits_from(ids: np.ndarray, scores: np.ndarray, k: int) -> List[Tuple[int, int]]:
+        """Top-k (id, score) in the engine's (score desc, id asc) order."""
+        order = np.lexsort((ids, -scores))[:k]
+        return [(int(ids[i]), int(scores[i])) for i in order]
+
+    def _evalue_sample(self, db: Database) -> np.ndarray:
+        """The deterministic random calibration sample of prefilter E-values
+        (2,048 ids, ``default_rng(0)``), scored exactly beside the
+        candidates: the candidate set is biased by the coarse score, and a
+        null fitted to it would be wrong."""
+        cached = self._evalue_sample_cache
+        if cached is not None and cached[0] is db:
+            return cached[1]
+        n = min(2048, db.n)
+        sample = np.sort(np.random.default_rng(0).choice(db.n, n, replace=False)).astype(np.int64)
+        self._evalue_sample_cache = (db, sample)
+        return sample
+
+    def _null_from_sample(self, q: Query, db: Database, ids: np.ndarray, scores: np.ndarray):
+        """NullStats from the calibration sample's exact scores, found among
+        the rescored (ids, scores)."""
+        from .. import stats as st
+
+        sample = self._evalue_sample(db)
+        order = np.argsort(ids)
+        idx = order[np.searchsorted(ids[order], sample)]
+        return st.null_stats_from_scores(
+            scores[idx],
+            n_subjects=db.n,
+            query_length=q.length,
+            mean_subject_length=db.length_sum / max(db.n, 1),
+            lengths=db.lengths[sample],
+            population_lengths=db.lengths,
+        )
 
     # --- streaming ----------------------------------------------------------------------
 
@@ -1258,16 +1569,18 @@ class SearchEngine:
         return results
 
 
-    def _search_rows_streaming(self, query: Query, db: Database) -> SearchResult:
+    def _search_rows_streaming(self, query: Query, db: Database, plan: Optional[BatchPlan] = None) -> SearchResult:
         """The row path for a database that is not resident: pack the ladder
-        plan batch by batch on the host, upload each, score it with the
-        streamed scorer (K3 with ``use_pallas``), scatter the scores to file
-        order, and rescore saturated rows exactly.  Device time is the sum of
-        the scorer's own spans (CUDA events), without the host packing."""
+        plan (``plan(db)``'s unless given) batch by batch on the host, upload
+        each, score it with the streamed scorer (K3 with ``use_pallas``),
+        scatter the scores to file order, and rescore saturated rows exactly.
+        Device time is the sum of the scorer's own spans (CUDA events),
+        without the host packing."""
         timer = PhaseTimer()
         t_start = time.perf_counter()
         with timer.phase("plan"):
-            plan = self.plan(db)
+            if plan is None:
+                plan = self.plan(db)
             profile = self._upload(make_profile(query.residues, self.matrix, pad_rows_to=self.config.query_strip))
         launches0 = self._launches()
         batches = iter_packed(db, plan)

@@ -8,7 +8,10 @@ committed goldens; align_top_k on the card gives the alignments it gives on
 the CPU.  The row kernels K2 and K3 are held to their plain versions, and
 the ``use_pallas`` engine (resident through K2, streamed through K3) to the
 goldens.  The kernel's band-carry hand-off is held to its plain version rung
-by rung, carry and scores, and the composed engine to the fused one.
+by rung, carry and scores, and the composed engine to the fused one.  The
+int8 kernels of K7 (coarse counts, the MAC-rate probe) and K8's chain are
+held to their plain versions, and the prefiltered engine on the card to the
+one on the CPU.
 """
 
 from pathlib import Path
@@ -22,7 +25,7 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import Query, parse_database, parse_query
 from swtpu_torch.matrices import blosum50_ref
 from swtpu_torch.models.search import SearchEngine, SearchResult
-from swtpu_torch.ops import bucket_sw, row_sw, wave_sw
+from swtpu_torch.ops import bucket_sw, int8_mma, row_sw, vpu_chain, wave_sw
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -258,3 +261,49 @@ def test_composed_engine_matches_fused_on_card(cuda, gaps):
     for q in queries:
         got, want = topk.search(q, db), ref.search(q, db)
         assert got.hits == want.hits and got.top_k_stats(10) == want.top_k_stats(10)
+
+
+@pytest.mark.parametrize("n,n_q,dim", [(1, 1, 64), (15, 2, 1024), (17, 17, 2048), (4097, 8, 96), (100003, 33, 1024)])
+def test_coarse_counts_kernel_matches_plain(cuda, n, n_q, dim):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + dim)
+    db = torch.randint(0, 2, (n, dim), dtype=torch.int8, device=cuda, generator=gen)
+    qs = torch.randint(0, 2, (n_q, dim), dtype=torch.int8, device=cuda, generator=gen)
+    db[0, :5], qs[-1, 2:6] = 5, -5
+    before = int8_mma.coarse_counts.launches
+    got = int8_mma.coarse_counts(qs, db)
+    torch.cuda.synchronize()
+    assert int8_mma.coarse_counts.launches == before + 1
+    assert torch.equal(got, int8_mma.coarse_counts_plain(qs, db))
+
+
+def test_probe_and_chain_kernels_match_plain(cuda):
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(-5, 5, (128, 384), dtype=np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 2, (384, 512), dtype=np.int8)).to(cuda)
+    for iters, unroll in ((1, 1), (2, 5), (3, 100)):
+        assert torch.equal(int8_mma.mma_probe(a, b, iters, unroll), int8_mma.mma_probe_plain(a, b, iters, unroll))
+    x = torch.from_numpy(rng.integers(0, 1000, (32, 512), dtype=np.int32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 3, (32, 512), dtype=np.int32)).to(cuda)
+    for iters in (0, 1, 7):
+        assert torch.equal(vpu_chain.vpu_chain(x, y, iters), vpu_chain.vpu_chain_plain(x, y, iters))
+
+
+@pytest.mark.parametrize("evalue", [False, True], ids=["hits", "evalue"])
+def test_prefiltered_engine_on_card_matches_cpu(cuda, evalue):
+    db = parse_database(DATA / "uniprot_subset.fasta")
+    queries = [parse_query(DATA / "queries" / f"{q}.fasta") for q in ("P02232", "P01008", "P05013")]
+    cfg = SWConfig(prefilter=0.2, top_k=5, prefilter_min_candidates=1, evalue=evalue)
+    card, cpu = SearchEngine(cfg, device=cuda), SearchEngine(cfg, device="cpu")
+    for q in queries:
+        before = int8_mma.coarse_counts.launches
+        got = card.search(q, db)
+        assert int8_mma.coarse_counts.launches == before + 1
+        want = cpu.search(q, db)
+        assert got.hits == want.hits
+        if evalue:
+            assert got.top_k_stats(5) == want.top_k_stats(5)
+    before = int8_mma.coarse_counts.launches
+    many = card.search_many(queries, db)
+    assert int8_mma.coarse_counts.launches == before + 1
+    assert [r.hits for r in many] == [cpu.search(q, db).hits for q in queries]

@@ -1,11 +1,14 @@
 """The port stands alone and never hides the device.
 
-* importing swtpu_torch (its stats copy included) and running a search, a
-  row-path search and a batched top-K with E-values loads neither JAX nor
-  swtpu (a subprocess: every pytest process here has imported JAX already);
+* importing swtpu_torch (its stats copy, the prefilter, the int8 and chain
+  kernels' wrappers and the roofline tool included) and running a search, a
+  row-path search, a batched top-K with E-values and a prefiltered search
+  loads neither JAX nor swtpu (a subprocess: every pytest process here has
+  imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
 * every knob of a later slice raises instead of being ignored, and the
-  serving, affine-gap and row-path and composed-dispatch knobs are accepted.
+  serving, affine-gap, row-path, composed-dispatch and prefilter knobs are
+  accepted.
 """
 
 import subprocess
@@ -27,6 +30,7 @@ import sys
 import swtpu_torch.cli, swtpu_torch.models.search, swtpu_torch.synth, swtpu_torch.ops._build, swtpu_torch.stats
 import swtpu_torch.models.align, swtpu_torch.ops.oracle
 import swtpu_torch.ops.row_sw, swtpu_torch.ops.bucket_sw, swtpu_torch.utils.segpack
+import swtpu_torch.ops.prefilter, swtpu_torch.ops.int8_mma, swtpu_torch.ops.vpu_chain, swtpu_torch.tools.roofline
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
@@ -39,6 +43,8 @@ hits = SearchEngine(SWConfig(top_k=3, evalue=True), device="cpu").search_many([q
 assert len(hits) == 3
 alns = swtpu_torch.models.align.align_top_k(q, db, k=2, config=SWConfig(gap_open=10, gap_extend=1), device="cpu")
 assert len(alns) == 2
+pre = SearchEngine(SWConfig(prefilter=0.3, top_k=3, prefilter_min_candidates=1), device="cpu").search(q, db)
+assert pre.scores is None and len(pre.hits) == 3 and all(res.scores[i] == s for i, s in pre.hits)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "swtpu" or m.startswith("swtpu."))
 print("LOADED", bad)
 """
@@ -70,7 +76,7 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
 @pytest.mark.parametrize(
     "knob,value",
     [
-        ("prefilter", 0.1),
+        ("mesh_axes", ("model",)),
         ("mesh_shape", (2,)),
         ("query_shard", True),
     ],
@@ -85,11 +91,12 @@ def test_unported_knobs_raise(knob, value):
     [
         ("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True), ("gap_open", 11),
         ("score_dtype", "int16"), ("use_pallas", True), ("use_wave", False), ("segment_packing", False),
-        ("wave_compose", True),
+        ("wave_compose", True), ("prefilter", 0.1), ("prefilter_min_candidates", 7),
     ],
 )
 def test_serving_knobs_accepted(knob, value):
-    extra = {"gap_extend": 1} if knob == "gap_open" else {}  # affine gaps are set as a pair
+    # affine gaps are set as a pair; the prefilter needs a top-K
+    extra = {"gap_open": {"gap_extend": 1}, "prefilter": {"top_k": 5}}.get(knob, {})
     cfg = SWConfig(**{knob: value}, **extra)
     assert getattr(cfg, knob) == value
     SearchEngine(cfg, device="cpu")

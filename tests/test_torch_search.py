@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from swtpu.config import SWConfig as JConfig
 from swtpu.io.fasta import database_from_sequences as j_database_from_sequences
@@ -24,6 +25,15 @@ from swtpu_torch.models.search import SearchEngine, SearchResult
 ROOT = Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 SUBSET = DATA / "uniprot_subset.fasta"
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Small tensors: intra-op threads only contend with the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _golden(name):
@@ -185,6 +195,69 @@ def test_cli_json_metrics(capsys):
     d = json.loads(out[-1])
     assert d["n_subjects"] == 111 and d["query_length"] > 0 and "gcups_device" in d
     assert not any(":" in ln and ln.split(":")[0].isdigit() for ln in out)
+
+
+@pytest.fixture(scope="module")
+def swtpu_with_plan():
+    """swtpu's scores of two subset queries, searched with its own plan."""
+    from swtpu.io.fasta import parse_query as j_parse_query
+
+    jdb = j_parse_database(SUBSET)
+    eng = JEngine(JConfig())
+    names = ("P02232", "P05013")
+    return [eng.search(j_parse_query(DATA / "queries" / f"{n}.fasta"), jdb, plan=eng.plan(jdb)).scores for n in names]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("by", ["keyword", "position"])
+@pytest.mark.parametrize("config", [SWConfig(wave_compose=True), SWConfig(use_wave=False)], ids=["wave", "rows"])
+def test_entry_points_take_swtpus_plan(swtpu_with_plan, config, by):
+    """search, search_queued and the three warmups take ``plan`` in swtpu's
+    place (after db; before threads), and give swtpu's scores with it."""
+    db = parse_database(SUBSET)
+    queries = [parse_query(DATA / "queries" / f"{n}.fasta") for n in ("P02232", "P05013")]
+    eng = SearchEngine(config, device="cpu")
+    plan = eng.plan(db)
+    call = (lambda fn, *a: fn(*a, plan)) if by == "position" else (lambda fn, *a: fn(*a, plan=plan))
+    assert isinstance(call(eng.warmup, queries, db), float)
+    for warmer in (eng.warmup_background, eng.warmup_many_background):
+        t = call(warmer, queries, db)
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert eng._warmup_bg_error is None and eng._warmup_many_bg_error is None
+    plain = SearchEngine(config, device="cpu")
+    for q, want in zip(queries, swtpu_with_plan):
+        assert np.array_equal(call(eng.search, q, db).scores, want)
+        assert np.array_equal(plain.search(q, db).scores, want)
+    for res, want in zip(call(eng.search_queued, queries, db), swtpu_with_plan):
+        assert np.array_equal(res.scores, want)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_plan_packs_the_row_path_and_packed_is_keyword_only():
+    """A plan given with the first search packs the row path's ladder (with
+    segment packing off: swtpu's segment packer plans its own rows); one
+    given once the database is resident does not repack (swtpu's cache key
+    is the database); search_queued's ``packed`` is keyword-only."""
+    import inspect
+
+    from swtpu_torch.utils.bucketing import plan_batches
+
+    db = parse_database(SUBSET)
+    q = parse_query(DATA / "queries" / "P02232.fasta")
+    eng = SearchEngine(SWConfig(use_wave=False, segment_packing=False), device="cpu")
+    plan = plan_batches(db.lengths, batch_rows=16, min_rows=8)
+    assert np.array_equal(eng.search(q, db, plan).scores, _golden("golden_P02232_subset.txt"))
+    packed = eng._resident_packed(db)
+    assert {(g.rows, g.width) for g in packed.groups} <= set(plan.shapes) and max(g.rows for g in packed.groups) <= 16
+    eng.search(q, db, eng.plan(db))
+    assert eng._resident_packed(db) is packed
+    params = inspect.signature(SearchEngine.search_queued).parameters
+    assert list(params)[:4] == ["self", "queries", "db", "plan"]
+    assert params["packed"].kind is inspect.Parameter.KEYWORD_ONLY
+    for name in ("warmup", "warmup_background", "warmup_many_background"):
+        assert list(inspect.signature(getattr(SearchEngine, name)).parameters)[:5] == ["self", "queries", "db", "plan", "threads"]
+    assert list(inspect.signature(SearchEngine.search).parameters) == ["self", "query", "db", "plan"]
 
 
 def test_matrix_file_and_alphabet_match_swtpu(tmp_path):
