@@ -30,8 +30,10 @@ Phases (one line each; any failure exits non-zero with no result line):
  3b. roofline K7's int8 MAC rate and K8's int32 chain rate at full
               occupancy (swtpu_torch.tools.roofline; counts zeroed just
               before, read just after) beside the data-sheet and derived
-              figures and their plain versions, and the SASS instructions
-              of a chain link (the chain's loop body)
+              figures and their plain versions, the SASS instructions
+              of a chain link (the chain's loop body) and the SM clock
+              under the chain's load; every later int32 bound divides by
+              the larger of the derived peak and K8's rate
   4. goldens  the committed subset, 10k-scale and saturation goldens through
               SearchEngine(device="cuda"): exact equality; the subset under
               affine gaps (10, 1) against the NumPy oracle
@@ -111,9 +113,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Lower-bound rates of an H100 SXM at 700 W.  Memory: 3.35 TB/s (data sheet).
-# int32 ALU: 132 SMs x 64 int32 lanes x 1.98 GHz boost = 16.7e12 operations/s.
+# int32 ALU: 132 SMs x 64 int32 lanes x 1.98 GHz boost issue 16.7e12
+# instructions/s, and one instruction does at most two operations (VIADDMNMX:
+# an add then a max; VIMNMX3: two maxes), so 33.5e12 operations/s.  K8's chain
+# (phase_roofline: one VIADDMNMX a link) runs at about that rate.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 2 * 132 * 64 * 1.98e9
+# The int32 rate every bound divides by: that peak, raised by phase_roofline
+# to K8's measured rate where the card sustains more, so no bound exceeds the
+# least time the card can take.
+int32_ops_per_s = INT32_OPS_PER_S
 OPS_PER_CELL = 6  # add, max, subtract, max, clamp at 0, running-best max
 # E and F: two subtracts and a max each; H: add and three max (the clamp
 # included); the running best.
@@ -153,17 +162,11 @@ def say(phase, **kw):
 
 
 def events_ms(fn, reps=1):
-    """Mean device milliseconds of fn() over reps (CUDA events)."""
-    import torch
+    """(mean device milliseconds of fn() over reps, the last result): the
+    port's CUDA-event timer, swtpu_torch.tools.roofline.events_ms."""
+    from swtpu_torch.tools.roofline import events_ms as timed
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    out = None
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, out
+    return timed(fn, reps)
 
 
 def phase_card():
@@ -565,7 +568,7 @@ def phase_scale():
     qpad = profile.shape[0]
     cells = sum(qpad * g.n_segs * g.seg_cols * g.lanes for g in groups)
     nbytes = sum(g.stack.numel() + qpad * 32 + 4 * g.rows for g in groups)
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / INT32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / int32_ops_per_s
     bound_ms = max(bytes_ms, ops_ms)
     say("scale.kernel", kernel_ms_per_search=kernel_ms, kernel_ms_per_launch=kernel_ms / len(groups),
         plain_ms_per_search=plain_ms, bound_ms=bound_ms, bound_share=bound_ms / kernel_ms,
@@ -588,7 +591,7 @@ def bound(groups, pieces, ops_per_cell=OPS_PER_CELL):
     int32 rate."""
     cells = sum(n_q * qpad * g.n_segs * g.seg_cols * g.lanes for n_q, qpad in pieces for g in groups)
     nbytes = sum(g.stack.numel() + n_q * (qpad * 32 + 4 * g.rows) for n_q, qpad in pieces for g in groups)
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops_per_cell * cells / INT32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops_per_cell * cells / int32_ops_per_s
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes", cells
 
 
@@ -944,7 +947,7 @@ def row_bound(cells, nbytes):
     """(bound ms, bound_by) of row-kernel work: OPS_PER_CELL int32
     operations a padded cell over the int32 rate, against the bytes moved
     (subjects, profiles and scores once each) over the memory rate."""
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / INT32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / int32_ops_per_s
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -1234,7 +1237,7 @@ def phase_compose(db, engine, affine_engine, suite_scores):
     cells = sum(qpad * g.n_segs * g.seg_cols * g.lanes for g in groups)
     carry_io = 2 * len(rungs_of(query)) * ceng._chain_bytes(groups)
     nbytes = sum(g.stack.numel() + qpad * 32 + 4 * g.rows for g in groups) + carry_io
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / INT32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / int32_ops_per_s
     bound_ms = max(bytes_ms, ops_ms)
     say("compose.kernel", query=MAIN_QUERY, hand_off_launches=len(rungs_of(query)) * len(groups),
         kernel_ms_per_search=timed["linear"], affine_kernel_ms_per_search=timed["affine"],
@@ -1399,7 +1402,9 @@ def phase_kernel_mma():
 
 
 def phase_kernel_chain():
-    """K8's chain against its plain version at small iteration counts."""
+    """K8's chain against its plain version at small iteration counts, with
+    y in [0, 3) (the rate probe's: acc + y always wins the max) and in
+    [-3, 3) (where x wins it on some links)."""
     import numpy as np
     import torch
 
@@ -1407,17 +1412,19 @@ def phase_kernel_chain():
 
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.integers(0, 1000, (32, 512), dtype=np.int32)).cuda()
-    y = torch.from_numpy(rng.integers(0, 3, (32, 512), dtype=np.int32)).cuda()
     worst = 0
-    for iters in (0, 1, 5):
-        got = vpu_chain.vpu_chain(x, y, iters)
-        want = vpu_chain.vpu_chain_plain(x, y, iters)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        worst = max(worst, err)
-        if err or not torch.equal(got, want):
-            raise AssertionError(f"vpu_chain != plain at iters={iters}: max err {err}")
-    say("kernel.chain", iters=[0, 1, 5], links_per_iter=vpu_chain.UNROLL, max_abs_err=worst, tolerance="exact")
+    for y_lo in (0, -3):
+        y = torch.from_numpy(rng.integers(y_lo, 3, (32, 512), dtype=np.int32)).cuda()
+        for iters in (0, 1, 5):
+            got = vpu_chain.vpu_chain(x, y, iters)
+            want = vpu_chain.vpu_chain_plain(x, y, iters)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            worst = max(worst, err)
+            if err or not torch.equal(got, want):
+                raise AssertionError(f"vpu_chain != plain at iters={iters}, y >= {y_lo}: max err {err}")
+    say("kernel.chain", iters=[0, 1, 5], y_ranges=[[0, 3], [-3, 3]], links_per_iter=vpu_chain.UNROLL,
+        max_abs_err=worst, tolerance="exact")
     return worst
 
 
@@ -1440,6 +1447,8 @@ def phase_roofline(built):
     launched = {"mma_probe": int8_mma.mma_probe.launches, "vpu_chain": vpu_chain.vpu_chain.launches}
     if min(launched.values()) == 0:
         raise AssertionError(f"the rate probes launched {launched}")
+    global int32_ops_per_s
+    int32_ops_per_s = max(INT32_OPS_PER_S, chain)
     # The same inputs again: the kernels' results against their plain versions.
     rng = np.random.default_rng(0)
     a = torch.from_numpy(rng.integers(-5, 5, (128, 384), dtype=np.int8)).cuda()
@@ -1450,6 +1459,10 @@ def phase_roofline(built):
     x = torch.from_numpy(rng.integers(0, 1000, (32, 512), dtype=np.int32)).cuda()
     y = torch.from_numpy(rng.integers(0, 3, (32, 512), dtype=np.int32)).cuda()
     tile = vpu_chain.vpu_chain(x, y, iters)
+    for _ in range(60):  # ~1 s of queued chain launches: the SM clock under the chain's load
+        vpu_chain.vpu_chain(x, y, iters)
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     chain_plain_ms, tile_plain = events_ms(lambda: vpu_chain.vpu_chain_plain(x, y, iters))
     probe_err = int((probe.long() - probe_plain.long()).abs().max())
     chain_err = int((tile.long() - tile_plain.long()).abs().max())
@@ -1464,7 +1477,8 @@ def phase_roofline(built):
                                    mac_per_s=mxu, peak_mac_per_s=INT8_OPS_PER_S / 2, share_of_peak=2 * mxu / INT8_OPS_PER_S,
                                    plain_ms=probe_plain_ms, max_abs_err_vs_plain=probe_err),
         vpu_chain=dict(tile=[32, 512], iters=iters, links_per_iter=vpu_chain.UNROLL, ms=chain_ms, ops=ops, ops_per_s=chain,
-                       derived_ops_per_s=INT32_OPS_PER_S, ratio_to_derived=chain / INT32_OPS_PER_S,
+                       peak_ops_per_s=INT32_OPS_PER_S, share_of_peak=chain / INT32_OPS_PER_S,
+                       bound_ops_per_s=int32_ops_per_s, sm_clock_under_load_and_max=clocks,
                        plain_ms=chain_plain_ms, max_abs_err_vs_plain=chain_err),
         chain_link_sass=dict(links_in_loop_body=links, loop_body_opcodes=body, per_link=per_link,
                              add_max_instructions_per_link=sum(per_link.get(op, 0) for op in chain_ops),
@@ -1479,7 +1493,7 @@ def phase_roofline(built):
     chain_entry = {
         "name": "vpu_chain (K8)", "route": "cuda", "source": "swtpu_torch/csrc/vpu_chain.cu",
         "replaces": "tools/roofline.py:101", "launches": launched["vpu_chain"], "max_abs_err": chain_err,
-        "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": 1e3 * ops / INT32_OPS_PER_S,
+        "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": 1e3 * ops / int32_ops_per_s,
         "bound_by": "operations", "library_ms": None,
     }
     return probe_entry, chain_entry

@@ -195,8 +195,8 @@ mma_probe_kernel(const int8_t* __restrict__ a,   // (M, PROBE_K) row-major
 extern "C" {
 
 // Shared-bucket counts: out (Q, n) int32 = qs (Q, dim) . db (n, dim)^T on
-// `stream` of `device`; dim % 32 == 0, rows 16-byte aligned (8 when dim % 64
-// == 32).  Returns cudaGetLastError() (0 = launched).
+// `stream` of `device`; dim % 32 == 0, both bases 16-byte aligned (every row
+// then is).  Returns cudaGetLastError() (0 = launched).
 int int8_mma_coarse_counts_launch(const void* db, const void* qs, void* out, int n, int Q, int dim, int device,
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);

@@ -36,9 +36,10 @@
 //
 // What bounds it: int32 ALU operations, about 6 a cell (add, two max,
 // subtract, clamp at 0, running-best max; the form below spends 7 so that the
-// dependent chain through `up` is two operations long).  An H100 SXM does
-// 16.7 T int32 operations a second (132 SMs x 64 lanes x 1.98 GHz), so about
-// 2.8 T cells a second.  Memory is no limit: a column costs one subject byte
+// dependent chain through `up` is two operations long).  An H100 SXM issues
+// 16.7 T int32 instructions a second (132 SMs x 64 lanes x 1.98 GHz), each at
+// most two operations (VIADDMNMX: an add then a max), so about 5.6 T cells a
+// second.  Memory is no limit: a column costs one subject byte
 // per 32 cells and 8 carry bytes per band.  Left for later work (ROADMAP.md):
 // occupancy (a bucket of a few hundred rows fills a few SMs), deeper
 // prefetch, packed int16 pairs.

@@ -72,10 +72,11 @@
 // a cell (add, two max, subtract, clamp at 0, running-best max); the form
 // below spends 7 so that the dependent chain through `up` is two operations
 // long.  The affine one needs 11 (E and F: two subtracts and a max each; H:
-// an add and three max with the clamp; the running best).  An H100 SXM has
-// 132 SMs x 64 int32 lanes at up to 1.98 GHz, 16.7 T int32 operations a
-// second, so 6 operations a cell bound it near 2.8 T cells a second (11:
-// 1.5 T).  Memory is no limit: a column costs 1 subject byte per 32 cells
+// an add and three max with the clamp; the running best).  An H100 SXM's
+// 132 SMs x 64 int32 lanes at up to 1.98 GHz issue 16.7 T int32 instructions
+// a second, each at most two operations (VIADDMNMX: an add then a max), so
+// 33.5 T operations, and 6 a cell bound it near 5.6 T cells a second (11:
+// 3.0 T).  Memory is no limit: a column costs 1 subject byte per 32 cells
 // and 8 carry bytes per band (16 affine).  The cell loop spends nothing on
 // staging or masks.  Left for later work (ROADMAP.md): DPX three-way max
 // (__vimax3_s32_relu), packed int16 pairs, and occupancy, since a bucket of

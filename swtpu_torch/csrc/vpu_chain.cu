@@ -13,9 +13,10 @@
 // body unrolled, so the SASS of the loop body (chip_smoke.py's build line)
 // shows whether ptxas compiles a link to one VIADDMNMX or to an IADD3 plus a
 // VIMNMX: 32 * UNROLL links a body.
-// What bounds it: int32 operations (the derived 16.7 T a second of
-// chip_smoke.py: 132 SMs x 64 lanes x 1.98 GHz, if a link costs two
-// instructions); it reads and writes 64 KB a block once.
+// What bounds it: int32 instructions, 132 SMs x 64 lanes x 1.98 GHz = 16.7 T
+// a second; a link fused into one VIADDMNMX is two operations of one, so the
+// peak is 33.5 T operations a second (chip_smoke.py's INT32_OPS_PER_S).  It
+// reads and writes 64 KB a block once.
 
 #include <algorithm>
 #include <cstdint>

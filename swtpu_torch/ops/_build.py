@@ -17,7 +17,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -70,11 +70,33 @@ def build(*names: str) -> Dict[str, dict]:
     return done
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, **entries: list) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if needed.
+    ``entries`` maps each C entry point to its argument ctypes; every one
+    returns an int error code, which ``<name>_error_string`` names.
     Thread-safe: the engine's warmers launch from several threads at once."""
     with _load_lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = _loaded[name] = ctypes.CDLL(str(build(name)[name]["path"]))
+            lib = ctypes.CDLL(str(build(name)[name]["path"]))
+            for entry, argtypes in entries.items():
+                getattr(lib, entry).argtypes, getattr(lib, entry).restype = argtypes, ctypes.c_int
+            error_string = getattr(lib, f"{name}_error_string")
+            error_string.argtypes, error_string.restype = [ctypes.c_int], ctypes.c_char_p
+            _loaded[name] = lib
     return lib
+
+
+def where(dev) -> Tuple[int, int]:
+    """(device index, current stream handle) of a CUDA ``torch.device``:
+    the last two arguments of every launch entry point."""
+    import torch
+
+    return dev.index if dev.index is not None else torch.cuda.current_device(), torch.cuda.current_stream(dev).cuda_stream
+
+
+def check(rc: int, error_string: Callable[[int], bytes], what: str) -> None:
+    """Raise unless a C entry point returned 0 (cudaSuccess);
+    ``error_string`` is the library's ``<name>_error_string``."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: {error_string(rc).decode()} ({rc})")

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from ..alphabet import PADDED_ALPHABET_SIZE as A32
-from . import row_sw
+from . import _build, row_sw
 from .profile import PAD_SCORE
 
 W = 32  # query rows per band of the CUDA kernels
@@ -51,17 +51,11 @@ def carry_bytes(n_bands: int, chunks: int, rows: int, width: int) -> int:
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("sw_rows")
-    if lib.sw_rows_launch.argtypes is None:
-        lib.sw_rows_fused_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.sw_rows_fused_launch.restype = ctypes.c_int
-        lib.sw_rows_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.sw_rows_launch.restype = ctypes.c_int
-        lib.sw_rows_error_string.argtypes = [ctypes.c_int]
-        lib.sw_rows_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(
+        "sw_rows",
+        sw_rows_fused_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        sw_rows_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    )
 
 
 def _band_profile(profile: torch.Tensor) -> torch.Tensor:
@@ -90,14 +84,12 @@ def _launch(entry: str, profile: torch.Tensor, stack: torch.Tensor, gap: int) ->
     stack = stack.contiguous()
     n_bands = prof.shape[0] // W
     carry = torch.empty(max(carry_bytes(n_bands, C, B, L) // 4, 1), dtype=torch.int32, device=dev)
-    where = (dev.index if dev.index is not None else torch.cuda.current_device(), torch.cuda.current_stream(dev).cuda_stream)
     ptrs = (prof.data_ptr(), stack.data_ptr(), carry.data_ptr(), out.data_ptr())
     if entry == "fused":
-        rc = lib.sw_rows_fused_launch(*ptrs, C, n_bands, B, L, gap, *where)
+        rc = lib.sw_rows_fused_launch(*ptrs, C, n_bands, B, L, gap, *_build.where(dev))
     else:
-        rc = lib.sw_rows_launch(*ptrs, n_bands, B, L, gap, *where)
-    if rc != 0:
-        raise RuntimeError(f"sw_rows kernel launch failed: {lib.sw_rows_error_string(rc).decode()} ({rc})")
+        rc = lib.sw_rows_launch(*ptrs, n_bands, B, L, gap, *_build.where(dev))
+    _build.check(rc, lib.sw_rows_error_string, "sw_rows kernel launch")
     (sw_score_bucket_fused if entry == "fused" else sw_score_bucket).launches += 1
     return out
 

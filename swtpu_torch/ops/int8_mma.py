@@ -25,33 +25,19 @@ from typing import Optional
 
 import torch
 
+from . import _build
+
 PROBE_K = 384  # K7's depth, a compile-time constant of the probe kernel
 PROBE_TILE = (16, 32)  # (rows, columns) of a probe warp's output tile
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("int8_mma")
-    if lib.int8_mma_coarse_counts_launch.argtypes is None:
-        lib.int8_mma_coarse_counts_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.int8_mma_coarse_counts_launch.restype = ctypes.c_int
-        lib.int8_mma_probe_warps.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        lib.int8_mma_probe_warps.restype = ctypes.c_int
-        lib.int8_mma_probe_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.int8_mma_probe_launch.restype = ctypes.c_int
-        lib.int8_mma_error_string.argtypes = [ctypes.c_int]
-        lib.int8_mma_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: {lib.int8_mma_error_string(rc).decode()} ({rc})")
-
-
-def _where(dev: torch.device):
-    return dev.index if dev.index is not None else torch.cuda.current_device(), torch.cuda.current_stream(dev).cuda_stream
+    return _build.load(
+        "int8_mma",
+        int8_mma_coarse_counts_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        int8_mma_probe_warps=[ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
+        int8_mma_probe_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    )
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -70,7 +56,7 @@ def coarse_counts(sig_qs: torch.Tensor, sig_db: torch.Tensor) -> torch.Tensor:
     """(Q, n) int32: sig_qs (Q, dim) int8 times sig_db (n, dim) int8 transposed.
 
     On the card dim must be a multiple of 32 and both operands contiguous
-    and 16-byte aligned."""
+    and 16-byte aligned (every row then is: its 16-byte loads stay aligned)."""
     if sig_qs.dtype != torch.int8 or sig_db.dtype != torch.int8 or sig_qs.dim() != 2 or sig_db.dim() != 2:
         raise ValueError(f"coarse_counts takes (Q, dim) and (n, dim) int8, got {tuple(sig_qs.shape)} "
                          f"{sig_qs.dtype} and {tuple(sig_db.shape)} {sig_db.dtype}")
@@ -88,10 +74,9 @@ def _coarse_counts_cuda(sig_qs: torch.Tensor, sig_db: torch.Tensor) -> torch.Ten
     (Q, dim), n = sig_qs.shape, sig_db.shape[0]
     if dim % 32:
         raise ValueError(f"the coarse-count kernel takes a signature width that is a multiple of 32, not {dim}")
-    align = 16 if dim % 64 == 0 else 8
     for name, t in (("sig_qs", sig_qs), ("sig_db", sig_db)):
-        if not t.is_contiguous() or t.data_ptr() % align:
-            raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if max(n, Q) >= 2**31 or Q > 65535 * 32:
         raise ValueError(f"{Q} queries x {n} subjects exceed the kernel's grid")
     dev = sig_db.device
@@ -99,8 +84,8 @@ def _coarse_counts_cuda(sig_qs: torch.Tensor, sig_db: torch.Tensor) -> torch.Ten
     if Q == 0 or n == 0:
         return out
     lib = _kernel_lib()
-    rc = lib.int8_mma_coarse_counts_launch(sig_db.data_ptr(), sig_qs.data_ptr(), out.data_ptr(), n, Q, dim, *_where(dev))
-    _raise_on(lib, rc, "coarse_counts kernel launch")
+    rc = lib.int8_mma_coarse_counts_launch(sig_db.data_ptr(), sig_qs.data_ptr(), out.data_ptr(), n, Q, dim, *_build.where(dev))
+    _build.check(rc, lib.int8_mma_error_string, "coarse_counts kernel launch")
     coarse_counts.launches += 1
     return out
 
@@ -136,7 +121,8 @@ def probe_warps(m: int, n: int, device) -> int:
     lib = _kernel_lib()
     dev = torch.device(device)
     warps = ctypes.c_int(0)
-    _raise_on(lib, lib.int8_mma_probe_warps(m, n, _where(dev)[0], ctypes.byref(warps)), "probe occupancy query")
+    rc = lib.int8_mma_probe_warps(m, n, _build.where(dev)[0], ctypes.byref(warps))
+    _build.check(rc, lib.int8_mma_error_string, "probe occupancy query")
     return warps.value
 
 
@@ -161,8 +147,8 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor, iters: int, unroll: int = 8, war
     bt = b.t().contiguous()
     out = torch.empty(M, N, dtype=torch.int32, device=a.device)
     lib = _kernel_lib()
-    rc = lib.int8_mma_probe_launch(a.data_ptr(), bt.data_ptr(), out.data_ptr(), M, N, iters, unroll, warps, *_where(a.device))
-    _raise_on(lib, rc, "mma_probe kernel launch")
+    rc = lib.int8_mma_probe_launch(a.data_ptr(), bt.data_ptr(), out.data_ptr(), M, N, iters, unroll, warps, *_build.where(a.device))
+    _build.check(rc, lib.int8_mma_error_string, "mma_probe kernel launch")
     mma_probe.launches += 1
     return out
 

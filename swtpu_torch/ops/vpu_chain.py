@@ -17,23 +17,19 @@ from typing import Optional
 
 import torch
 
+from . import _build
+
 ROWS = 32  # the tile's rows, a compile-time constant of the kernel
 UNROLL = 8  # links of one chain a loop body of the kernel
 MAX_COLS = 512  # threads a block: one column a thread
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("vpu_chain")
-    if lib.vpu_chain_launch.argtypes is None:
-        lib.vpu_chain_full_blocks.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.vpu_chain_full_blocks.restype = ctypes.c_int
-        lib.vpu_chain_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.vpu_chain_launch.restype = ctypes.c_int
-        lib.vpu_chain_error_string.argtypes = [ctypes.c_int]
-        lib.vpu_chain_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(
+        "vpu_chain",
+        vpu_chain_full_blocks=[ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+        vpu_chain_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    )
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, iters: int) -> None:
@@ -46,18 +42,13 @@ def _check(x: torch.Tensor, y: torch.Tensor, iters: int) -> None:
         raise ValueError("iters must be >= 0")
 
 
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
-
-
 def chain_blocks(cols: int, device) -> int:
     """Blocks of ``cols`` threads that fill every SM of ``device`` (a CUDA
     device) at the kernel's occupancy."""
     lib = _kernel_lib()
     blocks = ctypes.c_int(0)
-    rc = lib.vpu_chain_full_blocks(cols, _device_index(torch.device(device)), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"vpu_chain occupancy query failed: {lib.vpu_chain_error_string(rc).decode()} ({rc})")
+    rc = lib.vpu_chain_full_blocks(cols, _build.where(torch.device(device))[0], ctypes.byref(blocks))
+    _build.check(rc, lib.vpu_chain_error_string, "vpu_chain occupancy query")
     return blocks.value
 
 
@@ -78,11 +69,8 @@ def vpu_chain(x: torch.Tensor, y: torch.Tensor, iters: int, blocks: Optional[int
     x, y = x.contiguous(), y.contiguous()
     out = torch.empty_like(x)
     lib = _kernel_lib()
-    dev = x.device
-    rc = lib.vpu_chain_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), cols, iters, blocks, _device_index(dev),
-                              torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"vpu_chain kernel launch failed: {lib.vpu_chain_error_string(rc).decode()} ({rc})")
+    rc = lib.vpu_chain_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), cols, iters, blocks, *_build.where(x.device))
+    _build.check(rc, lib.vpu_chain_error_string, "vpu_chain kernel launch")
     vpu_chain.launches += 1
     return out
 

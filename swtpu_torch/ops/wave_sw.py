@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..alphabet import PADDED_ALPHABET_SIZE as A32
+from . import _build
 from .profile import PAD_SUBJECT
 
 W = 32  # query rows per band, and the trailing pad columns of every bucket
@@ -214,17 +215,11 @@ sw_wave.carry_launches = 0  # of those, launches with top_in or return_carry
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("sw_wave")
-    if lib.sw_wave_launch.argtypes is None:
-        lib.sw_wave_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.sw_wave_launch.restype = ctypes.c_int
-        lib.sw_wave_affine_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        lib.sw_wave_affine_launch.restype = ctypes.c_int
-        lib.sw_wave_error_string.argtypes = [ctypes.c_int]
-        lib.sw_wave_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load(
+        "sw_wave",
+        sw_wave_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        sw_wave_affine_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    )
 
 
 def carry_bytes(
@@ -261,13 +256,11 @@ def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_c
     args = (prof3.data_ptr(), subjT.data_ptr(), carry.data_ptr(), out.data_ptr(), n_q, n_bands, B, n_segs, seg_cols)
     # A hand-off always writes the last band's bottom: top_in then holds the new carry.
     flags = (int(top_in is not None), int(hand_off))
-    where = (dev.index if dev.index is not None else torch.cuda.current_device(), torch.cuda.current_stream(dev).cuda_stream)
     if affine:
-        rc = lib.sw_wave_affine_launch(*args, gaps[0], gaps[1], *flags, *where)
+        rc = lib.sw_wave_affine_launch(*args, gaps[0], gaps[1], *flags, *_build.where(dev))
     else:
-        rc = lib.sw_wave_launch(*args, gaps[0], *flags, *where)
-    if rc != 0:
-        raise RuntimeError(f"sw_wave kernel launch failed: {lib.sw_wave_error_string(rc).decode()} ({rc})")
+        rc = lib.sw_wave_launch(*args, gaps[0], *flags, *_build.where(dev))
+    _build.check(rc, lib.sw_wave_error_string, "sw_wave kernel launch")
     sw_wave.launches += 1
     sw_wave.multi_launches += int(multi)
     sw_wave.affine_launches += int(affine)

@@ -9,9 +9,10 @@ kernels, timed with CUDA events after a warm-up launch:
   against the 989.5 T MAC/s dense peak of an H100 SXM (1,979 int8 TOPS);
 * ``measure_vpu_chain`` (K8): ``vpu_chain.vpu_chain``, the dependent
   ``acc = max(acc + y, x)`` chain on (32, 512) int32 tiles on every SM,
-  counted as 2 operations a link: the rate every share of an int32 bound
-  divides by, against the derived 16.7 T ops/s (132 SMs x 64 lanes x 1.98
-  GHz).
+  counted as 2 operations a link, against the int32 peak every int32 bound
+  divides by: 132 SMs x 64 lanes x 1.98 GHz issue 16.7 T instructions a
+  second, and one instruction (VIADDMNMX, add then max) does at most two
+  operations, so 33.5 T ops/s.
 
 Each returns (rate a second, ms a launch, work a launch).  There is no
 counterpart of ``measure_wave_kernel``: ``chip_smoke.py`` times the
@@ -24,27 +25,31 @@ Run: ``python -m swtpu_torch.tools.roofline``
 from __future__ import annotations
 
 import sys
-from typing import Callable, Tuple
+from typing import Callable, Tuple, TypeVar
 
 import numpy as np
 import torch
 
 from ..ops import int8_mma, vpu_chain
 
+T = TypeVar("T")
+
 INT8_MACS_PER_S = 1979e12 / 2  # dense int8 peak of an H100 SXM at 700 W, in MACs (data sheet)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9  # derived: 132 SMs x 64 int32 lanes x 1.98 GHz boost
+# 132 SMs x 64 int32 lanes x 1.98 GHz boost, two operations an instruction (a fused add and max)
+INT32_OPS_PER_S = 2 * 132 * 64 * 1.98e9
 
 
-def events_ms(fn: Callable[[], object], reps: int) -> float:
+def events_ms(fn: Callable[[], T], reps: int = 1) -> Tuple[float, T]:
     """Mean milliseconds of fn() over ``reps`` back-to-back calls on the
-    current stream (CUDA events)."""
+    current stream (CUDA events), and the last call's result."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = None
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
 def _cuda(device) -> torch.device:
@@ -64,7 +69,7 @@ def measure_mxu_staging(m: int = 128, k: int = 384, n: int = 512, iters: int = 5
     b = torch.from_numpy(rng.integers(0, 2, (k, n), dtype=np.int8)).to(dev)
     warps = int8_mma.probe_warps(m, n, dev)
     int8_mma.mma_probe(a, b, 1, unroll, warps)  # warm: builds and loads the library
-    ms = events_ms(lambda: int8_mma.mma_probe(a, b, iters, unroll, warps), reps)
+    ms, _ = events_ms(lambda: int8_mma.mma_probe(a, b, iters, unroll, warps), reps)
     macs = warps * iters * unroll * int8_mma.PROBE_TILE[0] * int8_mma.PROBE_TILE[1] * k
     return macs / (ms * 1e-3), ms, macs
 
@@ -79,7 +84,7 @@ def measure_vpu_chain(m: int = vpu_chain.ROWS, n: int = 512, iters: int = 65536,
     y = torch.from_numpy(rng.integers(0, 3, (m, n), dtype=np.int32)).to(dev)
     blocks = vpu_chain.chain_blocks(n, dev)
     vpu_chain.vpu_chain(x, y, 1, blocks)  # warm
-    ms = events_ms(lambda: vpu_chain.vpu_chain(x, y, iters, blocks), reps)
+    ms, _ = events_ms(lambda: vpu_chain.vpu_chain(x, y, iters, blocks), reps)
     ops = 2 * iters * vpu_chain.UNROLL * m * n * blocks
     return ops / (ms * 1e-3), ms, ops
 
@@ -94,7 +99,7 @@ def main() -> int:
     print(f"sustained int8 mma.sync (staging shape): {mxu / 1e12:7.1f} TMAC/s  ({mxu_ms:.3f} ms a launch; "
           f"dense peak {INT8_MACS_PER_S / 1e12:.1f}, {100 * mxu / INT8_MACS_PER_S:.1f}%)")
     print(f"sustained int32 dep-chain (add, max)    : {chain / 1e12:7.2f} Tops/s  ({chain_ms:.3f} ms a launch; "
-          f"derived {INT32_OPS_PER_S / 1e12:.2f}, {100 * chain / INT32_OPS_PER_S:.1f}%)")
+          f"peak {INT32_OPS_PER_S / 1e12:.2f}, {100 * chain / INT32_OPS_PER_S:.1f}%)")
     return 0
 
 

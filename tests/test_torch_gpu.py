@@ -284,9 +284,17 @@ def test_probe_and_chain_kernels_match_plain(cuda):
     for iters, unroll in ((1, 1), (2, 5), (3, 100)):
         assert torch.equal(int8_mma.mma_probe(a, b, iters, unroll), int8_mma.mma_probe_plain(a, b, iters, unroll))
     x = torch.from_numpy(rng.integers(0, 1000, (32, 512), dtype=np.int32)).to(cuda)
-    y = torch.from_numpy(rng.integers(0, 3, (32, 512), dtype=np.int32)).to(cuda)
-    for iters in (0, 1, 7):
-        assert torch.equal(vpu_chain.vpu_chain(x, y, iters), vpu_chain.vpu_chain_plain(x, y, iters))
+    for y_lo in (0, -3):  # with negative y the max picks x on some links
+        y = torch.from_numpy(rng.integers(y_lo, 3, (32, 512), dtype=np.int32)).to(cuda)
+        for iters in (0, 1, 7):
+            assert torch.equal(vpu_chain.vpu_chain(x, y, iters), vpu_chain.vpu_chain_plain(x, y, iters))
+
+
+def test_coarse_counts_kernel_refuses_misaligned_rows(cuda):
+    buf = torch.zeros(8 + 3 * 96, dtype=torch.int8, device=cuda)
+    db = buf[8:].view(3, 96)  # contiguous, 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_mma.coarse_counts(torch.zeros(1, 96, dtype=torch.int8, device=cuda), db)
 
 
 @pytest.mark.parametrize("evalue", [False, True], ids=["hits", "evalue"])

@@ -325,16 +325,20 @@ def test_mma_probe_plain_matches_numpy():
         assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
 
 
-def test_vpu_chain_plain_matches_numpy():
+@pytest.mark.parametrize("y_lo", [0, -3], ids=["acc_wins", "x_wins_some"])
+def test_vpu_chain_plain_matches_numpy(y_lo):
     rng = np.random.default_rng(2)
     x = rng.integers(0, 1000, (32, 64)).astype(np.int32)
-    y = rng.integers(0, 3, (32, 64)).astype(np.int32)
+    y = rng.integers(y_lo, 3, (32, 64)).astype(np.int32)
+    x_won = False
     for iters in (0, 1, 6):
         acc = x.copy()
         for _ in range(iters * vpu_chain.UNROLL):
+            x_won |= bool((acc + y < x).any())
             acc = np.maximum(acc + y, x)
         got = vpu_chain.vpu_chain(torch.from_numpy(x), torch.from_numpy(y), iters)
         assert np.array_equal(got.numpy(), acc)
+    assert x_won == (y_lo < 0)  # negative y makes the max pick x on some links
 
 
 def test_kernel_wrappers_check_their_inputs():
