@@ -26,14 +26,27 @@ Phases (one line each; any failure exits non-zero with no result line):
               then K7's coarse_counts on seeded 0/1 signatures with a few
               +-5 entries (n = 1 to 100,003, Q = 1 to 17, dim 64, 1024,
               2048) and its mma_probe, and K8's chain, against their plain
-              versions: exact equality
+              versions (K8's chain is K9's int32 addmax chain kernel):
+              exact equality; then the wavefront lab kernels on
+              the first case list (K4 at every band height and block, K5 at
+              every prefetch depth, K6 at every stage switch) against their
+              plain versions, and those that keep the DP against K1's
+              kernel; then K9's int16 and int32 tiles (tools/probe_i16.py's
+              inputs and random ones whose sums wrap) and short chains of
+              every op: exact equality
  3b. roofline K7's int8 MAC rate and K8's int32 chain rate at full
               occupancy (swtpu_torch.tools.roofline; counts zeroed just
               before, read just after) beside the data-sheet and derived
               figures and their plain versions, the SASS instructions
               of a chain link (the chain's loop body) and the SM clock
               under the chain's load; every later int32 bound divides by
-              the larger of the derived peak and K8's rate
+              the larger of the derived peak and K8's rate; then K9 as
+              swtpu_torch.tools.probe_i16 runs it (counts zeroed just
+              before each part, read just after): the eight elementwise
+              tiles and the two dp_row tiles against their plain versions
+              and the library calls, and every chain's rate, packed int16
+              against int32, with its loop body's SASS a link and its tile
+              against the plain version on the same inputs
   4. goldens  the committed subset, 10k-scale and saturation goldens through
               SearchEngine(device="cuda"): exact equality; the subset under
               affine gaps (10, 1) against the NumPy oracle
@@ -97,7 +110,15 @@ Phases (one line each; any failure exits non-zero with no result line):
               single searches); the E-value null equal to the exhaustive
               scores' at the calibration sample; swtpu's planted-homolog
               recall check (tools/tpu_validate.py check 9)
- 12. kernels  one JSON line per kernel and mode: launches on its path, error,
+ 12. lab      the wavefront lab kernels as swtpu_torch.tools.wave_lab (K4,
+              K5) and swtpu_torch.tools.probe_breakdown (K6) run them on
+              P01008's buckets of the same resident database (counts zeroed
+              just before, read just after; one timed launch a variant a
+              bucket): every variant that keeps the DP bit-equal to K1's
+              scores of all 559,228 sequences, every variant equal to its
+              plain version (run once a variant), a per-bucket table of
+              milliseconds beside K1's with narrow, mid and full sums
+ 13. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time, the card's lower bound for the same work and
               the library call's time, where one computes the same function
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
@@ -128,7 +149,7 @@ OPS_PER_CELL = 6  # add, max, subtract, max, clamp at 0, running-best max
 # included); the running best.
 OPS_PER_CELL_AFFINE = 11
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak of an H100 SXM (data sheet): 989.5e12 MACs
-SASS_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "IADD3", "IMMA", "S2UR", "LDG", "STG")
+SASS_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "IADD3", "IMMA", "S2UR", "LDG", "STG", "LDS", "LDL", "STL")
 AFFINE = dict(gap_open=10, gap_extend=2)  # the affine cell's gaps
 GAP_PAIRS = ((10, 2), (10, 1), (5, 5))  # the affine kernel phase's (open, extend)
 # Kernel phase cases: (longest query, segment width, n_segs, lanes, Q or None for one query).
@@ -152,6 +173,11 @@ MMA_NS, MMA_QS, MMA_DIMS = (1, 15, 17, 4097, 100_003), (1, 2, 8, 17), (64, 1024,
 PREFILTER = dict(prefilter=0.05, top_k=10)  # the prefilter cell's knobs
 N_SEQS = 559_228
 MAIN_QUERY = "P01008"
+# sw_wave_lab.cu's SKIP codes and i16_probe.cu's op codes, as its kernels are named
+LAB_SKIPS = ("none", "subject", "carry", "dp")
+I16_CHAIN_OPS = {0: "max", 1: "add", 2: "sub", 3: "select", 5: "addmax", 6: "max3"}
+K8_KERNEL = "K9 i16_chain_kernel I32 addmax"  # K8's chain is K9's int32 addmax chain (ops/vpu_chain.py)
+I16_CHAIN_ITERS = 2048  # roofline.i16's chains: ~2 ms a launch, and each one's plain version well under 1 s
 # The reference Performance suite's queries (bench.py --full), in its order.
 SUITE = ("P02232", "P05013", "P14942", "P07327", "P01008", "P42357", "P03435", "P21177", "Q38941",
          "P27895", "P07756", "P19096", "P28167", "P0C6B8", "P20930", "Q7TMA5", "P08519")
@@ -172,10 +198,9 @@ def events_ms(fn, reps=1):
 def phase_card():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    from swtpu_torch.tools.roofline import card
+
+    smi = card(check=True)
     print(smi, flush=True)
     say("card", name=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     return smi
@@ -194,12 +219,20 @@ def phase_build():
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     out = {}
 
-    def label(mangled):  # sw_wave_kernel<AFFINE, HAND_OFF>; sw_rows.cu's K2 and K3; K7 and K8
+    def label(mangled):  # sw_wave_kernel<AFFINE, HAND_OFF>; sw_rows.cu's K2 and K3; K7; the lab; K9 (and K8)
+        lab = re.search(r"sw_wave_lab_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", mangled)
+        if lab:
+            h, blk, d, skip = lab.groups()
+            return f"K4-K6 sw_wave_lab_kernel H{h} B{blk} D{d} {LAB_SKIPS[int(skip)]}"
+        i16 = re.search(r"i16_(chain|tile)_kernelINS_\d+(I32|I16x2)E(?:Li(\d)E)?", mangled)
+        if i16:
+            kind, typ, op = i16.groups()
+            return f"K9 i16_{kind}_kernel {typ}" + (f" {I16_CHAIN_OPS[int(op)]}" if op else "")
         if "sw_rows_fused_kernel" in mangled:
             return "K2 sw_rows_fused_kernel"
         if "sw_rows_kernel" in mangled:
             return "K3 sw_rows_kernel"
-        for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7"), ("vpu_chain_kernel", "K8")):
+        for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7")):
             if kernel in mangled:
                 return f"{tag} {kernel}"
         wave = re.search(r"sw_wave_kernelILb([01])ELb([01])E", mangled)
@@ -226,7 +259,7 @@ def phase_build():
             for mangled, body in zip(parts[1::2], parts[2::2]):
                 ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPCODES}
                 kernels.setdefault(label(mangled), {})["sass_opcodes"] = ops
-                if "vpu_chain_kernel" in mangled:  # the chain's rolled loop: its body alone
+                if "chain_kernel" in mangled:  # K9's chains (K8's among them): the rolled loop's body alone
                     kernels[label(mangled)]["loop_body_opcodes"] = loop_body_opcodes(body)
         say("build", source=f"swtpu_torch/csrc/{name}.cu", seconds=round(time.perf_counter() - t0, 3),
             kernels=kernels, cuobjdump=cuobjdump.exists())
@@ -1469,7 +1502,7 @@ def phase_roofline(built):
     if probe_err or chain_err:
         raise AssertionError(f"full-occupancy runs differ from their plain versions: probe {probe_err}, chain {chain_err}")
     links = vpu_chain.UNROLL * vpu_chain.ROWS  # links of the chain's loop body
-    k8 = built["vpu_chain"]["K8 vpu_chain_kernel"]
+    k8 = built["i16_probe"][K8_KERNEL]
     body = k8.get("loop_body_opcodes", {})
     per_link = {op: count / links for op, count in body.items()}
     chain_ops = ("VIADDMNMX", "IADD3", "VIMNMX", "IMNMX", "VIMNMX3")  # an add, a max, or both fused
@@ -1491,12 +1524,261 @@ def phase_roofline(built):
         "bound_by": "operations", "library_ms": None,
     }
     chain_entry = {
-        "name": "vpu_chain (K8)", "route": "cuda", "source": "swtpu_torch/csrc/vpu_chain.cu",
+        "name": "vpu_chain (K8)", "route": "cuda", "source": "swtpu_torch/csrc/i16_probe.cu",
         "replaces": "tools/roofline.py:101", "launches": launched["vpu_chain"], "max_abs_err": chain_err,
         "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": 1e3 * ops / int32_ops_per_s,
         "bound_by": "operations", "library_ms": None,
     }
     return probe_entry, chain_entry
+
+
+def phase_kernel_lab():
+    """The lab kernels (K4 at every height and block, K5 at every depth, K6
+    at every skip) against their plain versions on KERNEL_CASES, and the
+    variants that keep the DP against K1's kernel."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.ops import wave_lab, wave_sw
+
+    rng = np.random.default_rng(0)
+    worst, launches = 0, 0
+    for qlen, ws, n_segs, lanes, _ in KERNEL_CASES:
+        prof, stack = random_bucket(rng, qlen, ws, n_segs, lanes)
+        k1 = wave_sw.sw_wave(prof, stack, gap=2, n_segs=n_segs)
+        runs = [(h, "none", wave_lab.pad_profile(prof, h),
+                 lambda p, h=h, blk=blk: wave_lab.sw_wave_band(p, stack, gap=2, n_segs=n_segs, height=h, block=blk))
+                for h in wave_lab.HEIGHTS for blk in wave_lab.BLOCKS]
+        runs += [(32, "none", prof, lambda p, d=d: wave_lab.sw_wave_prefetch(p, stack, gap=2, n_segs=n_segs, depth=d))
+                 for d in wave_lab.DEPTHS]
+        runs += [(32, skip, prof, lambda p, skip=skip: wave_lab.sw_wave_skip(p, stack, gap=2, n_segs=n_segs, skip=skip))
+                 for skip in wave_lab.SKIPS]
+        plain = {}
+        for h, skip, p, launch in runs:
+            got = launch(p)
+            if (h, skip) not in plain:
+                plain[h, skip] = wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=n_segs, height=h, skip=skip)
+            want = plain[h, skip]
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            worst, launches = max(worst, err), launches + 1
+            if err or not torch.equal(got, want) or (skip == "none" and not torch.equal(got, k1)):
+                raise AssertionError(f"lab kernel H{h} {skip} != plain or K1 at qlen={qlen} ws={ws} n_segs={n_segs} "
+                                     f"lanes={lanes}: max err {err}")
+    say("kernel.lab", cases=len(KERNEL_CASES), heights=wave_lab.HEIGHTS, blocks=wave_lab.BLOCKS,
+        depths=wave_lab.DEPTHS, skips=wave_lab.SKIPS, launches=launches, max_abs_err=worst,
+        tolerance="exact; every variant that keeps the DP also equals K1's kernel")
+    return worst
+
+
+def phase_kernel_i16():
+    """K9's ten tiles (tools/probe_i16.py's inputs, then random ones whose
+    sums wrap) and short chains of every op against their plain versions."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.ops import i16_probe
+    from swtpu_torch.tools import probe_i16
+
+    rng = np.random.default_rng(9)
+    worst, tiles, chains = 0, 0, 0
+
+    def check(got, want, what):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"{what} != plain: max err {err}")
+
+    for dtype in i16_probe.DTYPES:
+        lo, hi = (-32768, 32768) if dtype == torch.int16 else (-(2**31), 2**31)
+        wrap = tuple(torch.from_numpy(rng.integers(lo, hi, probe_i16.TILE)).to(dtype).cuda() for _ in range(2))
+        for a, b in (probe_i16.tile_inputs(dtype, "cuda"), wrap):
+            for op in i16_probe.OPS:
+                check(i16_probe.i16_op(a, b, op), i16_probe.i16_op_plain(a, b, op), f"i16_op {op} {dtype}")
+                tiles += 1
+        x, _ = probe_i16.chain_inputs(dtype, "cuda")
+        for y_lo, y_hi in ((-2, 1), (-3, 3000)):  # the rate's inputs, then sums that wrap in int16
+            y = torch.from_numpy(rng.integers(y_lo, y_hi, tuple(x.shape))).to(dtype).cuda()
+            for op in i16_probe.CHAIN_OPS:
+                for iters in (0, 1, 5):
+                    check(i16_probe.i16_chain(x, y, op, iters), i16_probe.i16_chain_plain(x, y, op, iters),
+                          f"i16_chain {op} {dtype} iters={iters}")
+                    chains += 1
+    say("kernel.i16", tiles=tiles, ops=i16_probe.OPS, chains=chains, chain_ops=i16_probe.CHAIN_OPS, iters=[0, 1, 5],
+        links_per_iter=i16_probe.UNROLL, dtypes=["int16 (packed pairs)", "int32"], max_abs_err=worst,
+        tolerance="exact, int16 and int32 sums wrapping")
+    return worst
+
+
+def phase_i16_rates(built):
+    """K9 as its tool runs it (swtpu_torch.tools.probe_i16; counts zeroed
+    just before each part, read just after): the eight elementwise tiles,
+    then the two dp_row tiles, against their plain versions and the library
+    calls; then every chain's sustained rate at full occupancy beside the
+    int32 peak, with its loop body's SASS a link, and its tile against the
+    plain version on the same inputs.  Three kernels entries: the
+    elementwise tiles, the dp_row tiles, the chains."""
+    import torch
+
+    from swtpu_torch.ops import i16_probe
+    from swtpu_torch.tools import probe_i16
+
+    t0 = time.perf_counter()
+    parts, launched = {}, {}
+    for part, ops in (("elementwise", tuple(op for op in i16_probe.OPS if op != "dp_row")), ("dp_row", ("dp_row",))):
+        i16_probe.i16_op.launches = 0
+        parts[part] = probe_i16.run_tiles(ops=ops)
+        launched[part] = i16_probe.i16_op.launches
+    i16_probe.i16_chain.launches = 0
+    rates = probe_i16.measure_chains(iters=I16_CHAIN_ITERS)
+    launched["chains"] = i16_probe.i16_chain.launches
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the K9 tool launched {launched}")
+
+    def peak(dtype):  # element operations a second: a packed int16 instruction does two lanes' work
+        return int32_ops_per_s * (2 if dtype == "int16" else 1)
+
+    library = {"max": torch.maximum, "add": torch.add, "sub": torch.sub, "select": lambda a, b: torch.where(a < b, b, a)}
+    rows, entries = [], []
+    for part, tiles in parts.items():
+        worst, nbytes, ops_ms, lib_ms = 0, 0, 0.0, []
+        for t in tiles:
+            err = int((t["out"].long() - t["plain"].long()).abs().max())
+            worst = max(worst, err)
+            if err or not torch.equal(t["out"], t["plain"]):
+                raise AssertionError(f"K9 tile {t['op']} {t['dtype']} != plain: max err {err}")
+            a, b = probe_i16.tile_inputs(getattr(torch, t["dtype"]), "cuda")
+            ms = None
+            if t["op"] in library:  # the one PyTorch call of the same function, timed as the kernel is
+                lib = library[t["op"]]
+                if not torch.equal(lib(a, b), t["out"]):
+                    raise AssertionError(f"the library's {t['op']} {t['dtype']} differs from K9's tile")
+                ms = events_ms(lambda: lib(a, b), 100)[0]
+                lib_ms.append(ms)
+            nbytes += 3 * a.numel() * a.element_size()
+            ops_ms += 1e3 * i16_probe.OPS_PER_ELEMENT[t["op"]] * a.numel() / peak(t["dtype"])
+            rows.append([t["op"], t["dtype"], t["ms"], t["plain_ms"], ms])
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        entries.append({
+            "name": {"elementwise": "i16_op (K9 max/add/sub/select tiles, int16 and int32)",
+                     "dp_row": "i16_op (K9 dp_row tiles, int16 and int32)"}[part],
+            "route": "cuda", "source": "swtpu_torch/csrc/i16_probe.cu", "replaces": "tools/probe_i16.py:32",
+            "launches": launched[part], "max_abs_err": worst, "ms": sum(t["ms"] for t in tiles),
+            "plain_ms": sum(t["plain_ms"] for t in tiles), "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": sum(lib_ms) if len(lib_ms) == len(tiles) else None,
+        })
+    links = i16_probe.UNROLL * i16_probe.ROWS  # links of a chain's loop body
+    worst, chain_bound_ms = 0, 0.0
+    for r in rates:
+        x, y, out = r.pop("x"), r.pop("y"), r.pop("out")
+        r["plain_ms"], plain = events_ms(lambda: i16_probe.i16_chain_plain(x, y, r["op"], r["iters"]))
+        err = int((out.long() - plain.long()).abs().max())
+        worst = max(worst, err)
+        if err or not torch.equal(out, plain):
+            raise AssertionError(f"K9 chain {r['op']} {r['dtype']} != plain at iters={r['iters']}: max err {err}")
+        chain_bound_ms += 1e3 * r["ops"] / peak(r["dtype"])
+        typ = "I16x2" if r["dtype"] == "int16" else "I32"
+        body = built["i16_probe"].get(f"K9 i16_chain_kernel {typ} {r['op']}", {}).get("loop_body_opcodes", {})
+        r["loop_body_per_link"] = {op: n / links for op, n in body.items() if op not in ("UIADD3", "ISETP")}
+    say("roofline.i16", tile_columns=["op", "dtype", "ms", "plain_ms", "library_ms"], tiles=rows,
+        chains=rates, chain_max_abs_err_vs_plain=worst, int32_peak_ops_per_s=INT32_OPS_PER_S,
+        bound_ops_per_s={"int32": peak("int32"), "int16 (packed pairs)": peak("int16")}, launches=launched,
+        launches_cover={"tiles": "100 timed calls a tile; ms is their mean a call",
+                        "chains": "a warm launch and 3 timed ones a chain; ms is a timed launch's mean"},
+        seconds=round(time.perf_counter() - t0, 3))
+    entries.append({
+        "name": "i16_chain (K9 rate chains, int16x2 and int32)", "route": "cuda",
+        "source": "swtpu_torch/csrc/i16_probe.cu", "replaces": "tools/probe_i16.py:32", "launches": launched["chains"],
+        "max_abs_err": worst, "ms": sum(r["ms"] for r in rates), "plain_ms": sum(r["plain_ms"] for r in rates),
+        "bound_ms": chain_bound_ms, "bound_by": "operations", "library_ms": None,
+    })
+    return entries
+
+
+def phase_lab(db, engine):
+    """The lab kernels as their tools run them (swtpu_torch.tools.wave_lab's
+    K4 and K5 variants and swtpu_torch.tools.probe_breakdown's K6 variants,
+    in one swtpu_torch.tools.buckets.run; counts zeroed just before, read
+    just after) on P01008's buckets of the resident database: one timed
+    launch a variant a bucket, the variants that keep the DP bit-equal to
+    K1's full-array scores, every variant equal to its plain version (run
+    once a variant on the same buckets), and a per-bucket table of
+    milliseconds beside K1's with narrow, mid and full sums."""
+    import numpy as np
+
+    from swtpu_torch.ops import wave_lab
+    from swtpu_torch.tools import buckets as lb
+    from swtpu_torch.tools import probe_breakdown
+    from swtpu_torch.tools import wave_lab as wave_lab_tool
+
+    t0 = time.perf_counter()
+    b = lb.swissprot_buckets(db=db, engine=engine)
+    scale_scores = engine.search(b.query, db).scores  # K1 through the engine: the scores every variant is held to
+    variants = {**wave_lab_tool.VARIANTS, **probe_breakdown.VARIANTS}
+    families = {  # wrapper: (kernels entry name, the TPU kernel it replaces)
+        wave_lab.sw_wave_band: ("sw_wave_band (K4 band height x block)", "tools/pallas_wave.py:208"),
+        wave_lab.sw_wave_prefetch: ("sw_wave_prefetch (K5 prefetch depth)", "tools/pallas_wave2.py:201"),
+        wave_lab.sw_wave_skip: ("sw_wave_skip (K6 stage switches)", "tools/probe_breakdown.py:199"),
+    }
+    for fn in families:
+        fn.launches = 0
+    res = lb.run(b.groups, lb.launches(b, variants))
+    launched = {fn.__name__: fn.launches for fn in families}
+    want = {fn.__name__: len(b.groups) * sum(f is fn for f, _ in variants.values()) for fn in families}
+    if launched != want:
+        raise AssertionError(f"the lab tools launched {launched}, not one launch a variant a bucket: {want}")
+    if not np.array_equal(b.reduce(res["flats"]["K1"]), scale_scores):
+        raise AssertionError("the lab run's K1 pass differs from the engine's search")
+    plain_ms, err = {}, {}
+    for name, (fn, kw) in variants.items():
+        h, skip = lb.height(kw), lb.skip(kw)
+        err[name] = 0
+        if skip == "none":
+            got = b.reduce(res["flats"][name])
+            err[name] = int(np.abs(got.astype(np.int64) - scale_scores.astype(np.int64)).max())
+            if err[name] or not np.array_equal(got, scale_scores):
+                raise AssertionError(f"lab {name} differs from K1 on P01008: max err {err[name]}")
+        prof = b.profile(h)
+        plain_ms[name], plain = events_ms(lambda: [wave_lab.sw_wave_lab_plain(
+            prof, g.stack, gap=b.gap, n_segs=g.n_segs, height=h, skip=skip) for g in b.groups])
+        e = max(int((x.long() - p.long()).abs().max()) for x, p in zip(res["flats"][name], plain))
+        if e:
+            raise AssertionError(f"lab {name} differs from its plain version on P01008: max err {e}")
+    print("\n".join(lb.table(b.groups, res["times"], "K1")), flush=True)
+    sums = lb.group_sums(b.groups, res["times"])
+
+    def bound(kw):  # the larger of bytes (subjects, profile, scores once) and int32 operations
+        h, skip = lb.height(kw), lb.skip(kw)
+        qpad = b.profile(h).shape[0]
+        cells = sum(qpad * g.n_segs * g.seg_cols * g.lanes for g in b.groups)
+        nbytes = sum((0 if skip == "subject" else g.stack.numel()) + qpad * 32 + 4 * g.rows for g in b.groups)
+        ops = cells * ((h + 2) / h if skip == "dp" else OPS_PER_CELL)  # dp: H max, an add and the best a column
+        return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / int32_ops_per_s
+
+    say("lab", query=MAIN_QUERY, buckets=len(b.groups), launches=launched,
+        launches_cover="one timed launch a variant a bucket (an untimed K1 launch warms each bucket)",
+        group_rule={"narrow": f"threads < {lb.NARROW_THREADS}", "full": f"threads >= {lb.FULL_THREADS}"},
+        groups={grp: sum(lb.group_of(g) == grp for g in b.groups) for grp in lb.GROUPS},
+        keep_dp_bit_equal_k1=[n for n, (_, kw) in variants.items() if lb.skip(kw) == "none"],
+        scores=int(scale_scores.shape[0]), all_equal_plain=True, ms_by_group=sums, plain_ms=plain_ms,
+        bound_ms={name: max(bound(kw)) for name, (_, kw) in variants.items()},
+        seconds=round(time.perf_counter() - t0, 3))
+    entries = []
+    for fn, (title, src) in families.items():
+        mine = [(name, kw) for name, (f, kw) in variants.items() if f is fn]
+        bounds = [bound(kw) for _, kw in mine]
+        bytes_ms, ops_ms = sum(x for x, _ in bounds), sum(y for _, y in bounds)
+        entries.append({
+            "name": title, "route": "cuda", "source": "swtpu_torch/csrc/sw_wave_lab.cu", "replaces": src,
+            "launches": launched[fn.__name__], "max_abs_err": max(err[n] for n, _ in mine),
+            "ms": sum(sums[n]["all"] for n, _ in mine), "plain_ms": sum(plain_ms[n] for n, _ in mine),
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+        })
+    return entries
 
 
 def null_equal(a, b):
@@ -1686,7 +1968,10 @@ def main() -> int:
         carry_err = phase_kernel_carry()
         counts_err, probe_err = phase_kernel_mma()
         chain_err = phase_kernel_chain()
+        lab_err = phase_kernel_lab()
+        i16_err = phase_kernel_i16()
         probe, chain = phase_roofline(built)
+        k9 = phase_i16_rates(built)  # three entries: elementwise tiles, dp_row tiles, chains
         phase_goldens()
         phase_goldens_affine()
         entry, db, engine, q1_bucket_ms = phase_scale()
@@ -1696,6 +1981,7 @@ def main() -> int:
         k2, k3 = phase_rows(db, engine)
         carry = phase_compose(db, engine, affine_engine, suite_scores)
         coarse = phase_prefilter(db, engine)
+        labs = phase_lab(db, engine)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1709,7 +1995,11 @@ def main() -> int:
     coarse["max_abs_err"] = max(coarse["max_abs_err"], counts_err)
     probe["max_abs_err"] = max(probe["max_abs_err"], probe_err)
     chain["max_abs_err"] = max(chain["max_abs_err"], chain_err)
-    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, coarse, probe, chain]}))
+    for k in labs:
+        k["max_abs_err"] = max(k["max_abs_err"], lab_err)
+    for k in k9:
+        k["max_abs_err"] = max(k["max_abs_err"], i16_err)
+    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, coarse, probe, chain, *labs, *k9]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,33 +3,26 @@
 Counterpart of ``tools/roofline.py:101`` ``measure_vpu_chain``: ``acc =
 max(acc + y, x)`` from ``acc = x`` over a (32, cols) int32 tile, ``iters *
 UNROLL`` links, two operations a link.  For tensors on the card
-``vpu_chain`` launches the hand-written CUDA kernel of ``csrc/vpu_chain.cu``
-on enough blocks to fill every SM (each block computes the same tile), for
-tensors on the CPU it runs ``vpu_chain_plain``; a CUDA tensor reaches the
-kernel or raises.  ``vpu_chain.launches`` counts launches.  Bound by int32
-operations; ``swtpu_torch.tools.roofline`` turns its time into a rate.
+``vpu_chain`` launches K9's int32 ``addmax`` chain kernel
+(``csrc/i16_probe.cu``, ``i16_chain_kernel<I32, ADDMAX>``: one VIADDMNMX a
+link) on enough blocks to fill every SM (each block computes the same
+tile); for tensors on the CPU it runs ``vpu_chain_plain``; a CUDA tensor
+reaches the kernel or raises.  ``vpu_chain.launches`` counts launches.
+Bound by int32 operations; ``swtpu_torch.tools.roofline`` turns its time
+into a rate.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from . import _build
+from . import i16_probe
 
-ROWS = 32  # the tile's rows, a compile-time constant of the kernel
-UNROLL = 8  # links of one chain a loop body of the kernel
-MAX_COLS = 512  # threads a block: one column a thread
-
-
-def _kernel_lib() -> ctypes.CDLL:
-    return _build.load(
-        "vpu_chain",
-        vpu_chain_full_blocks=[ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-        vpu_chain_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    )
+ROWS = i16_probe.ROWS  # the tile's rows, a compile-time constant of the kernel
+UNROLL = i16_probe.UNROLL  # links of one chain a loop body of the kernel
+MAX_COLS = i16_probe.MAX_COLS  # threads a block: one column a thread
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, iters: int) -> None:
@@ -45,11 +38,7 @@ def _check(x: torch.Tensor, y: torch.Tensor, iters: int) -> None:
 def chain_blocks(cols: int, device) -> int:
     """Blocks of ``cols`` threads that fill every SM of ``device`` (a CUDA
     device) at the kernel's occupancy."""
-    lib = _kernel_lib()
-    blocks = ctypes.c_int(0)
-    rc = lib.vpu_chain_full_blocks(cols, _build.where(torch.device(device))[0], ctypes.byref(blocks))
-    _build.check(rc, lib.vpu_chain_error_string, "vpu_chain occupancy query")
-    return blocks.value
+    return i16_probe.chain_blocks(cols, "addmax", torch.int32, device)
 
 
 def vpu_chain(x: torch.Tensor, y: torch.Tensor, iters: int, blocks: Optional[int] = None) -> torch.Tensor:
@@ -64,13 +53,7 @@ def vpu_chain(x: torch.Tensor, y: torch.Tensor, iters: int, blocks: Optional[int
         raise ValueError(f"the chain kernel takes a ({ROWS}, cols) tile with 0 < cols <= {MAX_COLS}, got {tuple(x.shape)}")
     if blocks is None:
         blocks = chain_blocks(cols, x.device)
-    if blocks < 1:
-        raise ValueError(f"blocks={blocks} must be >= 1")
-    x, y = x.contiguous(), y.contiguous()
-    out = torch.empty_like(x)
-    lib = _kernel_lib()
-    rc = lib.vpu_chain_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), cols, iters, blocks, *_build.where(x.device))
-    _build.check(rc, lib.vpu_chain_error_string, "vpu_chain kernel launch")
+    out = i16_probe.launch_chain(x.contiguous(), y.contiguous(), "addmax", torch.int32, iters, blocks)
     vpu_chain.launches += 1
     return out
 

@@ -8,7 +8,8 @@ kernels, timed with CUDA events after a warm-up launch:
   on enough warps to fill every SM: the sustained mma.sync int8 MAC rate,
   against the 989.5 T MAC/s dense peak of an H100 SXM (1,979 int8 TOPS);
 * ``measure_vpu_chain`` (K8): ``vpu_chain.vpu_chain``, the dependent
-  ``acc = max(acc + y, x)`` chain on (32, 512) int32 tiles on every SM,
+  ``acc = max(acc + y, x)`` chain on (32, 512) int32 tiles on every SM (K9's
+  int32 ``addmax`` chain kernel),
   counted as 2 operations a link, against the int32 peak every int32 bound
   divides by: 132 SMs x 64 lanes x 1.98 GHz issue 16.7 T instructions a
   second, and one instruction (VIADDMNMX, add then max) does at most two
@@ -24,6 +25,7 @@ Run: ``python -m swtpu_torch.tools.roofline``
 
 from __future__ import annotations
 
+import subprocess
 import sys
 from typing import Callable, Tuple, TypeVar
 
@@ -50,6 +52,18 @@ def events_ms(fn: Callable[[], T], reps: int = 1) -> Tuple[float, T]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def card(check: bool = False) -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them: every
+    time a tool prints stands beside them.  Without a reading it returns
+    "nvidia-smi: no reading", or with ``check`` raises."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    lines = smi.stdout.strip().splitlines() if smi.returncode == 0 else []
+    if not lines and check:
+        raise RuntimeError(f"nvidia-smi gave no reading (rc {smi.returncode}): {smi.stderr.strip()}")
+    return lines[0] if lines else "nvidia-smi: no reading"
 
 
 def _cuda(device) -> torch.device:

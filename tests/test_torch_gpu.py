@@ -11,7 +11,9 @@ goldens.  The kernel's band-carry hand-off is held to its plain version rung
 by rung, carry and scores, and the composed engine to the fused one.  The
 int8 kernels of K7 (coarse counts, the MAC-rate probe) and K8's chain are
 held to their plain versions, and the prefiltered engine on the card to the
-one on the CPU.
+one on the CPU.  The wavefront lab kernels (K4's heights and blocks, K5's
+prefetch depths, K6's stage switches) and K9's int16 tiles and chains are
+held to their plain versions, and the lab variants that keep the DP to K1.
 """
 
 from pathlib import Path
@@ -25,7 +27,7 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import Query, parse_database, parse_query
 from swtpu_torch.matrices import blosum50_ref
 from swtpu_torch.models.search import SearchEngine, SearchResult
-from swtpu_torch.ops import bucket_sw, int8_mma, row_sw, vpu_chain, wave_sw
+from swtpu_torch.ops import bucket_sw, i16_probe, int8_mma, row_sw, vpu_chain, wave_lab, wave_sw
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -315,3 +317,62 @@ def test_prefiltered_engine_on_card_matches_cpu(cuda, evalue):
     many = card.search_many(queries, db)
     assert int8_mma.coarse_counts.launches == before + 1
     assert [r.hits for r in many] == [cpu.search(q, db).hits for q in queries]
+
+
+@pytest.mark.parametrize(
+    "qlen,ws,S,B",
+    [(20, 32, 1, 64), (33, 48, 2, 77), (100, 96, 3, 130), (1000, 160, 4, 515), (464, 4100, 1, 129)],
+)
+def test_wave_lab_kernels_match_plain(cuda, qlen, ws, S, B):
+    prof, stack = _bucket(np.random.default_rng(qlen * 3 + S), qlen, ws, S, B)
+    stack = stack.to(cuda)
+    k1 = wave_sw.sw_wave(prof.to(cuda), stack, gap=2, n_segs=S)
+    for h in wave_lab.HEIGHTS:
+        p = wave_lab.pad_profile(prof, h).to(cuda)
+        want = wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=S, height=h)
+        assert torch.equal(want, k1)
+        for blk in wave_lab.BLOCKS:
+            before = wave_lab.sw_wave_band.launches
+            got = wave_lab.sw_wave_band(p, stack, gap=2, n_segs=S, height=h, block=blk)
+            torch.cuda.synchronize()
+            assert wave_lab.sw_wave_band.launches == before + 1
+            assert torch.equal(got, want), (h, blk)
+    p = prof.to(cuda)
+    for d in wave_lab.DEPTHS:
+        before = wave_lab.sw_wave_prefetch.launches
+        assert torch.equal(wave_lab.sw_wave_prefetch(p, stack, gap=2, n_segs=S, depth=d), k1), d
+        assert wave_lab.sw_wave_prefetch.launches == before + 1
+    for skip in wave_lab.SKIPS:
+        before = wave_lab.sw_wave_skip.launches
+        got = wave_lab.sw_wave_skip(p, stack, gap=2, n_segs=S, skip=skip)
+        torch.cuda.synchronize()
+        assert wave_lab.sw_wave_skip.launches == before + 1
+        assert torch.equal(got, wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=S, skip=skip)), skip
+
+
+def test_i16_tiles_and_chains_match_plain(cuda):
+    rng = np.random.default_rng(9)
+    for dtype in i16_probe.DTYPES:
+        a = torch.arange(16 * 512).reshape(16, 512) % 1000
+        tiles = [(a, (a * 3 + 7) % 997)]  # tools/probe_i16.py's run inputs
+        lo, hi = (-32768, 32768) if dtype == torch.int16 else (-(2**31), 2**31)
+        tiles.append(tuple(torch.from_numpy(rng.integers(lo, hi, (16, 512))) for _ in range(2)))  # sums wrap
+        for x, y in tiles:
+            x, y = x.to(dtype).to(cuda), y.to(dtype).to(cuda)
+            for op in i16_probe.OPS:
+                before = i16_probe.i16_op.launches
+                got = i16_probe.i16_op(x, y, op)
+                torch.cuda.synchronize()
+                assert i16_probe.i16_op.launches == before + 1
+                assert torch.equal(got, i16_probe.i16_op_plain(x, y, op)), (op, dtype)
+        cols = 1024 if dtype == torch.int16 else 512
+        x = torch.from_numpy(rng.integers(0, 1000, (32, cols))).to(dtype).to(cuda)
+        for y_lo, y_hi in ((-2, 1), (-3, 3000)):  # the rate inputs; int16 sums that wrap
+            y = torch.from_numpy(rng.integers(y_lo, y_hi, (32, cols))).to(dtype).to(cuda)
+            for op in i16_probe.CHAIN_OPS:
+                for iters in (0, 1, 5):
+                    before = i16_probe.i16_chain.launches
+                    got = i16_probe.i16_chain(x, y, op, iters)
+                    torch.cuda.synchronize()
+                    assert i16_probe.i16_chain.launches == before + 1
+                    assert torch.equal(got, i16_probe.i16_chain_plain(x, y, op, iters)), (op, dtype, iters)

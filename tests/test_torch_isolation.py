@@ -1,7 +1,8 @@
 """The port stands alone and never hides the device.
 
-* importing swtpu_torch (its stats copy, the prefilter, the int8 and chain
-  kernels' wrappers and the roofline tool included) and running a search, a
+* importing swtpu_torch (its stats copy, the prefilter, the int8, chain,
+  wavefront-lab and int16 kernels' wrappers and the roofline and lab tools
+  included) and running a search, a
   row-path search, a batched top-K with E-values and a prefiltered search
   loads neither JAX nor swtpu (a subprocess: every pytest process here has
   imported JAX already);
@@ -31,6 +32,8 @@ import swtpu_torch.cli, swtpu_torch.models.search, swtpu_torch.synth, swtpu_torc
 import swtpu_torch.models.align, swtpu_torch.ops.oracle
 import swtpu_torch.ops.row_sw, swtpu_torch.ops.bucket_sw, swtpu_torch.utils.segpack
 import swtpu_torch.ops.prefilter, swtpu_torch.ops.int8_mma, swtpu_torch.ops.vpu_chain, swtpu_torch.tools.roofline
+import swtpu_torch.ops.wave_lab, swtpu_torch.ops.i16_probe, swtpu_torch.tools.buckets
+import swtpu_torch.tools.probe_i16, swtpu_torch.tools.probe_breakdown, swtpu_torch.tools.wave_lab
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
