@@ -33,7 +33,10 @@ Phases (one line each; any failure exits non-zero with no result line):
               plain versions, and those that keep the DP against K1's
               kernel; then K9's int16 and int32 tiles (tools/probe_i16.py's
               inputs and random ones whose sums wrap) and short chains of
-              every op: exact equality
+              every op: exact equality; then K10, every instantiation of
+              the row-parallel lab kernel (v2, v3, v4, v41) on the row
+              kernel cases and widths 1 and 31, at gap 2 and gap 120,
+              against its plain version: exact equality
  3b. roofline K7's int8 MAC rate and K8's int32 chain rate at full
               occupancy (swtpu_torch.tools.roofline; counts zeroed just
               before, read just after) beside the data-sheet and derived
@@ -118,7 +121,15 @@ Phases (one line each; any failure exits non-zero with no result line):
               scores of all 559,228 sequences, every variant equal to its
               plain version (run once a variant), a per-bucket table of
               milliseconds beside K1's with narrow, mid and full sums
- 13. kernels  one JSON line per kernel and mode: launches on its path, error,
+ 13. lab.rows K10 as swtpu_torch.tools.pallas_lab --swissprot runs it on
+              P01008's 13 row-path ladder groups of the same resident
+              database (counts zeroed just before, read just after; one
+              timed launch an instantiation a group beside K2's): every
+              instantiation bit-equal to K2 on every group and, with the
+              segment groups' scores, to the wavefront path's scores of all
+              559,228 sequences; one plain pass for all; a per-group table
+              of milliseconds with each instantiation's ratio to K2
+ 14. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time, the card's lower bound for the same work and
               the library call's time, where one computes the same function
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
@@ -167,6 +178,9 @@ ROW_CASES = (
     (1, 1, 1, 8, 2), (20, 3, 77, 40, 1), (33, 17, 129, 128, 2), (100, 3, 333, 256, 11),
     (464, 17, 257, 640, 2), (1000, 3, 65, 2048, 1), (300, 1, 31, 4100, 2), (4548, 3, 9, 6000, 2),
 )
+# kernel.rows_lab's cases: ROW_CASES (their gap replaced by 2 and by ROWS_LAB_WIDE_GAP) and widths 1 and 31
+ROWS_LAB_CASES = ROW_CASES + ((40, 2, 19, 1, 2), (70, 3, 100, 31, 2))
+ROWS_LAB_WIDE_GAP = 120  # past 112: JAX's int8 gap fold (15 + gap <= 127) wraps there, the kernel's int32 fold not
 ROW_QUERIES = ("P02232", "P05013", "P14942")  # the row phase's search_many and search_queued
 # kernel.mma's coarse-count cases: every (subjects n, queries Q, signature width) combination.
 MMA_NS, MMA_QS, MMA_DIMS = (1, 15, 17, 4097, 100_003), (1, 2, 8, 17), (64, 1024, 2048)
@@ -219,11 +233,16 @@ def phase_build():
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     out = {}
 
-    def label(mangled):  # sw_wave_kernel<AFFINE, HAND_OFF>; sw_rows.cu's K2 and K3; K7; the lab; K9 (and K8)
+    def label(mangled):  # sw_wave_kernel<AFFINE, HAND_OFF>; sw_rows.cu's K2 and K3; K7; the labs; K9 (and K8)
         lab = re.search(r"sw_wave_lab_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", mangled)
         if lab:
             h, blk, d, skip = lab.groups()
             return f"K4-K6 sw_wave_lab_kernel H{h} B{blk} D{d} {LAB_SKIPS[int(skip)]}"
+        k10 = re.search(r"sw_rows_lab_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELb([01])E", mangled)
+        if k10:
+            stage, scan, strip, ilp, _ = k10.groups()
+            variant = "v41" if scan == "1" else "v2" if stage == "0" else "v4" if ilp != "1" else "v3"
+            return f"K10 sw_rows_lab_kernel {variant} S{strip}" + (f" ILP{ilp}" if ilp != "1" else "")
         i16 = re.search(r"i16_(chain|tile)_kernelINS_\d+(I32|I16x2)E(?:Li(\d)E)?", mangled)
         if i16:
             kind, typ, op = i16.groups()
@@ -976,6 +995,56 @@ def phase_align(db, linear_engine, affine_engine):
     say("align", query=MAIN_QUERY, k=10, rescored_equal_device=True, **out, seconds=round(time.perf_counter() - t_phase, 3))
 
 
+def phase_kernel_rows_lab():
+    """K10: every instantiation of the row-parallel lab kernel (v2, v3, v4,
+    v41 at their strips and ILPs) against its plain version (rows_lab_plain)
+    on seeded random stacks, at gap 2 and at a gap past JAX's int8 fold."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.matrices import blosum50_ref
+    from swtpu_torch.ops import rows_lab
+    from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    worst, launches, best = 0, 0, 0
+    for qlen, C, B, L, _ in ROWS_LAB_CASES:
+        q = rng.integers(0, 25, qlen).astype(np.int8)
+        if qlen > 4000:  # as kernel.rows: the planted self-alignment passes 32,767 at gap 2
+            q = rng.choice(np.array([4, 8, 14, 17], dtype=np.int8), qlen)
+        stack = np.full((C, B, L), PAD_SUBJECT, dtype=np.int8)
+        for c in range(C):
+            for b in range(B - (c == C - 1)):  # the last row of the last chunk stays empty
+                n = int(rng.integers(1, L + 1))
+                stack[c, b, :n] = rng.integers(0, 25, n)
+        if qlen > 4000:
+            stack[C // 2, 0, :qlen] = q
+        prof = torch.from_numpy(make_profile(q, blosum50_ref(), pad_rows_to=32)).cuda()
+        stack = torch.from_numpy(stack).cuda()
+        for gap in (2, ROWS_LAB_WIDE_GAP):
+            want = rows_lab.rows_lab_plain(prof, stack, gap=gap)
+            best = max(best, int(want.max()))
+            for v, strip, ilp in rows_lab.INSTANCES:
+                fn = rows_lab.WRAPPERS[v]
+                before = fn.launches
+                got = fn(prof, stack, gap=gap, strip=strip, **({"ilp": ilp} if v == "v4" else {}))
+                torch.cuda.synchronize()
+                if fn.launches != before + 1:
+                    raise AssertionError(f"{v} launched {fn.launches - before} times, not once")
+                err = int((got.long() - want.long()).abs().max())
+                worst, launches = max(worst, err), launches + 1
+                if err or not torch.equal(got, want):
+                    raise AssertionError(f"K10 {v} strip {strip} ilp {ilp} != plain at qlen={qlen} C={C} B={B} "
+                                         f"L={L} gap={gap}: max err {err}")
+    if best <= 32767:
+        raise AssertionError(f"the planted self-alignment scored {best}, within int16")
+    say("kernel.rows_lab", cases=len(ROWS_LAB_CASES), gaps=[2, ROWS_LAB_WIDE_GAP],
+        instances=[f"{v} strip {s} ilp {i}" for v, s, i in rows_lab.INSTANCES], launches=launches, max_score=best,
+        max_abs_err=worst, tolerance="exact", seconds=round(time.perf_counter() - t0, 3))
+    return worst
+
+
 def row_bound(cells, nbytes):
     """(bound ms, bound_by) of row-kernel work: OPS_PER_CELL int32
     operations a padded cell over the int32 rate, against the bytes moved
@@ -1151,7 +1220,7 @@ def phase_rows(db, wave_engine):
         "replaces": "swtpu/ops/pallas_sw.py:281", "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
     }
-    return k2, k3
+    return k2, k3, k2_engine
 
 
 def phase_compose(db, engine, affine_engine, suite_scores):
@@ -1781,6 +1850,69 @@ def phase_lab(db, engine):
     return entries
 
 
+def phase_lab_rows(db, engine, row_engine):
+    """K10 as swtpu_torch.tools.pallas_lab --swissprot runs it (counts zeroed
+    just before, read just after) on P01008's row-path ladder groups of the
+    resident database: one timed launch of every instantiation a group beside
+    K2's (an untimed K2 launch warms each group), every instantiation
+    bit-equal to K2 on every group and, with the segment groups' scores,
+    through the engine's _reduce_flat to the wavefront path's scores of all
+    559,228 sequences; one pass of the plain version on the same groups; a
+    per-group table of milliseconds with each instantiation's ratio to K2."""
+    import numpy as np
+
+    from swtpu_torch.ops import rows_lab
+    from swtpu_torch.tools import buckets as lb
+    from swtpu_torch.tools import pallas_lab
+
+    t0 = time.perf_counter()
+    rg = lb.swissprot_rows(db=db, engine=row_engine)
+    wave_scores = engine.search(rg.query, db).scores  # K1 through the engine
+    for fn in rows_lab.WRAPPERS.values():
+        fn.launches = 0
+    res = pallas_lab.swissprot(rg)
+    launched = {v: fn.launches for v, fn in rows_lab.WRAPPERS.items()}
+    want = {v: len(rg.groups) * sum(vv == v for vv, _, _ in rows_lab.INSTANCES) for v in rows_lab.WRAPPERS}
+    if launched != want:
+        raise AssertionError(f"pallas_lab --swissprot launched {launched}, not once an instantiation a group: {want}")
+    if res["unequal"]:
+        raise AssertionError(f"K10 {res['unequal']} differ from K2 on P01008's row-path groups")
+    for name in ["K2", *pallas_lab.VARIANTS]:
+        full = rg.reduce(res["flats"][name])
+        if not np.array_equal(full, wave_scores):
+            raise AssertionError(f"lab.rows {name}: {int((full != wave_scores).sum())} scores differ from the wavefront's")
+    prof = rg.profile()
+    plain_ms, plain = events_ms(lambda: [rows_lab.rows_lab_plain(prof, g.stack, gap=rg.gap) for g in rg.groups])
+    err = {name: max(int((x.long() - p.long()).abs().max()) for x, p in zip(res["flats"][name], plain))
+           for name in pallas_lab.VARIANTS}
+    if any(err.values()):
+        raise AssertionError(f"K10 differs from its plain version on P01008: {err}")
+    print("\n".join(lb.row_table(rg.groups, res["times"], "K2")), flush=True)
+    qpad = prof.shape[0]
+    cells = qpad * sum(g.chunks * g.rows * g.width for g in rg.groups)
+    bound_ms, bound_by = row_bound(cells, sum(g.stack.numel() + qpad * 32 + 4 * g.chunks * g.rows for g in rg.groups))
+    sums = {name: sum(ms) for name, ms in res["times"].items()}
+    carry = {name: sum(rows_lab.carry_bytes(-(-qpad // kw["strip"]), g.chunks, g.rows, g.width) for g in rg.groups)
+             for name, (_, kw) in pallas_lab.VARIANTS.items()}
+    say("lab.rows", query=MAIN_QUERY, groups=len(rg.groups), launches=launched,
+        launches_cover="one timed launch an instantiation a group (an untimed K2 launch warms each group)",
+        shapes=[(g.chunks, g.rows, g.width) for g in rg.groups], padded_cells=cells,
+        k2_group_ms=res["times"]["K2"], group_ms={n: res["times"][n] for n in pallas_lab.VARIANTS},
+        ms=sums, ratio_to_k2={n: sums[n] / sums["K2"] for n in pallas_lab.VARIANTS},
+        bit_equal_k2=True, scores_equal_wavefront=int(wave_scores.shape[0]), plain_ms_one_pass=plain_ms,
+        bound_ms_a_pass=bound_ms, bound_by=bound_by, carry_bytes=carry, seconds=round(time.perf_counter() - t0, 3))
+    entries = []
+    for v, line in zip(rows_lab.VARIANTS, (102, 206, 304, 389)):
+        mine = [name for name, (fn, _) in pallas_lab.VARIANTS.items() if fn is rows_lab.WRAPPERS[v]]
+        entries.append({
+            "name": f"{rows_lab.WRAPPERS[v].__name__} (K10 {v})", "route": "cuda",
+            "source": "swtpu_torch/csrc/sw_rows_lab.cu", "replaces": f"tools/pallas_lab.py:{line}",
+            "launches": launched[v], "max_abs_err": max(err[n] for n in mine), "ms": sum(sums[n] for n in mine),
+            "plain_ms": plain_ms, "bound_ms": bound_ms * len(mine), "bound_by": bound_by, "library_ms": None,
+        })
+    return entries
+
+
 def null_equal(a, b):
     """Two NullStats hold the same numbers, field by field."""
     import dataclasses
@@ -1965,6 +2097,7 @@ def main() -> int:
         multi_err = phase_kernel_multi()
         affine_err = phase_kernel_affine()
         rows_err = phase_kernel_rows()
+        rows_lab_err = phase_kernel_rows_lab()
         carry_err = phase_kernel_carry()
         counts_err, probe_err = phase_kernel_mma()
         chain_err = phase_kernel_chain()
@@ -1978,10 +2111,11 @@ def main() -> int:
         multi, suite_scores = phase_serving(db, engine, q1_bucket_ms)
         affine, affine_engine = phase_affine(db, q1_bucket_ms)
         phase_align(db, engine, affine_engine)
-        k2, k3 = phase_rows(db, engine)
+        k2, k3, row_engine = phase_rows(db, engine)
         carry = phase_compose(db, engine, affine_engine, suite_scores)
         coarse = phase_prefilter(db, engine)
         labs = phase_lab(db, engine)
+        k10 = phase_lab_rows(db, engine, row_engine)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1997,9 +2131,11 @@ def main() -> int:
     chain["max_abs_err"] = max(chain["max_abs_err"], chain_err)
     for k in labs:
         k["max_abs_err"] = max(k["max_abs_err"], lab_err)
+    for k in k10:
+        k["max_abs_err"] = max(k["max_abs_err"], rows_lab_err)
     for k in k9:
         k["max_abs_err"] = max(k["max_abs_err"], i16_err)
-    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, coarse, probe, chain, *labs, *k9]}))
+    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, coarse, probe, chain, *labs, *k9, *k10]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

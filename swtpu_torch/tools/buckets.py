@@ -1,12 +1,18 @@
-"""P01008's wavefront buckets on the SwissProt-shaped database, for the lab tools.
+"""P01008's wavefront buckets and row-path groups on the SwissProt-shaped database, for the lab tools.
 
 The database is ``chip_smoke.py``'s (``synth.synth_database``: 559,228
 sequences, seed 0) and the buckets are the engine's own plan, packed on the
 card, as ``wave_ab.py`` takes them: 27 buckets for P01008.  A bucket is
 "narrow" below 1,024 threads (lanes x segments), "full" from 20,000, and
 "mid" between: at this scale that is PERF.md's 5 narrow, 11 mid and 11 full
-buckets, the full ones 71% of the cells.  ``main`` is the lab tools' run
-(``wave_lab``, ``probe_breakdown``): each names its variants.
+buckets, the full ones 71% of the cells.  ``main`` is the wavefront lab
+tools' run (``wave_lab``, ``probe_breakdown``): each names its variants.
+
+The row path's groups (``swissprot_rows``) are the ladder groups of the
+engine's row-path pack (``use_wave=False``): 13 (chunks, rows, width) stacks
+that K2 scores for P01008, beside the segment-packed groups of the short
+sequences, which the PyTorch seg16 scorer takes.  ``run`` times them the same
+way, K2 first (``pallas_lab``).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from ..io.fasta import Database, Query, parse_query
 from ..models.search import SearchEngine
 from ..ops import wave_lab, wave_sw
 from ..ops.profile import make_profile
-from ..utils.bucketing import WaveGroup
+from ..utils.bucketing import PackedDatabase, PackedGroup, WaveGroup
 from .roofline import card, events_ms
 
 QUERIES = Path(__file__).resolve().parents[2] / "tests" / "data" / "queries"
@@ -94,16 +100,18 @@ def launches(b: Buckets, variants: Variants) -> Dict[str, Callable[[WaveGroup], 
     return out
 
 
-def run(groups: Sequence[WaveGroup], launches: Dict[str, Callable[[WaveGroup], torch.Tensor]]) -> Dict[str, Dict]:
+def run(groups: Sequence, launches: Dict[str, Callable]) -> Dict[str, Dict]:
     """{"flats": {name: one score array a bucket}, "times": {name: ms a
-    bucket}}: bucket by bucket, an untimed K1 launch brings the bucket into
-    L2, then every named launch runs once in turns, timed with CUDA events,
-    so the variants of a bucket are timed at nearly the same moment.  The
-    scores kept are the timed launches': a variant launches once a bucket."""
+    bucket}}: bucket by bucket, an untimed launch of the first name (the
+    production kernel, K1 or K2) brings the bucket into L2, then every named
+    launch runs once in turns, timed with CUDA events, so the variants of a
+    bucket are timed at nearly the same moment.  The scores kept are the
+    timed launches': a variant launches once a bucket."""
     flats: Dict[str, List[torch.Tensor]] = {name: [] for name in launches}
     times: Dict[str, List[float]] = {name: [] for name in launches}
+    warm = next(iter(launches.values()))
     for g in groups:
-        launches["K1"](g)
+        warm(g)
         for name, launch in launches.items():
             ms, out = events_ms(lambda: launch(g))
             flats[name].append(out)
@@ -152,3 +160,63 @@ def group_sums(groups: Sequence[WaveGroup], times: Dict[str, List[float]]) -> Di
     """{variant: {"narrow", "mid", "full", "all": ms}}."""
     return {n: {grp: sum(t for g, t in zip(groups, ms) if grp in ("all", group_of(g))) for grp in (*GROUPS, "all")}
             for n, ms in times.items()}
+
+
+@dataclasses.dataclass
+class RowGroups:
+    db: Database
+    engine: SearchEngine  # a row-path engine (use_wave=False) on the card
+    query: Query
+    packed: PackedDatabase  # the engine's resident row-path pack
+    _seg_flat: Optional[torch.Tensor] = None
+
+    @property
+    def groups(self) -> Tuple[PackedGroup, ...]:
+        """The ladder groups: (C, rows, width) stacks, K2's launches."""
+        return self.packed.groups
+
+    @property
+    def gap(self) -> int:
+        return self.engine.config.gap_penalty
+
+    def profile(self) -> torch.Tensor:
+        """The query's (qpad, 32) profile as the engine gives it to K2."""
+        return self.engine._profile(self.query)
+
+    def reduce(self, flats: Sequence[torch.Tensor]) -> np.ndarray:
+        """One (C, rows) score array a ladder group, with the segment groups'
+        scores (the engine's seg16 pass, run once) scattered back to file
+        order through the engine's own ``_reduce_flat``."""
+        prof = self.profile()
+        if self._seg_flat is None:
+            self._seg_flat = self.engine._row_step(prof, dataclasses.replace(self.packed, groups=()))
+        flat = torch.cat([f.reshape(-1) for f in flats] + [self._seg_flat])
+        return self.engine._reduce_flat(flat.cpu().numpy(), self.packed, self.db, prof)
+
+
+def swissprot_rows(db: Optional[Database] = None, engine: Optional[SearchEngine] = None) -> RowGroups:
+    """P01008's row-path groups; ``db`` defaults to the SwissProt-shaped
+    database and ``engine`` to a row-path engine on the card (K2 for its
+    ladder groups)."""
+    db = synth.synth_database(N_SEQS, seed=0) if db is None else db
+    engine = SearchEngine(SWConfig(use_wave=False), device="cuda") if engine is None else engine
+    if engine._wave_enabled:
+        raise ValueError("the row-path groups need a row-path engine (use_wave=False)")
+    return RowGroups(db=db, engine=engine, query=parse_query(QUERIES / f"{QUERY}.fasta"),
+                     packed=engine._resident_packed(db))
+
+
+def row_table(groups: Sequence[PackedGroup], times: Dict[str, List[float]], base: str) -> List[str]:
+    """Lines of a per-group table of ``times`` (ms), then the whole pass's
+    ms and each variant's ratio to ``base``, group by group and in all."""
+    names = list(times)
+    lines = ["group  chunks   rows  width  " + "  ".join(f"{n:>12}" for n in names)
+             + "  " + "  ".join(f"{n + '/' + base:>14}" for n in names if n != base)]
+    for k, g in enumerate(groups):
+        lines.append(f"{k:5d} {g.chunks:7d} {g.rows:6d} {g.width:6d}  "
+                     + "  ".join(f"{times[n][k]:12.4f}" for n in names) + "  "
+                     + "  ".join(f"{times[n][k] / times[base][k]:14.3f}" for n in names if n != base))
+    sums = {n: sum(ms) for n, ms in times.items()}
+    lines.append(f"  all ({len(groups):2d} groups)      " + "  ".join(f"{sums[n]:12.4f}" for n in names) + "  "
+                 + "  ".join(f"{sums[n] / sums[base]:14.3f}" for n in names if n != base))
+    return lines

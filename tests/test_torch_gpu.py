@@ -14,6 +14,9 @@ held to their plain versions, and the prefiltered engine on the card to the
 one on the CPU.  The wavefront lab kernels (K4's heights and blocks, K5's
 prefetch depths, K6's stage switches) and K9's int16 tiles and chains are
 held to their plain versions, and the lab variants that keep the DP to K1.
+Every instantiation of the row-parallel lab kernel (K10: v2, v3, v4, v41) is
+held to its plain version and to K2, at gap 2 and at a gap past JAX's int8
+fold.
 """
 
 from pathlib import Path
@@ -27,7 +30,7 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import Query, parse_database, parse_query
 from swtpu_torch.matrices import blosum50_ref
 from swtpu_torch.models.search import SearchEngine, SearchResult
-from swtpu_torch.ops import bucket_sw, i16_probe, int8_mma, row_sw, vpu_chain, wave_lab, wave_sw
+from swtpu_torch.ops import bucket_sw, i16_probe, int8_mma, row_sw, rows_lab, vpu_chain, wave_lab, wave_sw
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -376,3 +379,28 @@ def test_i16_tiles_and_chains_match_plain(cuda):
                     torch.cuda.synchronize()
                     assert i16_probe.i16_chain.launches == before + 1
                     assert torch.equal(got, i16_probe.i16_chain_plain(x, y, op, iters)), (op, dtype, iters)
+
+
+@pytest.mark.parametrize(
+    "qlen,C,B,L",
+    [(1, 1, 1, 8), (20, 3, 77, 40), (33, 2, 129, 1), (100, 3, 333, 31), (464, 1, 9, 4100), (300, 3, 31, 6000)],
+)
+@pytest.mark.parametrize("gap", [2, 120])
+def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, gap):
+    rng = np.random.default_rng(qlen + C + L)
+    prof = make_profile(rng.integers(0, 25, qlen).astype(np.int8), blosum50_ref(), pad_rows_to=32)
+    stack = np.full((C, B, L), PAD_SUBJECT, dtype=np.int8)
+    for c in range(C):
+        for b in range(B - (c == C - 1)):  # the last row of the last chunk stays empty
+            n = int(rng.integers(1, L + 1))
+            stack[c, b, :n] = rng.integers(0, 25, n)
+    prof, stack = torch.from_numpy(prof).to(cuda), torch.from_numpy(stack).to(cuda)
+    want = rows_lab.rows_lab_plain(prof, stack, gap=gap)
+    assert torch.equal(want, bucket_sw.sw_score_bucket_fused(prof, stack, gap=gap))
+    for v, s, ilp in rows_lab.INSTANCES:
+        fn = rows_lab.WRAPPERS[v]
+        before = fn.launches
+        got = fn(prof, stack, gap=gap, strip=s, **({"ilp": ilp} if v == "v4" else {}))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == (C, B) and torch.equal(got, want), (v, s, ilp)

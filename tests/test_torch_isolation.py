@@ -1,8 +1,8 @@
 """The port stands alone and never hides the device.
 
 * importing swtpu_torch (its stats copy, the prefilter, the int8, chain,
-  wavefront-lab and int16 kernels' wrappers and the roofline and lab tools
-  included) and running a search, a
+  wavefront-lab, row-lab and int16 kernels' wrappers and the roofline and
+  lab tools included) and running a search, a
   row-path search, a batched top-K with E-values and a prefiltered search
   loads neither JAX nor swtpu (a subprocess: every pytest process here has
   imported JAX already);
@@ -34,6 +34,7 @@ import swtpu_torch.ops.row_sw, swtpu_torch.ops.bucket_sw, swtpu_torch.utils.segp
 import swtpu_torch.ops.prefilter, swtpu_torch.ops.int8_mma, swtpu_torch.ops.vpu_chain, swtpu_torch.tools.roofline
 import swtpu_torch.ops.wave_lab, swtpu_torch.ops.i16_probe, swtpu_torch.tools.buckets
 import swtpu_torch.tools.probe_i16, swtpu_torch.tools.probe_breakdown, swtpu_torch.tools.wave_lab
+import swtpu_torch.ops.rows_lab, swtpu_torch.tools.pallas_lab
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
