@@ -10,7 +10,11 @@ Phases (one line each; any failure exits non-zero with no result line):
               spills and SASS opcode counts of each kernel instantiation
   3. kernel   each kernel against its plain PyTorch version on seeded random
               buckets (chain factors 1/2/3/8, odd lane counts, one and many
-              bands, widths 32 to 4100): exact equality; then the
+              bands, widths 32 to 4100; K1's shapes: the suite's longest
+              query, 143 bands, across eight pass boundaries of the warp
+              wavefront, segments of 6 columns under 16 bands a pass, and a
+              bucket of 20,800 (lane, segment) pairs on the band sweep at
+              H = 64 with a 32-row tail): exact equality; then the
               multi-query mode (Q = 2, 5, 16) the same way; then the affine
               mode on both case lists for gaps (10, 2), (10, 1) and (5, 5),
               and (5, 5) bit-equal to the linear kernel at gap 5; then the
@@ -108,7 +112,8 @@ Phases (one line each; any failure exits non-zero with no result line):
               width class), its hits equal to the exhaustive top-10 of the
               candidate set and that set to the plain coarse pass's; three
               timed searches; the coarse kernel alone at Q = 1 and 17
-              against its bound, plain version and torch._int_mm;
+              against its bound, plain version and torch._int_mm, and on
+              seeded random signatures of the same shape;
               search_many for the suite (one coarse launch, hits equal to
               single searches); the E-value null equal to the exhaustive
               scores' at the calibration sample; swtpu's planted-homolog
@@ -164,13 +169,19 @@ SASS_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "IADD3", "IMMA", "S2U
 AFFINE = dict(gap_open=10, gap_extend=2)  # the affine cell's gaps
 GAP_PAIRS = ((10, 2), (10, 1), (5, 5))  # the affine kernel phase's (open, extend)
 # Kernel phase cases: (longest query, segment width, n_segs, lanes, Q or None for one query).
+# The last three single-query cases: the suite's longest query (143 bands) crossing
+# eight pass boundaries of the wavefront; segments of 6 columns under 16 bands a
+# pass; a bucket of 20,800 (lane, segment) pairs, so the band sweep at H = 64,
+# where P01008's 15 bands end in a 32-row tail and its rungs (8, 4, 2, 1) split
+# a 64-row pair (kernel.carry).
 KERNEL_CASES = (
     (20, 32, 1, 64, None), (33, 48, 2, 77, None), (100, 96, 3, 130, None), (464, 40, 8, 1001, None),
     (464, 736, 1, 3000, None), (147, 2208, 6, 333, None), (464, 4100, 1, 129, None), (1000, 160, 4, 515, None),
+    (4548, 96, 1, 300, None), (300, 6, 8, 129, None), (464, 40, 8, 2600, None),
 )
 MULTI_CASES = (
     (20, 32, 1, 65, 2), (100, 96, 3, 131, 5), (464, 40, 8, 257, 16), (31, 736, 1, 77, 16),
-    (300, 2208, 3, 129, 5), (1000, 160, 8, 33, 2), (64, 4100, 1, 99, 16),
+    (300, 2208, 3, 129, 5), (1000, 160, 8, 33, 2), (64, 4100, 1, 99, 16), (4548, 64, 1, 200, 3),
 )
 # Row kernel phase cases: (query length, chunks C, rows B, width L, gap); the
 # last plants the query in a row: its self-alignment passes 32,767.
@@ -233,7 +244,7 @@ def phase_build():
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     out = {}
 
-    def label(mangled):  # sw_wave_kernel<AFFINE, HAND_OFF>; sw_rows.cu's K2 and K3; K7; the labs; K9 (and K8)
+    def label(mangled):  # K1's shapes; sw_rows.cu's K2 and K3; K7; the labs; K9 (and K8)
         lab = re.search(r"sw_wave_lab_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", mangled)
         if lab:
             h, blk, d, skip = lab.groups()
@@ -254,10 +265,13 @@ def phase_build():
         for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7")):
             if kernel in mangled:
                 return f"{tag} {kernel}"
-        wave = re.search(r"sw_wave_kernelILb([01])ELb([01])E", mangled)
+        # K1: sw_wave_kernel<AFFINE, HAND_OFF, G> (the warp wavefront), sw_band_kernel<AFFINE, HAND_OFF, H>
+        wave = re.search(r"sw_(wave|band)_kernelILb([01])ELb([01])ELi(\d+)E", mangled)
         if wave is None:
             return mangled
-        return ("affine" if wave.group(1) == "1" else "linear") + (" hand-off" if wave.group(2) == "1" else "")
+        kind, aff, hand, n = wave.groups()
+        return (("affine" if aff == "1" else "linear") + (" hand-off" if hand == "1" else "")
+                + (f" wavefront G{n} H32" if kind == "wave" else f" band sweep H{n}"))
 
     for name in names:
         log = built[name]["log"]
@@ -1989,8 +2003,14 @@ def phase_prefilter(db, engine):
 
     # --- the coarse kernel alone (Q = 1 and the suite's Q = 17) against its
     # bound, its plain version and torch._int_mm on the same product
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    sig_random = (torch.rand(sig.shape, device="cuda", generator=gen) < 0.1).to(torch.int8)
+
     def coarse_times(qs):
         ms, _ = events_ms(lambda: int8_mma.coarse_counts(qs, sig), reps=10)
+        # the same shape of seeded 0/1 signatures at 10% density (wave_ab.py's): what the data costs
+        random_ms, _ = events_ms(lambda: int8_mma.coarse_counts(qs, sig_random), reps=10)
         plain_ms, _ = events_ms(lambda: int8_mma.coarse_counts_plain(qs, sig))
         n_q, (n, dim) = qs.shape[0], sig.shape
         nbytes = n * dim + n_q * dim + 4 * n_q * n
@@ -2004,11 +2024,15 @@ def phase_prefilter(db, engine):
             library_error = None
         except RuntimeError as e:
             library_ms, library_equal, library_error = None, None, str(e)[:200]
-        return dict(queries=n_q, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_ms = max(bytes_ms, ops_ms)
+        return dict(queries=n_q, ms=ms, random_signatures_ms=random_ms, signature_density=density,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_share=bound_ms / ms,
+                    library_bound_share=bound_ms / library_ms if library_ms else None,
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
                     library_ms=library_ms, library_equal=library_equal, library_error=library_error)
 
     qsigs = torch.from_numpy(np.stack([pf.signature(q.residues) for q in queries])).cuda()
+    density = float(sig.count_nonzero()) / sig.numel()
     coarse1, coarse17 = coarse_times(qsig[None].contiguous()), coarse_times(qsigs)
     say("prefilter.search", query=MAIN_QUERY, knobs=PREFILTER, candidates=n_cand, merged=int(cand.shape[0]),
         exact_buckets=[(int(part.shape[0]), width, int(cp.shape[0])) for part, width, cp in jobs],

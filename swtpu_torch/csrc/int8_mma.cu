@@ -3,24 +3,39 @@
 // Replaces K7, the int8 MXU probe of tools/roofline.py:65
 // (measure_mxu_staging, its pallas_call at :92), and takes over the coarse
 // pass that swtpu leaves to XLA's jnp.dot (swtpu/ops/prefilter.py:136, :166
-// and :188).  Two entry points share one device routine, mma_s8:
+// and :188).  Two kernels share one device routine, mma_s8:
 //  * coarse_counts_kernel: the prefilter's shared-bucket counts, (Q, n) int32
-//    = sig_qs (Q, dim) int8 times sig_db (n, dim) int8 transposed.  Subjects
-//    take the M side of the tile (16 rows a warp), queries the N side (8 a
-//    tile, NT tiles a warp, Q padded to a multiple of 8 with zeros in
-//    registers, not in memory), and K runs over dim in 64-byte steps (a
-//    32-byte step at the end when dim % 64 == 32).  A thread loads 16 bytes of
-//    each of its two subject rows and of each of its query rows a step; the
-//    two m16n8k32 products of a step take bytes 0-7 and 8-15 of every thread's
-//    16, the same permutation of K on both sides, so the dot products are
-//    unchanged.  Rows past n load zeros and store nothing.
+//    = sig_qs (Q, dim) int8 times sig_db (n, dim) int8 transposed.
 //    What bounds it: bytes.  At SwissProt scale the signature matrix is
 //    559,228 x 1024 B = 572.6 MB, read once for all Q queries of a batch
 //    (0.171 ms at 3.35 TB/s); its 2*Q*n*dim int8 operations take a few
-//    microseconds of the tensor cores.  The design streams each row once
-//    (cache-streaming loads), keeps the few KB of query rows in L1/L2, and
-//    puts 8 warps a block with several blocks an SM in flight to cover the
-//    memory latency.  wgmma, TMA and a shared-memory ring are later work.
+//    microseconds of the tensor cores.  So the whole design is about keeping
+//    enough bytes in flight with no instructions spent on moving them:
+//    - A persistent grid: one block an SM (its shared memory allows no
+//      more) walks 128-row subject tiles with a static stride, for one
+//      group of 32 queries (grid axis y).  The wrapper lays out the grid
+//      (ops/int8_mma.py: coarse_grid) and the launcher refuses one that
+//      does not fit these tiles.
+//    - A producer warp keeps a ring of STAGES stages of TMA loads in
+//      flight.  A stage is a 128-row x 128-byte box of the signatures and
+//      the 32-query x 128-byte box of the same K range (from L2: the
+//      queries are a few KB), both from 2-D tensor maps with 128-byte
+//      swizzle, so the fragment reads below hit 8 distinct 16-byte bank
+//      groups.  TMA fills rows past n, queries past Q and bytes past dim
+//      with zeros, so any n, any Q and dim % 128 in {32, 64, 96} need no
+//      masks: a zero adds nothing to a dot product.  Each stage completes
+//      on an mbarrier; the consumers release it on a second one.
+//    - Eight consumer warps, 16 subject rows each, read their fragments
+//      with ldmatrix (A: one x4 a 32-byte K step; B: one x4 two K steps of
+//      8 queries) and run mma.sync m16n8k32 with subjects on M and queries
+//      on N, skipping the 8-query tiles past Q.
+//    - The (32, 128) int32 output tile goes through shared memory, so each
+//      store is a whole 16-byte piece of one query row (4-byte pieces when
+//      n % 4 != 0), and the next tile's loads run meanwhile.
+//    The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
+//    taken from the runtime's driver entry point: the library links no
+//    libcuda.  They hold the operands' addresses, so every launch encodes
+//    its own; the shared-memory attribute is set once a device.
 //  * mma_probe_kernel: K7's function.  Independent int8 dots of a (M, 384)
 //    and a (384, N), each with a perturbed by a ^ (i + j) (as
 //    tools/roofline.py:75), max-reduced over i < iters and j < unroll.  A warp
@@ -37,13 +52,26 @@
 // c2, c3 = row g+8, the same columns.
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 8;          // warps a block of coarse_counts_kernel
-constexpr int NT = 4;             // 8-query tiles a warp carries: 32 queries a pass
+constexpr int CONSUMERS = 8;                      // consumer warps of coarse_counts_kernel, 16 rows each
+constexpr int COARSE_THREADS = (CONSUMERS + 1) * 32;  // and one producer warp
+constexpr int TILE_M = CONSUMERS * 16;            // subject rows a tile: 128
+constexpr int KCHUNK = 128;                       // bytes of K a stage (the 128-byte swizzle's span)
+constexpr int QTILE = 32;                         // queries a block: four 8-query mma tiles
+constexpr int NT = QTILE / 8;
+constexpr int A_BYTES = TILE_M * KCHUNK;          // 16 KB of signatures a stage
+constexpr int STAGE_BYTES = A_BYTES + QTILE * KCHUNK;  // and 4 KB of queries
+constexpr int STAGES = 8;
+constexpr int EP_STRIDE = TILE_M + 4;             // int32 a query row of the output tile: 16-byte rows, no bank conflicts
+constexpr int COARSE_SMEM = 1024 + STAGES * STAGE_BYTES + QTILE * EP_STRIDE * 4 + 2 * STAGES * 8;
+static_assert(COARSE_SMEM <= 227 * 1024 && 2 * COARSE_SMEM > 228 * 1024, "one block an SM, as coarse_grid assumes");
+constexpr int MAX_DEVICES = 64;                   // devices whose shared-memory attribute is remembered as set
 constexpr int PROBE_K = 384;      // K7's depth
 constexpr int PROBE_KSTEPS = PROBE_K / 32;
 constexpr int PROBE_NT = 4;       // a probe warp's tile: 16 x 32
@@ -59,70 +87,165 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, ui
 
 __device__ __forceinline__ uint32_t load4(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-__global__ void __launch_bounds__(WARPS * 32)
-coarse_counts_kernel(const int8_t* __restrict__ db,  // (n, dim)
-                     const int8_t* __restrict__ qs,  // (Q, dim)
-                     int32_t* __restrict__ out,      // (Q, n)
-                     int n, int Q, int dim) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long m0 = (static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * 16;
-  if (m0 >= n) return;  // the whole warp leaves together: no barrier below
-  const long long r0 = m0 + g, r1 = m0 + g + 8;
-  const bool ok0 = r0 < n, ok1 = r1 < n;
-  const int8_t* row0 = db + (ok0 ? r0 : 0) * static_cast<long long>(dim);
-  const int8_t* row1 = db + (ok1 ? r1 : 0) * static_cast<long long>(dim);
-  const int q0 = blockIdx.y * NT * 8;
-  const int ntiles = min(NT, (Q - q0 + 7) / 8);
-  const int8_t* qrow[NT];
-  bool qok[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int q = q0 + j * 8 + g;
-    qok[j] = q < Q;
-    qrow[j] = qs + static_cast<long long>(qok[j] ? q : 0) * dim;
-  }
-  int acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-  int k = 0;
-#pragma unroll 4
-  for (; k + 64 <= dim; k += 64) {
-    const int off = k + t * 16;
-    const uint4 a0 = ok0 ? __ldcs(reinterpret_cast<const uint4*>(row0 + off)) : zero4;
-    const uint4 a1 = ok1 ? __ldcs(reinterpret_cast<const uint4*>(row1 + off)) : zero4;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box at (x = byte in the row, y = row) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Shared address of 16-byte chunk `chunk` of row `row` of a box stored with
+// the 128-byte swizzle (rows of 128 bytes, chunk c of row r at c ^ (r % 8)).
+__device__ __forceinline__ uint32_t swizzled(uint32_t box, int row, int chunk) {
+  return box + row * KCHUNK + ((chunk ^ (row & 7)) << 4);
+}
+
+__global__ void __launch_bounds__(COARSE_THREADS, 1)
+coarse_counts_kernel(const __grid_constant__ CUtensorMap db_map,  // (n, dim) int8, box 128 x 128
+                     const __grid_constant__ CUtensorMap q_map,   // (Q, dim) int8, box 32 x 128
+                     int32_t* __restrict__ out,                   // (Q, n)
+                     int n, int Q, int dim) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  int32_t* ep = reinterpret_cast<int32_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ep + QTILE * EP_STRIDE);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles = (n + TILE_M - 1) / TILE_M;
+  const int kchunks = (dim + KCHUNK - 1) / KCHUNK;
+  const int q0 = blockIdx.y * QTILE;
+  const int nq = min(QTILE, Q - q0);
+  const int ntiles = (nq + 7) / 8;
+
+  if (warp == CONSUMERS) {  // the producer: one lane issues every load
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int kc = 0; kc < kchunks; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);  // the first pass through the ring finds every stage free
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          uint8_t* dst = ring + stage * STAGE_BYTES;
+          tma_load(dst, &db_map, kc * KCHUNK, tile * TILE_M, &full[stage]);
+          tma_load(dst + A_BYTES, &q_map, kc * KCHUNK, q0, &full[stage]);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ldmatrix x4 addresses: lanes 8i..8i+7 give the rows of matrix i.
+  const int mi = lane >> 3, mr = lane & 7;
+  const int a_row = warp * 16 + mr + (mi & 1) * 8;  // A: matrices (rows 0-7, 8-15) x (K bytes 0-15, 16-31)
+  const int g = lane >> 2, t = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+    for (int kc = 0; kc < kchunks; ++kc) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t a_box = smem_u32(ring + stage * STAGE_BYTES), b_box = a_box + A_BYTES;
+#pragma unroll
+      for (int s = 0; s < KCHUNK / 32; s += 2) {  // two 32-byte K steps
+        uint32_t a0[4], a1[4];
+        ldmatrix_x4(a0, swizzled(a_box, a_row, 2 * s + (mi >> 1)));
+        ldmatrix_x4(a1, swizzled(a_box, a_row, 2 * s + 2 + (mi >> 1)));
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < ntiles) {
+            // B: matrices (K step s, s + 1) x (K bytes 0-15, 16-31) of queries 8j..8j+7
+            uint32_t b[4];
+            ldmatrix_x4(b, swizzled(b_box, j * 8 + mr, 2 * s + mi));
+            mma_s8(acc[j], a0[0], a0[1], a0[2], a0[3], b[0], b[1]);
+            mma_s8(acc[j], a1[0], a1[1], a1[2], a1[3], b[2], b[3]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // Epilogue: the tile through shared memory, then whole rows of each query.
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 32) : "memory");  // the last tile's stores have read ep
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < ntiles) {
-        const uint4 b = qok[j] ? __ldg(reinterpret_cast<const uint4*>(qrow[j] + off)) : zero4;
-        mma_s8(acc[j], a0.x, a1.x, a0.y, a1.y, b.x, b.y);  // bytes 0-7 of each thread's 16
-        mma_s8(acc[j], a0.z, a1.z, a0.w, a1.w, b.z, b.w);  // bytes 8-15
+        int32_t* e0 = ep + (j * 8 + 2 * t) * EP_STRIDE + warp * 16 + g;
+        e0[0] = acc[j][0];
+        e0[EP_STRIDE] = acc[j][1];
+        e0[8] = acc[j][2];
+        e0[EP_STRIDE + 8] = acc[j][3];
       }
     }
-  }
-  if (k < dim) {  // dim % 64 == 32: one 32-byte step, 8 bytes a thread
-    const int off = k + t * 8;
-    const uint2 zero2 = make_uint2(0u, 0u);
-    const uint2 a0 = ok0 ? __ldcs(reinterpret_cast<const uint2*>(row0 + off)) : zero2;
-    const uint2 a1 = ok1 ? __ldcs(reinterpret_cast<const uint2*>(row1 + off)) : zero2;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < ntiles) {
-        const uint2 b = qok[j] ? __ldg(reinterpret_cast<const uint2*>(qrow[j] + off)) : zero2;
-        mma_s8(acc[j], a0.x, a1.x, a0.y, a1.y, b.x, b.y);
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 32) : "memory");
+    const long long m0 = static_cast<long long>(tile) * TILE_M;
+    const bool vec = (n & 3) == 0;
+    for (int k = threadIdx.x; k < nq * (TILE_M / 4); k += CONSUMERS * 32) {
+      const int q = k / (TILE_M / 4), r = (k % (TILE_M / 4)) * 4;
+      const long long row = m0 + r;
+      const int4 v = *reinterpret_cast<const int4*>(ep + q * EP_STRIDE + r);
+      int32_t* o = out + static_cast<long long>(q0 + q) * n + row;
+      if (vec && row + 3 < n) {
+        *reinterpret_cast<int4*>(o) = v;
+      } else {
+        if (row < n) o[0] = v.x;
+        if (row + 1 < n) o[1] = v.y;
+        if (row + 2 < n) o[2] = v.z;
+        if (row + 3 < n) o[3] = v.w;
       }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j < ntiles) {
-      const int qa = q0 + j * 8 + t * 2;  // c0/c2 at query qa, c1/c3 at qa + 1
-      if (ok0 && qa < Q) out[static_cast<long long>(qa) * n + r0] = acc[j][0];
-      if (ok0 && qa + 1 < Q) out[static_cast<long long>(qa + 1) * n + r0] = acc[j][1];
-      if (ok1 && qa < Q) out[static_cast<long long>(qa) * n + r1] = acc[j][2];
-      if (ok1 && qa + 1 < Q) out[static_cast<long long>(qa + 1) * n + r1] = acc[j][3];
     }
   }
 }
@@ -190,21 +313,68 @@ mma_probe_kernel(const int8_t* __restrict__ a,   // (M, PROBE_K) row-major
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no libcuda link).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map of a (rows, dim) int8 matrix, boxes of box_rows x 128 bytes with
+// the 128-byte swizzle; out-of-range elements read as zero.
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int dim, int box_rows) {
+  const cuuint64_t size[2] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(dim)};
+  const cuuint32_t box[2] = {KCHUNK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), size, stride, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared-bucket counts: out (Q, n) int32 = qs (Q, dim) . db (n, dim)^T on
-// `stream` of `device`; dim % 32 == 0, both bases 16-byte aligned (every row
-// then is).  Returns cudaGetLastError() (0 = launched).
-int int8_mma_coarse_counts_launch(const void* db, const void* qs, void* out, int n, int Q, int dim, int device,
-                                  void* stream) {
+// `stream` of `device`, on a (grid_x, grid_y) grid: grid_y = ceil(Q / 32)
+// query groups, 1 <= grid_x <= ceil(n / 128) blocks each walking subject
+// tiles (the wrapper's coarse_grid); dim % 32 == 0 (every row stride a
+// multiple of 16 bytes, as TMA needs), both bases 16-byte aligned.  Returns
+// cudaGetLastError() (0 = launched), or the error that stopped it.
+int int8_mma_coarse_counts_launch(const void* db, const void* qs, void* out, int n, int Q, int dim, int grid_x,
+                                  int grid_y, int device, void* stream) {
+  if (grid_y != (Q + QTILE - 1) / QTILE || grid_x < 1 || grid_x > (n + TILE_M - 1) / TILE_M)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long mtiles = (static_cast<long long>(n) + 15) / 16;
-  const dim3 grid(static_cast<unsigned>((mtiles + WARPS - 1) / WARPS), static_cast<unsigned>((Q + NT * 8 - 1) / (NT * 8)));
-  coarse_counts_kernel<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(db), static_cast<const int8_t*>(qs), static_cast<int32_t*>(out), n, Q, dim);
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap db_map, q_map;
+  if (!tensor_map(encode, &db_map, db, n, dim, TILE_M) || !tensor_map(encode, &q_map, qs, Q, dim, QTILE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<bool> smem_set[MAX_DEVICES];  // setting it twice from two threads is harmless
+  if (device >= MAX_DEVICES || !smem_set[device].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(coarse_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, COARSE_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < MAX_DEVICES) smem_set[device].store(true, std::memory_order_relaxed);
+  }
+  const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(grid_y));
+  coarse_counts_kernel<<<grid, COARSE_THREADS, COARSE_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      db_map, q_map, static_cast<int32_t*>(out), n, Q, dim);
   return static_cast<int>(cudaGetLastError());
 }
 

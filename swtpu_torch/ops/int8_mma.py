@@ -12,7 +12,8 @@
   turns its time into a MAC rate.
 
 For tensors on the card both launch the hand-written CUDA kernels of
-``csrc/int8_mma.cu`` (mma.sync m16n8k32 s8; plain C ABI, built by
+``csrc/int8_mma.cu`` (mma.sync m16n8k32 s8; the coarse pass on a persistent
+grid fed by a ring of TMA loads, laid out by ``coarse_grid``; plain C ABI, built by
 ``_build``); for tensors on the CPU they run their plain versions,
 ``coarse_counts_plain`` and ``mma_probe_plain``.  A CUDA tensor reaches its
 kernel or raises.  Each wrapper counts its launches in ``.launches``.
@@ -21,20 +22,23 @@ kernel or raises.  Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 PROBE_K = 384  # K7's depth, a compile-time constant of the probe kernel
+# Subject rows a tile and queries a block of the coarse kernel (csrc/int8_mma.cu
+# TILE_M, QTILE: its launcher refuses a grid that does not fit them).
+COARSE_ROWS, COARSE_QUERIES = 128, 32
 PROBE_TILE = (16, 32)  # (rows, columns) of a probe warp's output tile
 
 
 def _kernel_lib() -> ctypes.CDLL:
     return _build.load(
         "int8_mma",
-        int8_mma_coarse_counts_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        int8_mma_coarse_counts_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
         int8_mma_probe_warps=[ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
         int8_mma_probe_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
@@ -84,10 +88,22 @@ def _coarse_counts_cuda(sig_qs: torch.Tensor, sig_db: torch.Tensor) -> torch.Ten
     if Q == 0 or n == 0:
         return out
     lib = _kernel_lib()
-    rc = lib.int8_mma_coarse_counts_launch(sig_db.data_ptr(), sig_qs.data_ptr(), out.data_ptr(), n, Q, dim, *_build.where(dev))
+    grid = coarse_grid(n, Q, torch.cuda.get_device_properties(dev).multi_processor_count)
+    rc = lib.int8_mma_coarse_counts_launch(sig_db.data_ptr(), sig_qs.data_ptr(), out.data_ptr(), n, Q, dim, *grid,
+                                           *_build.where(dev))
     _build.check(rc, lib.int8_mma_error_string, "coarse_counts kernel launch")
     coarse_counts.launches += 1
     return out
+
+
+def coarse_grid(n: int, Q: int, sms: int) -> Tuple[int, int]:
+    """(grid_x, grid_y) of the coarse kernel on a card of ``sms`` SMs: one
+    block of 32 queries a query group (grid axis y), and a persistent axis x
+    of one block an SM (the kernel's shared memory allows no more) shared by
+    the groups, at most one a 128-row subject tile; block x walks tiles x,
+    x + grid_x, ..."""
+    tiles, groups = -(-n // COARSE_ROWS), -(-Q // COARSE_QUERIES)
+    return max(1, min(tiles, sms // groups)), groups
 
 
 def coarse_counts_plain(sig_qs: torch.Tensor, sig_db: torch.Tensor, rows: int = 1 << 16) -> torch.Tensor:

@@ -26,7 +26,12 @@ returns that same tensor.
 ``sw_wave`` launches the hand-written CUDA kernel (``csrc/sw_wave.cu``) for
 tensors on the card and runs ``sw_wave_plain`` for tensors on the CPU.  It
 never swaps one for the other: a CUDA tensor either reaches the kernel or
-raises.
+raises.  The kernel scores a launch's bands in passes of G bands of H rows
+(``wave_shape`` picks (G, H) per launch, ``n_passes`` counts the passes): a
+warp wavefront with the band-to-band carry in registers, or, on a bucket of
+many (lane, segment) pairs and for a single band, a sweep of one band at a
+time (G = 1).  Only a pass boundary or a hand-off goes through the carry in
+device memory.
 """
 
 from __future__ import annotations
@@ -217,20 +222,55 @@ sw_wave.carry_launches = 0  # of those, launches with top_in or return_carry
 def _kernel_lib() -> ctypes.CDLL:
     return _build.load(
         "sw_wave",
-        sw_wave_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-        sw_wave_affine_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+        sw_wave_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+        sw_wave_affine_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
     )
+
+
+# (G, H) shapes of the kernel (csrc/sw_wave.cu SW_WAVE_SHAPES): G bands a
+# pass, H query rows a band; G = 1 is the band sweep, a thread per (lane,
+# segment) and every band a pass.
+SHAPES = ((16, 32), (8, 32), (4, 32), (2, 32), (1, 32), (1, 64))
+# From this many (lane, segment) pairs a launch takes the band sweep: the
+# midpoint of the interval, 12,288 to 17,408 pairs, in which the two
+# schedules crossed on P01008's fused linear buckets on an H100 (wave_ab.py
+# --buckets; PERF.md gives every bucket); the band sweep's H, (linear, affine).
+BAND_THREADS = 14_848
+BAND_H = (64, 32)
+
+
+def wave_shape(n_bands: int, lanes: int, n_segs: int, affine: bool = False,
+               band_threads: int = BAND_THREADS) -> Tuple[int, int]:
+    """(G, H) of a launch of ``n_bands`` 32-row bands on a bucket of
+    ``lanes`` lanes of ``n_segs`` segments: the band sweep (G = 1) on a
+    bucket of ``band_threads`` (lane, segment) pairs or more, else the warp
+    wavefront with the fewest power-of-two G >= n_bands (at most 16) bands
+    of 32 rows a pass, the band sweep for a single band."""
+    if lanes * n_segs >= band_threads:
+        return 1, BAND_H[affine]
+    g = min(16, 1 << max(n_bands - 1, 0).bit_length())
+    return g, W
+
+
+def n_passes(n_bands: int, g: int, h: int) -> int:
+    """Passes of the kernel over a launch's ``n_bands`` 32-row bands: G
+    bands of H rows a pass, the last pass what remains (under H = 64 an odd
+    band count ends in a 32-row tail band: csrc/sw_wave.cu)."""
+    if n_bands < 1 or h % W or g < 1:
+        raise ValueError(f"n_bands={n_bands} must be >= 1, h={h} a multiple of {W}, g={g} >= 1")
+    return -(-n_bands * W // (g * h))
 
 
 def carry_bytes(
     n_bands: int, n_segs: int, seg_cols: int, lanes: int, affine: bool = False, hand_off: bool = False
 ) -> int:
     """Device bytes of one query's band carry in a launch: the bottom H row
-    of each band, one int32 per column and lane, and in affine mode the
-    bottom F row beside it.  A single band needs none unless it hands the
-    carry on (``hand_off``: top_in or return_carry)."""
+    of a pass, one int32 per column and lane, and in affine mode the bottom
+    F row beside it.  A launch whose bands fit in one pass needs none
+    unless it hands the carry on (``hand_off``: top_in or return_carry)."""
     planes = 2 if affine else 1
-    return 4 * planes * n_segs * seg_cols * lanes if n_bands > 1 or hand_off else 0
+    passes = n_passes(n_bands, *wave_shape(n_bands, lanes, n_segs, affine))
+    return 4 * planes * n_segs * seg_cols * lanes if passes > 1 or hand_off else 0
 
 
 def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry):
@@ -255,11 +295,11 @@ def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_c
         return (scores, carry) if return_carry else scores
     args = (prof3.data_ptr(), subjT.data_ptr(), carry.data_ptr(), out.data_ptr(), n_q, n_bands, B, n_segs, seg_cols)
     # A hand-off always writes the last band's bottom: top_in then holds the new carry.
-    flags = (int(top_in is not None), int(hand_off))
+    tail = (int(top_in is not None), int(hand_off), *wave_shape(n_bands, B, n_segs, affine))
     if affine:
-        rc = lib.sw_wave_affine_launch(*args, gaps[0], gaps[1], *flags, *_build.where(dev))
+        rc = lib.sw_wave_affine_launch(*args, gaps[0], gaps[1], *tail, *_build.where(dev))
     else:
-        rc = lib.sw_wave_launch(*args, gaps[0], *flags, *_build.where(dev))
+        rc = lib.sw_wave_launch(*args, gaps[0], *tail, *_build.where(dev))
     _build.check(rc, lib.sw_wave_error_string, "sw_wave kernel launch")
     sw_wave.launches += 1
     sw_wave.multi_launches += int(multi)

@@ -166,7 +166,9 @@ def test_sw_wave_rejects_bad_gap_arguments(kw, match):
 
 
 def test_carry_bytes_counts_both_planes():
-    assert wave_sw.carry_bytes(3, 2, 100, 128, affine=True) == 2 * wave_sw.carry_bytes(3, 2, 100, 128) == 8 * 200 * 128
+    # bands past one pass of either shape: the launch carries a pass boundary
+    n = 17  # two passes of 16 bands, or 17 band sweeps
+    assert wave_sw.carry_bytes(n, 2, 100, 128, affine=True) == 2 * wave_sw.carry_bytes(n, 2, 100, 128) == 8 * 200 * 128
     assert wave_sw.carry_bytes(1, 2, 100, 128, affine=True) == 0
 
 
@@ -348,6 +350,8 @@ def test_every_launch_gets_the_affine_gaps(workload, monkeypatch, gaps):
 
 def test_affine_piece_split_counts_both_carry_planes(workload, port_single, monkeypatch):
     (queries, db), _ = workload
+    # One band a pass, so the 3-band piece crosses pass boundaries and needs a carry.
+    monkeypatch.setattr(wave_sw, "wave_shape", lambda n_bands, lanes, n_segs, affine=False: (1, wave_sw.W))
     groups = SearchEngine(SWConfig(), device="cpu").pack_to_device(db).wave_groups
     n_bands = 96 // wave_sw.W  # queries[3] (70 residues) pads to 96 rows
     widest = max(wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, g.lanes) for g in groups)

@@ -251,7 +251,8 @@ def test_carry_bytes_and_virgin_carry():
     assert wave_sw.carry_bytes(1, 2, 48, 8) == 0  # one band, nothing handed on
     assert wave_sw.carry_bytes(1, 2, 48, 8, hand_off=True) == 4 * 96 * 8
     assert wave_sw.carry_bytes(1, 2, 48, 8, affine=True, hand_off=True) == 8 * 96 * 8
-    assert wave_sw.carry_bytes(3, 2, 48, 8) == 4 * 96 * 8
+    assert wave_sw.carry_bytes(3, 2, 48, 8) == 0  # three bands, one pass: the carry stays on chip
+    assert wave_sw.carry_bytes(17, 2, 48, 8) == 4 * 96 * 8  # a pass boundary: G is at most 16
     stack = torch.zeros(96 + W, 8, dtype=torch.int8)
     lin, aff = wave_sw.virgin_carry(stack), wave_sw.virgin_carry(stack, affine=True)
     assert lin.shape == (96, 8) and lin.dtype == torch.int32 and not lin.any()

@@ -1,7 +1,8 @@
 """CUDA kernel and engine on the card (marker ``gpu``).
 
 These tests need an NVIDIA GPU with nvcc; elsewhere the ``cuda`` fixture
-skips them.  The wavefront kernel (one query and a query axis) is held
+skips them.  The wavefront kernel (one query and a query axis, every
+compiled (G, H) shape: the warp wavefront and the band sweep) is held
 exactly to its plain PyTorch version on the same card, linear and affine,
 and the engine's single, batched, queued, streaming and top-K paths to the
 committed goldens; align_top_k on the card gives the alignments it gives on
@@ -55,7 +56,8 @@ def _bucket(rng, qlen, ws, S, B):
 
 @pytest.mark.parametrize(
     "qlen,ws,S,B",
-    [(20, 32, 1, 64), (100, 200, 1, 130), (33, 48, 2, 77), (464, 96, 3, 1000), (64, 40, 8, 129), (300, 4100, 1, 65)],
+    [(20, 32, 1, 64), (100, 200, 1, 130), (33, 48, 2, 77), (464, 96, 3, 1000), (64, 40, 8, 129), (300, 4100, 1, 65),
+     (4548, 96, 1, 300), (300, 6, 8, 129), (464, 40, 8, 2600)],
 )
 def test_kernel_matches_plain(cuda, qlen, ws, S, B):
     prof, stack = _bucket(np.random.default_rng(qlen + S), qlen, ws, S, B)
@@ -66,6 +68,27 @@ def test_kernel_matches_plain(cuda, qlen, ws, S, B):
     assert wave_sw.sw_wave.launches == before + 1
     want = wave_sw.sw_wave_plain(prof, stack, gap=2, n_segs=S)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", wave_sw.SHAPES, ids=[f"G{g}H{h}" for g, h in wave_sw.SHAPES])
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+def test_every_kernel_shape_matches_plain(cuda, monkeypatch, shape, gaps):
+    """Every compiled (G, H), whatever the wrapper would pick: 15 bands on
+    chained segments, fused and as a hand-off chain (8, 4, 2, 1)."""
+    monkeypatch.setattr(wave_sw, "wave_shape", lambda n_bands, lanes, n_segs, affine=False: shape)
+    rng = np.random.default_rng(sum(shape))
+    prof, stack = _bucket(rng, 470, 40, 3, 99)
+    prof, stack = prof.to(cuda), stack.to(cuda)
+    kw = dict(n_segs=3, gap=2) if gaps is None else dict(n_segs=3, gap_open=gaps[0], gap_extend=gaps[1])
+    assert torch.equal(wave_sw.sw_wave(prof, stack, **kw), wave_sw.sw_wave_plain(prof, stack, **kw))
+    carry = wave_sw.virgin_carry(stack, gaps is not None)
+    plain_carry, band = carry.clone(), 0
+    for rung in SearchEngine._compose_groups(prof.shape[0] // 32):
+        part = prof[band * 32 : (band + rung) * 32]
+        band += rung
+        scores, carry = wave_sw.sw_wave(part, stack, carry, return_carry=True, **kw)
+        want, plain_carry = wave_sw.sw_wave_plain(part, stack, plain_carry, return_carry=True, **kw)
+        assert torch.equal(scores, want) and torch.equal(carry, plain_carry)
 
 
 @pytest.mark.parametrize("query", ["P02232", "P01008", "P05013"])
@@ -86,7 +109,8 @@ def test_engine_sat_golden_on_card(cuda):
 
 @pytest.mark.parametrize(
     "qlens,ws,S,B",
-    [((20, 31), 32, 1, 64), ((100, 90, 70, 65, 96), 96, 3, 131), (tuple(range(449, 465)), 40, 8, 129)],
+    [((20, 31), 32, 1, 64), ((100, 90, 70, 65, 96), 96, 3, 131), (tuple(range(449, 465)), 40, 8, 129),
+     ((4548, 4500, 4400), 64, 1, 200)],
 )
 def test_multi_query_kernel_matches_plain(cuda, qlens, ws, S, B):
     rng = np.random.default_rng(sum(qlens))
@@ -133,6 +157,8 @@ def test_serving_paths_subset_goldens_on_card(cuda):
         ((300,), 4100, 1, 65, (5, 5)),
         ((100, 90, 70, 65, 96), 96, 3, 131, (10, 2)),
         (tuple(range(449, 465)), 40, 8, 129, (10, 1)),
+        ((4548,), 96, 1, 300, (10, 2)),
+        ((464,), 40, 8, 2600, (10, 2)),
     ],
 )
 def test_affine_kernel_matches_plain(cuda, qlens, ws, S, B, gaps):
@@ -220,7 +246,9 @@ def test_pallas_engine_subset_goldens_on_card(cuda, resident):
 
 
 @pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
-@pytest.mark.parametrize("qlen,ws,S,B", [(20, 32, 1, 64), (470, 96, 3, 1000), (1000, 40, 8, 129), (300, 4100, 1, 65)])
+@pytest.mark.parametrize(
+    "qlen,ws,S,B", [(20, 32, 1, 64), (470, 96, 3, 1000), (1000, 40, 8, 129), (300, 4100, 1, 65), (470, 40, 8, 2600)]
+)
 def test_hand_off_kernel_matches_plain_rung_by_rung(cuda, gaps, qlen, ws, S, B):
     rng = np.random.default_rng(qlen + S)
     _, stack = _bucket(rng, 1, ws, S, B)

@@ -147,6 +147,9 @@ def test_search_many_splits_a_piece_whose_carry_exceeds_the_budget(workload, por
     spy.launches = spy.multi_launches = 0
     monkeypatch.setattr(wave_sw, "sw_wave", spy)
     monkeypatch.setattr(tsearch, "scratch_budget_bytes", lambda device: 1)  # one query per launch
+    # One band a pass, so a 4-band piece crosses pass boundaries and needs a carry a query
+    # (the kernel's own shapes take 4 bands in one pass, with no carry).
+    monkeypatch.setattr(wave_sw, "wave_shape", lambda n_bands, lanes, n_segs, affine=False: (1, wave_sw.W))
     many = SearchEngine(SWConfig(), device="cpu").search_many([queries[5]] * 3, db)  # 4 bands: a carry
     for res in many:
         assert np.array_equal(res.scores, port_single[5].scores)

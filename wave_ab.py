@@ -1,32 +1,83 @@
-"""A/B timing of versions of swtpu_torch/csrc/sw_wave.cu on one card.
+"""A/B timing of versions of swtpu_torch/csrc/sw_wave.cu (and of int8_mma.cu's coarse pass) on one card.
 
-Run from the repository root on a machine with one NVIDIA GPU and nvcc:
+Run from the repository root on a machine with one NVIDIA GPU and nvcc,
+with a parent commit's sources in the gitignored build directory:
 
-    python3 wave_ab.py parent=old.cu:0 new=swtpu_torch/csrc/sw_wave.cu:1
+    git show 4969e45:swtpu_torch/csrc/sw_wave.cu > swtpu_torch/build/parent_sw_wave.cu
+    git show 4969e45:swtpu_torch/csrc/int8_mma.cu > swtpu_torch/build/parent_int8_mma.cu
+    python3 wave_ab.py --batch parent=swtpu_torch/build/parent_sw_wave.cu:2 new=swtpu_torch/csrc/sw_wave.cu:2:auto \\
+        coarse:parent=swtpu_torch/build/parent_int8_mma.cu coarse:new=swtpu_torch/csrc/int8_mma.cu:grid
+    python3 wave_ab.py --batch --buckets band=swtpu_torch/csrc/sw_wave.cu:2:0 \\
+        wave=swtpu_torch/csrc/sw_wave.cu:2:1000000000
 
-Each argument is NAME=PATH:FLAGS, FLAGS being the number of int flags the
-version's C entry points take between the gaps and the device (0 before the
-band-carry hand-off, 1 since).  Every version is compiled with the
-package's nvcc flags and timed in turns (versions in order, then in reverse)
-on P01008's launches against the SwissProt-shaped database of chip_smoke.py:
-the 27 fused launches, linear (gap 2) and affine (10, 2), and, for versions
-with a hand-off flag, the 108 launches of a composed search (rungs 8, 4, 2,
-1).  Prints each version's registers and milliseconds a search (CUDA events,
-five searches after one to warm).  Versions are compared within one run only.
+Each argument is NAME=PATH:FLAGS[:SHAPE].  FLAGS is the number of int
+flags the version's C entry points take between the gaps and the device (0
+before the band-carry hand-off, 2 since: has_top_in and put_last).  SHAPE,
+for versions whose entry points take (G, H) after the flags (the band-
+parallel wavefront), is "auto" (``wave_sw.wave_shape`` per launch, as the
+package launches it) or a number N: ``wave_shape`` with the band sweep from
+N (lane, segment) pairs instead of ``wave_sw.BAND_THREADS`` (0: the band
+sweep on every bucket; a number above every bucket's pairs: the wavefront
+on every launch of more than one band).  With --buckets each mode also
+prints every bucket's time under every version, beside its (lane, segment)
+pairs: where the band sweep and the wavefront cross.
+
+Every version is compiled with the package's nvcc flags and timed in turns
+(versions in order, then in reverse) on P01008's launches against the
+SwissProt-shaped database of chip_smoke.py: the 27 fused launches, linear
+(gap 2) and affine (10, 2); for versions with a hand-off flag the 108
+launches of a composed search (rungs 8, 4, 2, 1), linear and affine; and
+with ``--batch`` the 17-query Performance suite's batch as chip_smoke.py's
+serving phase launches it (351 multi-query launches, 13 pieces x 27
+buckets, linear).  Prints each version's registers and, for each mode,
+milliseconds a run (CUDA events around the run) and the narrow, mid and
+full sums of per-launch events (swtpu_torch/tools/buckets.py's groups),
+and checks that every version's scores equal the first version's.
+Versions are compared within one run only.  With --json=PATH the table,
+per-bucket times included, also goes to PATH.
+
+Arguments coarse:NAME=PATH[:grid] name versions of
+swtpu_torch/csrc/int8_mma.cu instead (":grid" for entry points that take
+their grid, ``int8_mma.coarse_grid``, before the device): each one's
+coarse_counts entry point is timed in turns on a 559,228 x 1024 int8
+signature matrix (the prefilter's at SwissProt scale, seeded 0/1 entries)
+at Q = 1 and Q = 17, beside the package's own wrapper
+``int8_mma.coarse_counts`` and torch._int_mm on the same product, each
+with the host microseconds a call takes to return, and its counts checked
+against the first version's.
 """
 
 import ctypes
+import json
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+SUITE = ("P02232", "P05013", "P14942", "P07327", "P01008", "P42357", "P03435", "P21177", "Q38941",
+         "P27895", "P07756", "P19096", "P28167", "P0C6B8", "P20930", "Q7TMA5", "P08519")
+REPS = {"fused": 5, "composed": 3, "batch": 1}
+
+
+def parse(arg):
+    """(name, path, n_flags, shape): shape None (no shape ints), "auto", or
+    the band-sweep threshold in (lane, segment) pairs, an int."""
+    name, spec = arg.split("=", 1)
+    parts = spec.split(":")
+    path, flags = Path(parts[0]), int(parts[1])
+    shape = parts[2] if len(parts) > 2 else None
+    return name, path, flags, shape if shape in (None, "auto") else int(shape)
 
 
 def main(argv) -> int:
     import torch
 
-    if not torch.cuda.is_available() or not argv:
+    batch, by_bucket = "--batch" in argv, "--buckets" in argv
+    json_path = next((a.split("=", 1)[1] for a in argv if a.startswith("--json=")), None)
+    coarse = dict(a[len("coarse:"):].split("=", 1) for a in argv if a.startswith("coarse:"))
+    argv = [a for a in argv if a not in ("--batch", "--buckets") and not a.startswith(("coarse:", "--json="))]
+    if not torch.cuda.is_available() or not (argv or coarse):
         print(__doc__, file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -34,81 +85,225 @@ def main(argv) -> int:
     from swtpu_torch.config import SWConfig
     from swtpu_torch.io.fasta import parse_query
     from swtpu_torch.models.search import SearchEngine
-    from swtpu_torch.ops import _build
+    from swtpu_torch.ops import _build, wave_sw
+    from swtpu_torch.tools.buckets import GROUPS, group_of
 
     out_dir = _build.BUILD / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    versions = {}
-    for arg in argv:
-        name, spec = arg.split("=", 1)
-        path, flags = spec.rsplit(":", 1)
-        versions[name] = (Path(path), int(flags))
-    procs = {name: subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(path)],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name, (path, _) in versions.items()}
+    versions = {name: (path, flags, shape) for name, path, flags, shape in map(parse, argv)}
+    procs = {}
+    for name, spec in coarse.items():
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"libcoarse_{name}.so"), spec.split(":")[0]]
+        procs["coarse:" + name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, (path, _, shape) in versions.items():
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), str(path)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {versions[name][0]}:\n{log}")
-        print(name, "registers", [int(w.split()[0]) for w in log.split("Used ")[1:]], flush=True)
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        if name.startswith("coarse:"):
+            continue
+        print(name, "registers", [int(w.split()[0]) for w in log.split("Used ")[1:]], "spill bytes",
+              sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)), flush=True)
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        n_flags = versions[name][1]
-        lib.sw_wave_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (7 + n_flags) + [ctypes.c_void_p]
-        lib.sw_wave_affine_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (8 + n_flags) + [ctypes.c_void_p]
+        n_ints = versions[name][1] + (2 if versions[name][2] is not None else 0)
+        lib.sw_wave_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (7 + n_ints) + [ctypes.c_void_p]
+        lib.sw_wave_affine_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (8 + n_ints) + [ctypes.c_void_p]
         libs[name] = lib
 
+    table = {}
+    if coarse:
+        table.update(coarse_ab(coarse, out_dir))
+    if not versions:
+        return finish(table, [], {}, json_path)
     db = synth.synth_database(559_228, seed=0)
     engine = SearchEngine(SWConfig(), device="cuda")
     groups = engine._resident_packed(db).wave_groups
-    profile = engine._profile(parse_query(ROOT / "tests" / "data" / "queries" / "P01008.fasta"))
+    kinds = [group_of(g) for g in groups]
+    qdir = ROOT / "tests" / "data" / "queries"
+    profile = engine._profile(parse_query(qdir / "P01008.fasta"))
     n_bands = profile.shape[0] // 32
     where = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
-    # A carry and an output a bucket, sized for the affine mode's two planes.
-    bufs = [(torch.zeros(2 * (g.stack.shape[0] - 32) * g.lanes, dtype=torch.int32, device="cuda"),
-             torch.empty(g.lanes * g.n_segs, dtype=torch.int32, device="cuda")) for g in groups]
+    pieces = []
+    if batch:
+        queries = [parse_query(qdir / f"{q}.fasta") for q in SUITE]
+        pieces = [engine._piece_profiles(queries, qpad, p) for qpad, p in engine._query_pieces(queries)]
+    max_q = max([1] + [p.shape[0] for p in pieces])
+    # A carry a bucket, sized for the affine mode's two planes or the batch's largest piece.
+    carries = [torch.zeros(max(2, max_q) * (g.stack.shape[0] - 32) * g.lanes, dtype=torch.int32, device="cuda")
+               for g in groups]
+    outs = {name: [torch.zeros(max_q * g.lanes * g.n_segs, dtype=torch.int32, device="cuda") for g in groups]
+            for name in versions}
 
-    def launches(name, affine, hand_off):
+    def shape_of(name, nb, g, affine):
+        shape = versions[name][2]
+        if shape is None:
+            return ()
+        if shape == "auto":
+            return wave_sw.wave_shape(nb, g.lanes, g.n_segs, affine)
+        return wave_sw.wave_shape(nb, g.lanes, g.n_segs, affine, band_threads=shape)
+
+    def launches(name, mode, affine):
+        """[(bucket index, launch thunk)] of one run of a mode."""
         lib, n_flags = libs[name], versions[name][1]
-        rungs = SearchEngine._compose_groups(n_bands) if hand_off else (n_bands,)
-        flags = (int(hand_off),) * n_flags
-        band = 0
-        for rung in rungs:
-            part = profile[band * 32 :].data_ptr()
-            band += rung
-            for g, (carry, out) in zip(groups, bufs):
-                args = (part, g.stack.data_ptr(), carry.data_ptr(), out.data_ptr(), 1, rung, g.lanes, g.n_segs, g.seg_cols)
-                rc = (lib.sw_wave_affine_launch(*args, 10, 2, *flags, *where) if affine
-                      else lib.sw_wave_launch(*args, 2, *flags, *where))
+        calls = []
+        if mode == "batch":
+            for prof in pieces:
+                for k, g in enumerate(groups):
+                    calls.append((k, prof, prof.shape[0], prof.shape[1] // 32, g, (0,) * n_flags))
+        else:
+            hand_off = mode == "composed"
+            rungs = SearchEngine._compose_groups(n_bands) if hand_off else (n_bands,)
+            band = 0
+            for rung in rungs:
+                part = profile[band * 32 :]
+                for k, g in enumerate(groups):
+                    calls.append((k, part, 1, rung, g, ((int(band > 0), 1) if hand_off else (0, 0))[:n_flags]))
+                band += rung
+        out = []
+        for k, prof, n_q, nb, g, flags in calls:
+            args = (prof.data_ptr(), g.stack.data_ptr(), carries[k].data_ptr(), outs[name][k].data_ptr(), n_q, nb,
+                    g.lanes, g.n_segs, g.seg_cols)
+            tail = (*flags, *shape_of(name, nb, g, affine), *where)
+
+            def call(args=args, tail=tail):
+                rc = (lib.sw_wave_affine_launch(*args, 10, 2, *tail) if affine else lib.sw_wave_launch(*args, 2, *tail))
                 if rc:
                     raise RuntimeError(f"{name}: launch failed ({rc})")
+            out.append((k, call))
+        return out
 
-    def ms(fn, reps=5):
-        fn()
+    def run(calls):
+        """(ms of the run, {group: ms of its launches})."""
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in calls]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        for (k, call), (a, b) in zip(calls, ev):
+            a.record()
+            call()
+            b.record()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / reps
+        sums = dict.fromkeys(GROUPS, 0.0)
+        per_bucket = [0.0] * len(groups)
+        for (k, _), (a, b) in zip(calls, ev):
+            sums[kinds[k]] += a.elapsed_time(b)
+            per_bucket[k] += a.elapsed_time(b)
+        return start.elapsed_time(end), sums, per_bucket
 
+    modes = [("fused", False), ("fused", True), ("composed", False), ("composed", True)]
+    if batch:
+        modes.append(("batch", False))
     order = list(versions) + list(reversed(versions))
-    times = {}
-    for affine in (False, True):
-        gaps = "affine 10/2" if affine else "linear 2"
-        for hand_off in (False, True):
-            for name in order:
-                if hand_off and not versions[name][1]:
-                    continue
-                key = f"{'composed (108 hand-off launches)' if hand_off else 'fused (27 launches)'} {gaps} {name}"
-                times.setdefault(key, []).append(ms(lambda: launches(name, affine, hand_off)))
-    for key, values in times.items():
-        print(key, "ms:", [round(v, 3) for v in values], flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip())
+    first = next(iter(versions))
+    for mode, affine in modes:
+        names = [n for n in versions if mode != "composed" or versions[n][1] >= 2]
+        key = f"{mode} {'affine 10/2' if affine else 'linear 2'}"
+        calls = {name: launches(name, mode, affine) for name in names}
+        scores = {}
+        for name in [n for n in order if n in names]:
+            if mode == "composed":
+                for c in carries:
+                    c.zero_()
+                    if affine:  # (H, F) slots of a virgin carry: H = 0, F = NEG
+                        c.view(-1, 2)[:, 1] = wave_sw.NEG
+            for k, call in calls[name]:  # warm, and the scores this version gives
+                call()
+            torch.cuda.synchronize()
+            scores[name] = [o.clone() for o in outs[name]]
+            for _ in range(REPS[mode]):
+                ms, sums, per_bucket = run(calls[name])
+                table.setdefault(key, {}).setdefault(name, []).append({"ms": ms, **sums, "buckets": per_bucket})
+        for name in names:
+            if name != first:
+                if not all(torch.equal(a, b) for a, b in zip(scores[name], scores[first])):
+                    raise AssertionError(f"{key}: {name}'s scores differ from {first}'s")
+        for name, runs in table[key].items():
+            mean = {f: sum(r[f] for r in runs) / len(runs) for f in ("ms", *GROUPS)}
+            print(key, name, "ms:", round(mean["ms"], 3), "narrow/mid/full:",
+                  [round(mean[gr], 3) for gr in GROUPS], "runs:", [round(r["ms"], 3) for r in runs], flush=True)
+        if by_bucket:
+            for k in sorted(range(len(groups)), key=lambda k: groups[k].lanes * groups[k].n_segs):
+                g = groups[k]
+                ms = {name: sum(r["buckets"][k] for r in runs) / len(runs) for name, runs in table[key].items()}
+                print(key, f"bucket {k} {g.width}x{g.n_segs} lanes {g.lanes} pairs {g.lanes * g.n_segs} {kinds[k]}:",
+                      " ".join(f"{name} {v:.4f}" for name, v in ms.items()), flush=True)
+    buckets = [dict(width=g.width, n_segs=g.n_segs, lanes=g.lanes, group=kind) for g, kind in zip(groups, kinds)]
+    return finish(table, buckets, versions, json_path)
+
+
+def finish(table, buckets, versions, json_path) -> int:
+    from swtpu_torch.tools.roofline import card
+
+    smi = card()
+    print(smi)
+    if json_path:
+        Path(json_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(json_path).write_text(json.dumps({"card": smi, "buckets": buckets, "table": table,
+                                               "versions": {n: [str(p), f, str(s)] for n, (p, f, s) in versions.items()}}))
     return 0
+
+
+def coarse_ab(coarse, out_dir):
+    """{mode: {name: [ms, ...]}} of each int8_mma.cu version's coarse kernel,
+    the package's wrapper and torch._int_mm, in turns, at Q = 1 and 17, and
+    {mode host: {name: [host microseconds a call, ...]}}."""
+    import time
+
+    import torch
+
+    from swtpu_torch.ops import int8_mma
+
+    libs, grids = {}, {}
+    for name, spec in coarse.items():
+        lib = ctypes.CDLL(str(out_dir / f"libcoarse_{name}.so"))
+        grids[name] = spec.endswith(":grid")
+        n_ints = 6 if grids[name] else 4
+        lib.int8_mma_coarse_counts_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        libs[name] = lib
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n, dim = 559_228, 1024
+    sig = (torch.rand(n, dim, device="cuda", generator=gen) < 0.1).to(torch.int8)
+    where = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    table = {}
+    for n_q in (1, 17):
+        qs = (torch.rand(n_q, dim, device="cuda", generator=gen) < 0.1).to(torch.int8)
+        padded = torch.zeros(-(-n_q // 8) * 8, dim, dtype=torch.int8, device="cuda")
+        padded[:n_q] = qs
+        outs = {name: torch.empty(n_q, n, dtype=torch.int32, device="cuda") for name in coarse}
+        grid = int8_mma.coarse_grid(n, n_q, torch.cuda.get_device_properties(0).multi_processor_count)
+        calls = {name: (lambda lib=lib, o=outs[name], g=grid if grids[name] else (): lib.int8_mma_coarse_counts_launch(
+            sig.data_ptr(), qs.data_ptr(), o.data_ptr(), n, n_q, dim, *g, *where)) for name, lib in libs.items()}
+        calls["wrapper"] = lambda: int8_mma.coarse_counts(qs, sig)
+        calls["torch._int_mm"] = lambda: torch._int_mm(sig, padded.t())
+        key = f"coarse Q={n_q}"
+        for name in list(calls) + list(reversed(calls)):
+            want = calls[name]()  # warm
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                rc = calls[name]()
+                if isinstance(rc, int) and rc:
+                    raise RuntimeError(f"{name}: coarse launch failed ({rc})")
+            host_us = (time.perf_counter() - t0) / 20 * 1e6
+            end.record()
+            end.synchronize()
+            table.setdefault(key, {}).setdefault(name, []).append(start.elapsed_time(end) / 20)
+            table.setdefault(key + " host", {}).setdefault(name, []).append(host_us)
+            if name == "wrapper":
+                outs["wrapper"] = want
+        first = next(iter(coarse))
+        for name in [*coarse, "wrapper"]:
+            if not torch.equal(outs[name], outs[first]):
+                raise AssertionError(f"{key}: {name}'s counts differ from {first}'s")
+        for name, runs in table[key].items():
+            print(key, name, "ms:", [round(v, 4) for v in runs], "host us a call:",
+                  [round(v, 1) for v in table[key + " host"][name]], flush=True)
+    return table
 
 
 if __name__ == "__main__":
