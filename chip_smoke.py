@@ -20,8 +20,9 @@ Phases (one line each; any failure exits non-zero with no result line):
               and (5, 5) bit-equal to the linear kernel at gap 5; then the
               row kernels K2 (a whole (C, B, L) stack a launch) and K3 (one
               bucket) and K2's fast16 clamp against their plain versions
-              (query lengths 1 to 4,548, widths 8 to 6,000, C = 1, 3, 17,
-              gaps 1, 2, 11, a self-alignment above 32,767): exact equality;
+              (query lengths 1 to 4,548, widths 8 to 6,000, C = 1, 2, 3, 17,
+              gaps 1, 2, 11, a self-alignment above 32,767), each at the
+              wrapper's shape and K2 at every compiled (G, H): exact equality;
               then the band-carry hand-off mode on the first case list,
               linear and affine, as a chain of power-of-two band groups from
               a zero and from a seeded carry: the carry after every group
@@ -184,10 +185,13 @@ MULTI_CASES = (
     (300, 2208, 3, 129, 5), (1000, 160, 8, 33, 2), (64, 4100, 1, 99, 16), (4548, 64, 1, 200, 3),
 )
 # Row kernel phase cases: (query length, chunks C, rows B, width L, gap); the
-# last plants the query in a row: its self-alignment passes 32,767.
+# 4,548-residue cases cross eight pass boundaries of the 16-band wavefront,
+# the 1,000-residue one one, at odd widths; the last plants the query in a
+# row: its self-alignment passes 32,767.
 ROW_CASES = (
     (1, 1, 1, 8, 2), (20, 3, 77, 40, 1), (33, 17, 129, 128, 2), (100, 3, 333, 256, 11),
-    (464, 17, 257, 640, 2), (1000, 3, 65, 2048, 1), (300, 1, 31, 4100, 2), (4548, 3, 9, 6000, 2),
+    (464, 17, 257, 640, 2), (1000, 3, 65, 2048, 1), (300, 1, 31, 4100, 2), (1000, 2, 45, 77, 2),
+    (4548, 2, 19, 13, 2), (4548, 3, 9, 6000, 2),
 )
 # kernel.rows_lab's cases: ROW_CASES (their gap replaced by 2 and by ROWS_LAB_WIDE_GAP) and widths 1 and 31
 ROWS_LAB_CASES = ROW_CASES + ((40, 2, 19, 1, 2), (70, 3, 100, 31, 2))
@@ -244,7 +248,7 @@ def phase_build():
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     out = {}
 
-    def label(mangled):  # K1's shapes; sw_rows.cu's K2 and K3; K7; the labs; K9 (and K8)
+    def label(mangled):  # K1's shapes; sw_rows.cu's K2/K3 shapes; K7; the labs; K9 (and K8)
         lab = re.search(r"sw_wave_lab_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", mangled)
         if lab:
             h, blk, d, skip = lab.groups()
@@ -258,10 +262,10 @@ def phase_build():
         if i16:
             kind, typ, op = i16.groups()
             return f"K9 i16_{kind}_kernel {typ}" + (f" {I16_CHAIN_OPS[int(op)]}" if op else "")
-        if "sw_rows_fused_kernel" in mangled:
-            return "K2 sw_rows_fused_kernel"
-        if "sw_rows_kernel" in mangled:
-            return "K3 sw_rows_kernel"
+        rows = re.search(r"sw_rows_kernelILi(\d+)ELi(\d+)E", mangled)  # K2 and K3: sw_rows_kernel<G, H>
+        if rows:
+            g, h = rows.groups()
+            return f"K2/K3 sw_rows_kernel G{g} H{h} " + ("band sweep" if g == "1" else "wavefront")
         for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7")):
             if kernel in mangled:
                 return f"{tag} {kernel}"
@@ -425,7 +429,8 @@ def phase_kernel_affine():
 def phase_kernel_rows():
     """K2 and K3 against their plain versions (row_sw) on seeded random
     stacks: K2 on the whole (C, B, L) stack in one launch, K3 on every
-    chunk, and K2's fast16 clamp on the first chunk."""
+    chunk, and K2's fast16 clamp on the first chunk, each at the shape the
+    wrapper picks; then K2 on the stack at every compiled (G, H) shape."""
     import numpy as np
     import torch
 
@@ -446,7 +451,7 @@ def phase_kernel_rows():
             for b in range(B):
                 n = int(rng.integers(1, L + 1))
                 stack[c, b, :n] = rng.integers(0, 25, n)
-        if qlen > 4000:
+        if qlen > 4000 and L >= qlen:
             stack[C // 2, 0, :qlen] = q
         prof = torch.from_numpy(make_profile(q, blosum50_ref(), pad_rows_to=32)).cuda()
         stack = torch.from_numpy(stack).cuda()
@@ -458,12 +463,21 @@ def phase_kernel_rows():
         sat = row_sw.fast16_sat(gap, L)
         clamp = bucket_sw.sw_score_bucket_fast16(prof, stack[0], gap=gap, sat=sat)
         clamp_want = row_sw.sw_score_bucket_fast16(prof, stack[0], gap=gap, strip=32, sat=sat, stage_int8=True)
+        shaped = []
+        rule = bucket_sw.rows_shape
+        try:  # the wrapper launches the shape rows_shape gives: every compiled one in turn
+            for shape in bucket_sw.SHAPES:
+                bucket_sw.rows_shape = lambda n_bands, rows, shape=shape: shape
+                shaped.append(bucket_sw.sw_score_bucket_fused(prof, stack, gap=gap))
+        finally:
+            bucket_sw.rows_shape = rule
         torch.cuda.synchronize()
         after = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
-        if after != (before[0] + 2, before[1] + C):
+        if after != (before[0] + 2 + len(bucket_sw.SHAPES), before[1] + C):
             raise AssertionError(f"row kernels launched {after} from {before} at {where}")
         err = int((got.long() - want.long()).abs().max())
         err = max(err, max(int((k.long() - want[c].long()).abs().max()) for c, k in enumerate(per_chunk)))
+        err = max(err, max(int((k.long() - want.long()).abs().max()) for k in shaped))
         err = max(err, int((clamp.long() - clamp_want.long()).abs().max()))
         worst = max(worst, err)
         sat_max = max(sat_max, int(want.max()))
@@ -472,7 +486,8 @@ def phase_kernel_rows():
     if sat_max <= 32767:
         raise AssertionError(f"the planted self-alignment scored {sat_max}, within int16")
     say("kernel.rows", cases=len(ROW_CASES), kernels=["K2 sw_score_bucket_fused", "K3 sw_score_bucket",
-        "K2 fast16 clamp"], max_score=sat_max, max_abs_err=worst, tolerance="exact",
+        "K2 fast16 clamp"], shapes=[f"G{g}H{h}" for g, h in bucket_sw.SHAPES], max_score=sat_max, max_abs_err=worst,
+        tolerance="exact",
         seconds=round(time.perf_counter() - t0, 3))
     return worst
 
@@ -1032,7 +1047,7 @@ def phase_kernel_rows_lab():
             for b in range(B - (c == C - 1)):  # the last row of the last chunk stays empty
                 n = int(rng.integers(1, L + 1))
                 stack[c, b, :n] = rng.integers(0, 25, n)
-        if qlen > 4000:
+        if qlen > 4000 and L >= qlen:
             stack[C // 2, 0, :qlen] = q
         prof = torch.from_numpy(make_profile(q, blosum50_ref(), pad_rows_to=32)).cuda()
         stack = torch.from_numpy(stack).cuda()
@@ -1128,10 +1143,20 @@ def phase_rows(db, wave_engine):
     qpad = profile.shape[0]
     ladder_cells = sum(g.chunks * g.rows * g.width for g in packed.groups)
     seg_cells = sum(g.cells for g in packed.seg_groups)
-    k2_all = lambda: [k2_engine._fused_stack(profile, g.stack) for g in packed.groups]  # noqa: E731
+    # K2 alone: the search's launches (the engine's chunk steps, worked out
+    # once) back to back, so the events time the card and not the engine's
+    # step budget, which reads the free device memory before every launch
+    steps = [k2_engine._fused_step(profile, g.stack) for g in packed.groups]
+    parts = [[g.stack[i : i + step] for i in range(0, g.chunks, step)] for g, step in zip(packed.groups, steps)]
+    strip = k2_engine.config.query_strip
+    k2_group = lambda ps: torch.cat([bucket_sw.sw_score_bucket_fused(profile, p, gap=gap, strip=strip)  # noqa: E731
+                                     for p in ps])
+    k2_all = lambda: [k2_group(ps) for ps in parts]  # noqa: E731
     events_ms(k2_all)  # warm
     k2_ms, k2_out = events_ms(k2_all, reps=3)
-    k2_group_ms = [round(events_ms(lambda g=g: k2_engine._fused_stack(profile, g.stack))[0], 4) for g in packed.groups]
+    k2_group_ms = [round(events_ms(lambda ps=ps: k2_group(ps), reps=5)[0], 4) for ps in parts]
+    n_bands = -(-profile.shape[0] // bucket_sw.W)
+    k2_shapes = [bucket_sw.rows_shape(n_bands, min(g.chunks, step) * g.rows) for g, step in zip(packed.groups, steps)]
     k2_plain_ms, k2_plain = events_ms(lambda: [row_sw.sw_score_stack(profile, g.stack, gap=gap, strip=32) for g in packed.groups])
     k2_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k2_out, k2_plain))
     if k2_err or not all(torch.equal(a, b) for a, b in zip(k2_out, k2_plain)):
@@ -1143,8 +1168,8 @@ def phase_rows(db, wave_engine):
         ladder_cells=ladder_cells, seg_cells=seg_cells, padded_cells_k2=qpad * ladder_cells,
         padded_cells_seg16=qpad * seg_cells, resident_bytes=resident, k2_ms_per_search=k2_ms,
         k2_plain_ms_per_search=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by, bound_share=k2_bound / k2_ms,
-        max_abs_err_vs_plain=k2_err, groups=dict(columns=["chunks", "rows", "width", "ms"],
-        rows=[(g.chunks, g.rows, g.width, ms) for g, ms in zip(packed.groups, k2_group_ms)]))
+        max_abs_err_vs_plain=k2_err, groups=dict(columns=["chunks", "rows", "width", "G", "H", "ms"],
+        rows=[(g.chunks, g.rows, g.width, *gh, ms) for g, gh, ms in zip(packed.groups, k2_shapes, k2_group_ms)]))
 
     # --- the PyTorch scorers on the same pack (fast16 + seg16), and the int16
     # parity mode on its own pack, through K2 (auto) and the PyTorch scorers
@@ -1179,21 +1204,26 @@ def phase_rows(db, wave_engine):
     modes["k3_streamed"].update(batches=len(plan.batches), pack_seconds=res.metrics.phases["pack_and_put"])
     say("rows.modes", query=MAIN_QUERY, true_cells=true_cells, modes=modes, bit_equal_to_wavefront=True)
 
-    # --- K3 alone, batch by batch, against its plain version on the same batches
-    k3_ms = k3_plain_ms = 0.0
-    k3_err = 0
-    nbytes = 0
-    for batch, arr in iter_packed(db, plan):
-        subj = torch.from_numpy(arr).cuda()
-        ms, got = events_ms(lambda: bucket_sw.sw_score_bucket(profile, subj, gap=gap))
-        pms, plain = events_ms(lambda: row_sw.sw_score_bucket(profile, subj, gap=gap, strip=32))
-        k3_ms, k3_plain_ms = k3_ms + ms, k3_plain_ms + pms
-        k3_err = max(k3_err, int((got.long() - plain.long()).abs().max()))
-        nbytes += subj.numel() + profile.numel() + 4 * batch.rows
+    # --- K3 alone against its plain version on the same batches, uploaded
+    # first and launched back to back, so the events time the card and not
+    # the wrapper's host time between launches
+    batches = [(batch, torch.from_numpy(arr).cuda()) for batch, arr in iter_packed(db, plan)]
+    k3_all = lambda: [bucket_sw.sw_score_bucket(profile, subj, gap=gap) for _, subj in batches]  # noqa: E731
+    events_ms(k3_all)  # warm
+    k3_ms, k3_out = events_ms(k3_all, reps=3)
+    k3_plain_ms, k3_plain = events_ms(lambda: [row_sw.sw_score_bucket(profile, subj, gap=gap, strip=32)
+                                               for _, subj in batches])
+    k3_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k3_out, k3_plain))
+    nbytes = sum(subj.numel() + profile.numel() + 4 * batch.rows for batch, subj in batches)
+    del batches, k3_out, k3_plain
     if k3_err:
         raise AssertionError(f"K3 at full scale differs from its plain version: max err {k3_err}")
     k3_bound, k3_by = row_bound(profile.shape[0] * plan.total_cells, nbytes)
-    say("rows.k3", batches=len(plan.batches), shapes=len(plan.shapes), cells=plan.total_cells,
+    k3_shapes = {}
+    for batch in plan.batches:
+        key = "G{}H{}".format(*bucket_sw.rows_shape(n_bands, batch.rows))
+        k3_shapes[key] = k3_shapes.get(key, 0) + 1
+    say("rows.k3", batches=len(plan.batches), shapes=len(plan.shapes), kernel_shapes=k3_shapes, cells=plan.total_cells,
         padded_cells=profile.shape[0] * plan.total_cells, k3_ms_per_search=k3_ms, k3_plain_ms_per_search=k3_plain_ms,
         bound_ms=k3_bound, bound_by=k3_by, bound_share=k3_bound / k3_ms, max_abs_err_vs_plain=k3_err)
 

@@ -511,13 +511,14 @@ class SearchEngine:
 
     def _fused_step(self, profile: torch.Tensor, stack: torch.Tensor) -> int:
         """Chunks per K2 launch over a (C, B, L) stack: all C, or as many as
-        keep the band carry within the scratch share of free device memory."""
+        keep the band carry within the scratch share of free device memory.
+        A launch whose bands fit in one pass of the kernel needs no carry."""
         C, B, L = stack.shape
-        per_chunk = bucket_sw.carry_bytes(-(-profile.shape[0] // bucket_sw.W), 1, B, L)
+        need = bucket_sw.carry_bytes(-(-profile.shape[0] // bucket_sw.W), C, B, L)
         budget = scratch_budget_bytes(self.device)
-        if budget is None or per_chunk * C <= budget:
+        if budget is None or need <= budget:
             return max(C, 1)
-        return max(1, budget // per_chunk)
+        return max(1, budget // (need // C))
 
     def _fused_stack(self, profile: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
         """K2 over a (C, B, L) ladder stack: (C, B) exact int32, in launches

@@ -5,13 +5,21 @@
   launch; exact int32 Smith-Waterman maxima, ``(B,)`` or ``(C, B)``.
 * ``sw_score_bucket_fast16`` -- the fast16 contract over K2: scores exact
   below ``sat`` and clamped at it.
-* ``sw_score_bucket`` -- K3: one ``(B, L)`` bucket, any B.
+* ``sw_score_bucket`` -- K3: one ``(B, L)`` bucket, any B: K2's launch at
+  C = 1, counted as K3's.
 
-For tensors on the card these launch the hand-written CUDA kernels of
-``csrc/sw_rows.cu`` (plain C ABI, built by ``_build``); for tensors on the
-CPU they run the plain version, ``row_sw.sw_score_stack`` /
-``row_sw.sw_score_bucket``.  A CUDA tensor reaches its kernel or raises.
-Each wrapper counts its kernel launches in ``.launches``.
+For tensors on the card these launch the hand-written CUDA kernel of
+``csrc/sw_rows.cu`` (one ``__global__`` template, one C entry point; plain
+C ABI, built by ``_build``); for tensors on the CPU they run the plain
+version, ``row_sw.sw_score_stack`` / ``row_sw.sw_score_bucket``.  A CUDA
+tensor reaches its kernel or raises.  Each wrapper counts its kernel
+launches in ``.launches``.
+
+The kernel scores a launch's bands in passes of G bands of H rows
+(``rows_shape`` picks (G, H) per launch, ``wave_sw.n_passes`` counts the
+passes): a warp wavefront with the band-to-band carry in registers, or, for
+a single band and for launches of many rows, a sweep of one band at a time
+(G = 1).  Only a pass boundary goes through the carry in device memory.
 
 The TPU kernels take widths up to ``MAX_PALLAS_WIDTH = 4096`` (a VMEM
 limit); these take every width.  The bound of both kernels is int32
@@ -21,14 +29,28 @@ operations, about 6 a padded cell (see the source note).
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from ..alphabet import PADDED_ALPHABET_SIZE as A32
 from . import _build, row_sw
 from .profile import PAD_SCORE
+from .wave_sw import n_passes
 
-W = 32  # query rows per band of the CUDA kernels
+W = 32  # query rows per band of the CUDA kernel
+
+# (G, H) shapes of the kernel (csrc/sw_rows.cu SW_ROWS_SHAPES): G bands a
+# pass, H query rows a band; G = 1 is the band sweep, a thread a subject row
+# and every band a pass.
+SHAPES = ((16, 32), (8, 32), (4, 32), (2, 32), (1, 32), (1, 64))
+# From this many subject rows a launch (rows x C) takes the band sweep, at
+# BAND_H rows a band: the midpoint of the interval, 8,193 to 32,768 rows, in
+# which the two schedules crossed on P01008's K2 groups, K3 batches and int16
+# launches on an H100 (swtpu_torch.tools.rows_ab --schedules; PERF.md gives
+# every group); H = 64 beat H = 32 on every launch of the band sweep there.
+BAND_ROWS = 20_480
+BAND_H = 64
 
 
 def _check(profile: torch.Tensor, subjects: torch.Tensor, strip: int, dims) -> None:
@@ -44,18 +66,29 @@ def _check(profile: torch.Tensor, subjects: torch.Tensor, strip: int, dims) -> N
         raise ValueError(f"the row kernels run on CPU or CUDA tensors, not {subjects.device}")
 
 
+def rows_shape(n_bands: int, rows: int, band_rows: int = BAND_ROWS) -> Tuple[int, int]:
+    """(G, H) of a launch of ``n_bands`` 32-row bands over ``rows`` subject
+    rows (rows x C of a stack): the band sweep (G = 1) for a single band,
+    at BAND_H rows a band from ``band_rows`` rows on, else the warp
+    wavefront with the fewest power-of-two G >= n_bands (at most 16) bands
+    of 32 rows a pass."""
+    if n_bands <= 1:
+        return 1, W
+    if rows >= band_rows:
+        return 1, BAND_H
+    return min(16, 1 << (n_bands - 1).bit_length()), W
+
+
 def carry_bytes(n_bands: int, chunks: int, rows: int, width: int) -> int:
-    """Device bytes of a launch's band carry: the bottom H row of a band,
-    one int32 per column and subject.  A single band needs none."""
-    return 4 * chunks * rows * width if n_bands > 1 else 0
+    """Device bytes of a launch's band carry: the bottom H row of a pass,
+    one int32 per column and subject.  A launch whose bands fit in one pass
+    (``rows_shape`` of its chunks x rows) needs none."""
+    passes = n_passes(n_bands, *rows_shape(n_bands, chunks * rows))
+    return 4 * chunks * rows * width if passes > 1 else 0
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    return _build.load(
-        "sw_rows",
-        sw_rows_fused_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        sw_rows_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    )
+    return _build.load("sw_rows", sw_rows_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def _band_profile(profile: torch.Tensor) -> torch.Tensor:
@@ -67,9 +100,9 @@ def _band_profile(profile: torch.Tensor) -> torch.Tensor:
     return profile.contiguous()
 
 
-def _launch(entry: str, profile: torch.Tensor, stack: torch.Tensor, gap: int) -> torch.Tensor:
-    """Run K2 (entry "fused", (C, B, L) stack) or K3 ("bucket", C == 1) on
-    the card; (C, B) int32."""
+def _launch(wrapper, profile: torch.Tensor, stack: torch.Tensor, gap: int) -> torch.Tensor:
+    """Run the kernel on a (C, B, L) stack on the card, in rows_shape's (G,
+    H); (C, B) int32.  Counts the launch on ``wrapper``."""
     if gap < 0:
         raise ValueError("gap must be >= 0")
     C, B, L = stack.shape
@@ -83,14 +116,12 @@ def _launch(entry: str, profile: torch.Tensor, stack: torch.Tensor, gap: int) ->
     prof = _band_profile(profile)
     stack = stack.contiguous()
     n_bands = prof.shape[0] // W
+    g, h = rows_shape(n_bands, C * B)
     carry = torch.empty(max(carry_bytes(n_bands, C, B, L) // 4, 1), dtype=torch.int32, device=dev)
-    ptrs = (prof.data_ptr(), stack.data_ptr(), carry.data_ptr(), out.data_ptr())
-    if entry == "fused":
-        rc = lib.sw_rows_fused_launch(*ptrs, C, n_bands, B, L, gap, *_build.where(dev))
-    else:
-        rc = lib.sw_rows_launch(*ptrs, n_bands, B, L, gap, *_build.where(dev))
+    rc = lib.sw_rows_launch(prof.data_ptr(), stack.data_ptr(), carry.data_ptr(), out.data_ptr(), C, n_bands, B, L,
+                            gap, g, h, *_build.where(dev))
     _build.check(rc, lib.sw_rows_error_string, "sw_rows kernel launch")
-    (sw_score_bucket_fused if entry == "fused" else sw_score_bucket).launches += 1
+    wrapper.launches += 1
     return out
 
 
@@ -106,7 +137,7 @@ def sw_score_bucket_fused(profile: torch.Tensor, subjects: torch.Tensor, *, gap:
     if stack.device.type == "cpu":
         out = row_sw.sw_score_stack(profile, stack, gap=gap, strip=strip)
     else:
-        out = _launch("fused", profile, stack, gap)
+        out = _launch(sw_score_bucket_fused, profile, stack, gap)
     return out if subjects.dim() == 3 else out[0]
 
 
@@ -123,11 +154,12 @@ def sw_score_bucket_fast16(
 
 def sw_score_bucket(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32) -> torch.Tensor:
     """K3: max SW score of one query vs a (B, L) bucket, any B (exact int32;
-    the contract of row_sw.sw_score_bucket).  Returns (B,) int32."""
+    the contract of row_sw.sw_score_bucket): K2's kernel at C = 1.  Returns
+    (B,) int32."""
     _check(profile, subjects, strip, (2,))
     if subjects.device.type == "cpu":
         return row_sw.sw_score_bucket(profile, subjects, gap=gap, strip=strip)
-    return _launch("bucket", profile, subjects[None], gap)[0]
+    return _launch(sw_score_bucket, profile, subjects[None], gap)[0]
 
 
 sw_score_bucket.launches = 0  # kernel launches since the count was last set to 0

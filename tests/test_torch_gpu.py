@@ -8,7 +8,9 @@ and the engine's single, batched, queued, streaming and top-K paths to the
 committed goldens; align_top_k on the card gives the alignments it gives on
 the CPU.  The row kernels K2 and K3 are held to their plain versions, and
 the ``use_pallas`` engine (resident through K2, streamed through K3) to the
-goldens.  The kernel's band-carry hand-off is held to its plain version rung
+goldens; every compiled (G, H) shape of K2/K3 is held to the plain version
+on one and several passes, odd widths and rows, and unaligned rows.  The
+kernel's band-carry hand-off is held to its plain version rung
 by rung, carry and scores, and the composed engine to the fused one.  The
 int8 kernels of K7 (coarse counts, the MAC-rate probe) and K8's chain are
 held to their plain versions, and the prefiltered engine on the card to the
@@ -227,6 +229,52 @@ def test_row_kernels_match_plain(cuda, qlen, C, B, L, gap):
     assert (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches) == (before[0] + 1, before[1] + 1)
     assert fused.shape == (C, B) and torch.equal(fused, row_sw.sw_score_stack(prof, stack, gap=gap, strip=32))
     assert torch.equal(single, row_sw.sw_score_bucket(prof, stack[C // 2], gap=gap, strip=32))
+
+
+def _row_stack(rng, qlen, C, B, L):
+    prof = make_profile(rng.integers(0, 25, qlen).astype(np.int8), blosum50_ref(), pad_rows_to=32)
+    stack = np.full((C, B, L), PAD_SUBJECT, dtype=np.int8)
+    for c in range(C):
+        for b in range(B - (c == C - 1)):  # the last row of the last chunk stays empty
+            n = int(rng.integers(1, L + 1))
+            stack[c, b, :n] = rng.integers(0, 25, n)
+    return torch.from_numpy(prof), torch.from_numpy(stack)
+
+
+@pytest.mark.parametrize("shape", bucket_sw.SHAPES, ids=[f"G{g}H{h}" for g, h in bucket_sw.SHAPES])
+@pytest.mark.parametrize(
+    "qlen,C,B,L,offset",
+    [(464, 3, 77, 40, 0), (4548, 2, 9, 300, 0), (100, 2, 33, 7, 0), (200, 2, 65, 64, 0), (200, 2, 65, 64, 1),
+     (1000, 1, 31, 129, 0)],
+    ids=["one-pass", "nine-passes", "width-7", "aligned", "unaligned", "odd-rows"],
+)
+def test_every_row_kernel_shape_matches_plain(cuda, monkeypatch, shape, qlen, C, B, L, offset):
+    """Every compiled (G, H) of K2/K3, whatever rows_shape would pick: one
+    pass and several (4,548 residues: nine at G = 16), B not a multiple of
+    32 / G, C > 1, L < 16, L % 16 != 0, and 16-byte rows at an odd address
+    (``offset``), through both wrappers, bit-equal to the plain version."""
+    monkeypatch.setattr(bucket_sw, "rows_shape", lambda n_bands, rows: shape)
+    prof, stack = _row_stack(np.random.default_rng(qlen + L + offset), qlen, C, B, L)
+    buf = torch.zeros(stack.numel() + offset, dtype=torch.int8, device=cuda)
+    dev_stack = buf[offset:].view(C, B, L)
+    dev_stack.copy_(stack.to(cuda))
+    prof = prof.to(cuda)
+    assert (dev_stack.data_ptr() % 16 != 0) == bool(offset)
+    want = row_sw.sw_score_stack(prof, dev_stack, gap=2, strip=32)
+    before = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
+    fused = bucket_sw.sw_score_bucket_fused(prof, dev_stack, gap=2)
+    single = bucket_sw.sw_score_bucket(prof, dev_stack[C - 1], gap=2)
+    torch.cuda.synchronize()
+    assert (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(fused, want) and torch.equal(single, want[C - 1])
+
+
+@pytest.mark.parametrize("shape", [(3, 32), (16, 64), (32, 32)])
+def test_row_kernel_refuses_a_shape_not_compiled(cuda, monkeypatch, shape):
+    monkeypatch.setattr(bucket_sw, "rows_shape", lambda n_bands, rows: shape)
+    prof, stack = _row_stack(np.random.default_rng(0), 40, 1, 4, 16)
+    with pytest.raises(RuntimeError, match="sw_rows kernel launch"):
+        bucket_sw.sw_score_bucket_fused(prof.to(cuda), stack.to(cuda), gap=2)
 
 
 @pytest.mark.parametrize("resident", [True, False], ids=["K2 resident", "K3 streamed"])

@@ -348,7 +348,7 @@ def test_row_residency_budget_streams_batch_by_batch():
 def test_fused_stack_splits_along_chunks_when_the_carry_exceeds_the_budget(monkeypatch):
     rng = np.random.default_rng(5)
     db = database_from_sequences(["".join(rng.choice(list(ALPHABET[:20]), int(n))) for n in rng.integers(520, 640, 40)])
-    q = parse_query(DATA / "queries" / "P02232.fasta")
+    q = parse_query(DATA / "queries" / "P03435.fasta")  # 18 bands: two passes of the kernel, so a carry
     want = SearchEngine(SWConfig(use_wave=False, use_pallas=True), device="cpu").search(q, db).scores
     calls = []
     real = bucket_sw.sw_score_bucket_fused

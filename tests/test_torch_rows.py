@@ -288,4 +288,5 @@ def test_band_profile_and_carry_bytes():
     assert banded.shape == (64, 32) and torch.equal(banded[:40], prof)
     assert (banded[40:] == -16).all()  # PAD_SCORE rows cannot raise a maximum
     assert bucket_sw.carry_bytes(1, 3, 100, 256) == 0
-    assert bucket_sw.carry_bytes(2, 3, 100, 256) == 4 * 3 * 100 * 256
+    assert bucket_sw.carry_bytes(2, 3, 100, 256) == 0  # two bands, one pass of the wavefront: no carry
+    assert bucket_sw.carry_bytes(17, 3, 100, 256) == 4 * 3 * 100 * 256  # a pass boundary: G is at most 16
