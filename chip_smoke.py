@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 Phases (one line each; any failure exits non-zero with no result line):
   1. card     name, power limit, torch and CUDA versions
-  2. build    nvcc of every kernel source at once; seconds, and registers,
+  2. build    nvcc of every kernel source and g++ of the native host
+              runtime (csrc/sw_native.cpp) at once; seconds, and registers,
               spills and SASS opcode counts of each kernel instantiation
   3. kernel   each kernel against its plain PyTorch version on seeded random
               buckets (chain factors 1/2/3/8, odd lane counts, one and many
@@ -64,6 +65,13 @@ Phases (one line each; any failure exits non-zero with no result line):
               through the user entry points; kernel launch counts are zeroed
               just before the first search and read just after; three timed
               searches; every score against the plain version on the card
+ 5b. native   native.parse: that database written as a FASTA file (60
+              columns) into a temporary directory and parsed by the native
+              parse and its plain version, each bit-equal to the database in
+              memory; seconds and MB/s of both.  cli.search: python -m
+              swtpu_torch on that file and P01008, a subprocess on the card,
+              its id:score dump equal line for line to the in-memory scores;
+              its wall and METRICS block; the file is deleted
   6. serving  the reference Performance suite's 17 queries against the same
               resident database: single searches, then search_many (counts
               zeroed just before, read just after) and search_queued, each
@@ -94,6 +102,11 @@ Phases (one line each; any failure exits non-zero with no result line):
               and search_queued for three suite queries, int16 top-K with
               E-values; K2 and K3 alone against their plain versions on the
               same work
+ 9b. native.pack each native packer against its plain version at that size,
+              bit-equal, with both times: the streamed row plan's batches
+              (pack_batch), the row engine's segment groups (pack_segments),
+              the streamed wave plan's buckets on the host (pack_wave_group)
+              and the prefilter's signatures
  10. compose  composed band-group dispatch (wave_compose) on the same resident
               database, each array bit-equal to the fused path's: P01008
               (counts zeroed just before the first search, read just after:
@@ -241,10 +254,14 @@ def phase_build():
     from swtpu_torch.ops import _build
 
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    for name in names:  # build from the sources every run, never from a stale library
+    host = sorted(p.stem for p in _build.CSRC.glob("*.cpp"))  # the native host runtime, built by g++
+    for name in names + host:  # build from the sources every run, never from a stale library
         _build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
-    built = _build.build(*names)
+    built = _build.build(*names, *host)
+    for name in host:
+        say("build", source=f"swtpu_torch/csrc/{name}.cpp", compiler="g++", flags=list(_build.GXX_FLAGS),
+            seconds=round(built[name]["seconds"], 3))
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     out = {}
 
@@ -662,6 +679,64 @@ def phase_scale():
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
     }
     return entry, db, engine, [row[-1] for row in per_bucket]
+
+
+def phase_native_parse_and_cli(db, engine):
+    """native.parse: the SwissProt-shaped database written as a FASTA file
+    (60 columns, headers seq<i>) into a temporary directory, parsed by the
+    native parse and by its plain version, each bit-equal to the other and
+    to the database in memory.  cli.search: ``python -m swtpu_torch`` on that
+    file and P01008 as a subprocess on the card, its id:score dump equal line
+    for line to the engine's scores of the database in memory.  The file is
+    deleted afterwards."""
+    import tempfile
+
+    import numpy as np
+
+    from swtpu_torch.alphabet import decode
+    from swtpu_torch.io.fasta import parse_database, parse_database_plain, parse_query, write_fasta
+
+    qpath = ROOT / "tests" / "data" / "queries" / f"{MAIN_QUERY}.fasta"
+    want = engine.search(parse_query(qpath), db).scores  # phase_scale's resident engine: in-memory scores
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = Path(tmp) / "swissprot_shaped.fasta"
+        t0 = time.perf_counter()
+        text, off = decode(db.residues), db.offsets.tolist()
+        write_fasta(path, [text[off[i] : off[i + 1]] for i in range(db.n)], width=60)
+        del text
+        write_s = time.perf_counter() - t0
+        nbytes = path.stat().st_size
+        t0 = time.perf_counter()
+        parsed = parse_database(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = parse_database_plain(path)
+        plain_s = time.perf_counter() - t0
+        for name, got in (("native", parsed), ("plain", plain)):
+            if not (np.array_equal(got.offsets, db.offsets) and np.array_equal(got.residues, db.residues)):
+                raise AssertionError(f"the {name} parse of the written file differs from the database in memory")
+        del plain
+        say("native.parse", bytes=nbytes, sequences=parsed.n, residues=parsed.length_sum, write_seconds=write_s,
+            native_seconds=native_s, plain_seconds=plain_s, native_mb_per_s=1e-6 * nbytes / native_s,
+            plain_mb_per_s=1e-6 * nbytes / plain_s, bit_equal=True)
+        del parsed
+
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "swtpu_torch", "--query", str(qpath), "--db", str(path)],
+                             cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the CLI exited {out.returncode}:\n{out.stderr[-4000:]}")
+    lines = out.stdout.splitlines()
+    dump = [ln for ln in lines if ":" in ln and ln.split(":")[0].isdigit()]
+    if dump != [f"{i}:{v}" for i, v in enumerate(want.tolist())]:
+        raise AssertionError(f"the CLI's id:score dump ({len(dump)} lines) differs from the in-memory scores")
+    metrics = {}
+    for ln in lines[lines.index("METRICS:") + 1 :]:
+        key, _, rest = ln.partition(":")
+        metrics[key] = float(rest.split()[0])
+    say("cli.search", query=MAIN_QUERY, command="python -m swtpu_torch --query Q --db D", wall_seconds=wall,
+        lines=len(dump), metrics=metrics, equal_to_in_memory_scores=True)
 
 
 def bound(groups, pieces, ops_per_cell=OPS_PER_CELL):
@@ -1265,6 +1340,70 @@ def phase_rows(db, wave_engine):
         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
     }
     return k2, k3, k2_engine
+
+
+def phase_native_pack(db, wave_engine, row_engine):
+    """native.pack: each native packer and the signatures against its plain
+    version at SwissProt size, bit-equal, with the seconds of both: the
+    streamed row plan's batches for P01008 (pack_batch), the row engine's
+    resident segment groups (pack_segments), the streamed wave plan's
+    buckets packed on the host (pack_wave_group) and the prefilter's
+    signatures; the host's peak NumPy bytes of the row plan's pack."""
+    import tracemalloc
+
+    import numpy as np
+    import torch
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import prefilter as pf
+    from swtpu_torch.utils import bucketing, segpack
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+
+    def traced_peak(pack, batches):
+        """Peak bytes NumPy allocates while ``pack`` packs the batches one
+        after another, each dropped before the next (tracemalloc)."""
+        tracemalloc.start()
+        try:
+            for b in batches:
+                pack(db, b)
+            return tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+
+    def pair(name, native_fn, plain_fn, equal=np.array_equal):
+        native_s, got = timed(native_fn)
+        plain_s, want = timed(plain_fn)
+        if not all(equal(a, b) for a, b in zip(got, want)) or len(got) != len(want):
+            raise AssertionError(f"native.pack {name}: the native output differs from its plain version")
+        return dict(native_seconds=native_s, plain_seconds=plain_s, speedup=plain_s / native_s, bit_equal=True)
+
+    out = {}
+    plan = SearchEngine(SWConfig(use_wave=False, device_resident=False), device="cuda").plan(db)
+    out["pack_batch"] = pair("pack_batch", lambda: [bucketing.pack_batch(db, b) for b in plan.batches],
+                             lambda: [bucketing.pack_batch_plain(db, b) for b in plan.batches])
+    out["pack_batch"].update(batches=len(plan.batches), cells=plan.total_cells,
+                             host_peak_bytes_native=traced_peak(bucketing.pack_batch, plan.batches),
+                             host_peak_bytes_plain=traced_peak(bucketing.pack_batch_plain, plan.batches))
+    seg = [b for g in row_engine._resident_packed(db).seg_groups for b in g.batches]
+    out["pack_segments"] = pair("pack_segments", lambda: [segpack.pack_segments(db, b) for b in seg],
+                                lambda: [segpack.pack_segments_plain(db, b) for b in seg])
+    out["pack_segments"].update(batches=len(seg), cells=sum(b.rows * b.width for b in seg))
+    wave_plan = bucketing.plan_wave_buckets(db, chain=wave_engine._wave_chain)
+    cpu_residues = bucketing.upload_residues(db, "cpu")
+    out["pack_wave_group"] = pair(
+        "pack_wave_group",
+        lambda: [bucketing.pack_wave_group(db, w, ids, bt, bpad, s).stack for w, ids, bt, bpad, s in wave_plan],
+        lambda: [bucketing.gather_wave_stack(db, w, ids, bpad, s, cpu_residues) for w, ids, _, bpad, s in wave_plan],
+        equal=torch.equal)
+    out["pack_wave_group"].update(buckets=len(wave_plan), cells=sum((w + 32) * bpad for w, _, _, bpad, _ in wave_plan))
+    out["signatures"] = pair("signatures", lambda: [pf.database_signatures(db)], lambda: [pf.database_signatures_plain(db)])
+    out["signatures"].update(sequences=db.n, dim=pf.DIM, k=pf.K)
+    say("native.pack", residues=db.length_sum, **out)
 
 
 def phase_compose(db, engine, affine_engine, suite_scores):
@@ -2162,10 +2301,12 @@ def main() -> int:
         phase_goldens()
         phase_goldens_affine()
         entry, db, engine, q1_bucket_ms = phase_scale()
+        phase_native_parse_and_cli(db, engine)
         multi, suite_scores = phase_serving(db, engine, q1_bucket_ms)
         affine, affine_engine = phase_affine(db, q1_bucket_ms)
         phase_align(db, engine, affine_engine)
         k2, k3, row_engine = phase_rows(db, engine)
+        phase_native_pack(db, engine, row_engine)
         carry = phase_compose(db, engine, affine_engine, suite_scores)
         coarse = phase_prefilter(db, engine)
         labs = phase_lab(db, engine)

@@ -1,21 +1,25 @@
-"""FASTA ingestion (the NumPy path of ``swtpu.io.fasta``).
+"""FASTA ingestion (``swtpu.io.fasta`` without headers).
 
 * database record ids are 0-based FASTA file order,
 * a query is the concatenation of every non-header line of its file,
 * unknown residue characters are legal and encode to ``*``.
 
-A parsed database is a flat int8 residue buffer plus offsets: the packer
-gathers buckets from it on the device (swtpu_torch.utils.bucketing).
+A parsed database is a flat int8 residue buffer plus offsets: the packers
+build buckets from it (swtpu_torch.utils.bucketing).  ``parse_database``
+parses and encodes a file in one native pass (swtpu_torch.native, as
+swtpu's default parse); ``parse_database_plain`` is its NumPy version, for
+the tests and chip_smoke.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..alphabet import encode_bytes
 
 _WHITESPACE = b"\r\n\t "
@@ -32,6 +36,9 @@ class Query:
     @property
     def length(self) -> int:
         return int(self.residues.shape[0])
+
+    def padded_length(self, quantum: int) -> int:
+        return -(-self.length // quantum) * quantum
 
 
 @dataclasses.dataclass
@@ -53,6 +60,10 @@ class Database:
     def length_sum(self) -> int:
         return int(self.offsets[-1])
 
+    @property
+    def largest_length(self) -> int:
+        return int(self.lengths.max()) if self.n else 0
+
     def padded_length_sum(self, quantum: int = 8) -> int:
         """Sum of lengths rounded up to `quantum` (the reference program's
         ``subjectLengthSum``, which counts its pad-to-8 residues)."""
@@ -61,6 +72,9 @@ class Database:
 
     def sequence(self, i: int) -> np.ndarray:
         return self.residues[int(self.offsets[i]) : int(self.offsets[i + 1])]
+
+    def sequences(self) -> List[np.ndarray]:
+        return [self.sequence(i) for i in range(self.n)]
 
     def take(self, ids: np.ndarray) -> "Database":
         """Gather the given record ids (ascending or not) into a compact
@@ -76,7 +90,8 @@ class Database:
 
 
 def _split_records(data: bytes) -> List[Tuple[bytes, bytes]]:
-    """Split FASTA bytes into (header, sequence bytes without whitespace)."""
+    """Split FASTA bytes into (header line as read, sequence bytes without
+    whitespace)."""
     first = data.find(b">")
     if first < 0:
         # Headerless file: the whole file is one sequence.
@@ -85,7 +100,7 @@ def _split_records(data: bytes) -> List[Tuple[bytes, bytes]]:
     records: List[Tuple[bytes, bytes]] = []
     for chunk in data[first + 1 :].split(b"\n>"):
         header, _, body = chunk.partition(b"\n")
-        records.append((header.rstrip(b"\r"), body.translate(None, _WHITESPACE)))
+        records.append((header, body.translate(None, _WHITESPACE)))
     return records
 
 
@@ -96,15 +111,24 @@ def parse_query(path: str | Path) -> Query:
         raise ValueError(f"no sequence found in query file {path}")
     raw = b"".join(body for _, body in recs)
     return Query(
-        name=recs[0][0].decode("utf-8", errors="replace"),
+        name=recs[0][0].rstrip(b"\r").decode("utf-8", errors="replace"),
         residues=encode_bytes(raw),
         raw=raw.decode("ascii", errors="replace"),
     )
 
 
 def parse_database(path: str | Path) -> Database:
-    """Parse a multi-record FASTA database."""
-    recs = [(h, b) for h, b in _split_records(Path(path).read_bytes()) if h or b]
+    """Parse a multi-record FASTA database: one native parse-and-encode pass
+    over the file's bytes (record rules in ``csrc/sw_native.cpp``)."""
+    residues, offsets = native.parse_fasta_bytes(Path(path).read_bytes())
+    return Database(residues=residues, offsets=offsets)
+
+
+def parse_database_plain(path: str | Path) -> Database:
+    """NumPy version of :func:`parse_database`, with the same records: one
+    is dropped only when its header, less one trailing ``\\r``, and its body
+    are both empty (so a header line of ``\\r\\r`` keeps its record)."""
+    recs = [(h, b) for h, b in _split_records(Path(path).read_bytes()) if b or h.removesuffix(b"\r")]
     lengths = np.fromiter((len(b) for _, b in recs), count=len(recs), dtype=np.int64)
     offsets = np.zeros(len(recs) + 1, dtype=np.int64)
     np.cumsum(lengths, out=offsets[1:])
@@ -118,3 +142,14 @@ def database_from_sequences(seqs: List[str | bytes]) -> Database:
     offsets = np.zeros(len(bs) + 1, dtype=np.int64)
     np.cumsum(lengths, out=offsets[1:])
     return Database(residues=encode_bytes(b"".join(bs)), offsets=offsets)
+
+
+def write_fasta(path: str | Path, seqs: List[str], headers: Optional[List[str]] = None, width: int = 60) -> None:
+    """Write sequences as FASTA, ``width`` residues a line; headers default
+    to ``seq<i>`` (test fixtures, chip_smoke.py's SwissProt-sized file)."""
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            h = headers[i] if headers else f"seq{i}"
+            f.write(f">{h}\n")
+            for k in range(0, len(s), width):
+                f.write(s[k : k + width] + "\n")

@@ -1,10 +1,12 @@
-"""Build the package's CUDA kernels and load them with ctypes.
+"""Build the package's native libraries and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into ``swtpu_torch/build/`` on first use;
-the library name carries a hash of the source and flags, so an edited source
-rebuilds.  Nothing here runs at import time: the CPU tests import every
-module on machines with no CUDA toolkit.
+``nvcc`` for Hopper (``sm_90a``); the host runtime ``csrc/<name>.cpp``
+(``sw_native.cpp``) is compiled by ``g++``.  Both go into
+``swtpu_torch/build/`` on first use; the library name carries a hash of the
+source and flags, so an edited source rebuilds.  Nothing here runs at import
+time: the CPU tests import every module on machines with no CUDA toolkit,
+and build the host library with the system's g++.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills into the build log
 )
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -41,40 +44,68 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit's bin on PATH")
 
 
+def gxx() -> str:
+    """Path of the host C++ compiler, g++ on PATH."""
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the host library csrc/sw_native.cpp needs a C++17 compiler on PATH")
+    return path
+
+
+def source(name: str) -> Path:
+    """``csrc/<name>.cu``, or the host source ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _compiler(src: Path) -> Tuple[Callable[[], str], Tuple[str, ...]]:
+    return (nvcc, NVCC_FLAGS) if src.suffix == ".cu" else (gxx, GXX_FLAGS)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_compiler(src)[1]).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 
 def build(*names: str) -> Dict[str, dict]:
-    """Compile every named source that is not built yet, all nvcc processes
-    at once.  Returns {name: {"path", "seconds", "log"}}; "log" holds
-    nvcc's output (the -Xptxas -v report) for sources built by this call."""
+    """Compile every named source that is not built yet, all compiler
+    processes at once.  Returns {name: {"path", "seconds", "log"}}; "log"
+    holds the compiler's output (nvcc's -Xptxas -v report) for sources built
+    by this call.  A failed compile raises with the compiler's output and
+    leaves no library."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name in names:
         lib = library_path(name)
         if not lib.exists():
+            src = source(name)
+            compiler, flags = _compiler(src)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib)
+            cmd = [compiler(), *flags, "-o", str(tmp), str(src)]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, lib, src)
     done = {name: {"path": library_path(name), "seconds": 0.0, "log": ""} for name in names}
-    for name, (proc, tmp, lib) in procs.items():
+    failed = []
+    for name, (proc, tmp, lib, src) in procs.items():  # every compiler ends before anything raises
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{Path(proc.args[0]).name} failed on csrc/{src.name}:\n{log}")
+            continue
         os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
         done[name].update(seconds=time.perf_counter() - t0, log=log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return done
 
 
 def load(name: str, **entries: list) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed.
-    ``entries`` maps each C entry point to its argument ctypes; every one
-    returns an int error code, which ``<name>_error_string`` names.
-    Thread-safe: the engine's warmers launch from several threads at once."""
+    """The built library for ``csrc/<name>.cu`` (or ``.cpp``), building it
+    if needed.  ``entries`` maps each C entry point to its argument ctypes;
+    every one returns an int error code, which ``<name>_error_string``
+    names.  Thread-safe: the engine's warmers launch from several threads
+    at once."""
     with _load_lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -5,8 +5,8 @@ reference, which scores every subject; off unless ``SWConfig.prefilter`` is
 set):
 
 * every sequence is summarised once as a (DIM,) int8 presence signature of
-  its hashed k-mers (k = 3, DIM = 1024), a NumPy pass over the flat residue
-  buffer cached per database;
+  its hashed k-mers (k = 3, DIM = 1024), one native pass over the flat
+  residue buffer (swtpu_torch.native) cached per database;
 * the coarse score of query q against subject s starts from the number of
   hashed k-mer buckets they share, ``sig_s . sig_q``: the whole database is
   one (Q, DIM) x (n, DIM)^T int8 product, ``int8_mma.coarse_counts`` (on the
@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from . import int8_mma
 from .profile import PAD_SUBJECT
 from .wave_sw import W
@@ -62,8 +63,14 @@ def signature(residues: np.ndarray, dim: int = DIM, k: int = K) -> np.ndarray:
     return sig
 
 
-def database_signatures(db, dim: int = DIM, k: int = K, chunk: int = 1 << 24) -> np.ndarray:
-    """(n, dim) int8 presence signatures for a whole database, in NumPy.
+def database_signatures(db, dim: int = DIM, k: int = K) -> np.ndarray:
+    """(n, dim) int8 presence signatures for a whole database: one native
+    pass over the flat residue buffer with this module's ``_MIX``."""
+    return native.build_signatures_native(db.residues, db.offsets, dim, k, _MIX)
+
+
+def database_signatures_plain(db, dim: int = DIM, k: int = K, chunk: int = 1 << 24) -> np.ndarray:
+    """NumPy version of :func:`database_signatures`.
 
     Vectorised over the flat residue buffer: every position's record comes
     from the offsets, k-mers that would straddle a record boundary are

@@ -4,15 +4,19 @@ Two planners live here.  The wave planner sorts sequences onto a ladder of
 widths, merges rungs into buckets by a modeled cost, and picks per bucket how
 many subjects to chain end to end on a lane; its layout parameters are the
 TPU-derived ones of swtpu_torch.ops.wave_sw, so buckets come out identical to
-swtpu's.  Wave packing is a gather on the target device from the database's
-flat residue buffer, uploaded once: per bucket the host builds member offsets
-and lengths and the device computes each cell's source.
+swtpu's.  A resident wave pack on the card is a gather on the device from the
+database's flat residue buffer, uploaded once: per bucket the host builds
+member offsets and lengths and the device computes each cell's source.  On
+the host (streaming, and the CPU engine) the native transposed packer
+(swtpu_torch.native) writes each bucket, one call a segment, as swtpu does.
 
 The ladder planner (``plan_batches``) serves the row path: subjects sorted
 longest first into row-major ``(rows, width)`` batches whose widths sit on a
 quantised ladder, and same-shape batches stacked into ``(C, rows, width)``
-groups.  It packs with NumPy on the host (swtpu's non-native path) and
-uploads each stack to the engine's device.
+groups.  The native row packer writes each batch on the host, in place into
+its group's stack, and each stack is uploaded to the engine's device.  The
+NumPy gather stays as the plain version (``pack_batch_plain``); the device
+gather ``gather_wave_stack`` is also the native wave pack's plain version.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..io.fasta import Database
 from ..ops import wave_sw
 from ..ops.profile import PAD_SUBJECT
@@ -216,16 +221,14 @@ def upload_residues(db: Database, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(db.residues, dtype=np.int8)).to(device)
 
 
-def pack_wave_group(
-    db: Database,
-    width: int,
-    ids: np.ndarray,
-    bt: int,
-    bpad: int,
-    n_segs: int = 1,
-    residues: Optional[torch.Tensor] = None,
-) -> WaveGroup:
-    """Materialise one wave bucket on ``residues``' device (CPU if None).
+def gather_wave_stack(
+    db: Database, width: int, ids: np.ndarray, bpad: int, n_segs: int = 1, residues: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """A wave bucket's (width + W, bpad) int8 transposed stack as one gather
+    a segment from ``residues``, the flat buffer on any device (the CPU if
+    None).  It is both the resident pack on the card (the card's only wave
+    pack) and, on CPU residues, the plain version that the tests and
+    ``chip_smoke.py`` hold the native host pack to.
 
     Member k packs into lane k // n_segs at column (k % n_segs) * seg_cols;
     columns past a member's length, the trailing W columns and pad lanes
@@ -251,7 +254,36 @@ def pack_wave_group(
         valid = pos < len_d[:, s][None, :]
         if residues.shape[0]:
             stack[s * ws : (s + 1) * ws] = torch.where(valid, residues[src], PAD_SUBJECT)
-    full_ids = np.full(slots, -1, dtype=np.int64)
+    return stack
+
+
+def pack_wave_group(
+    db: Database,
+    width: int,
+    ids: np.ndarray,
+    bt: int,
+    bpad: int,
+    n_segs: int = 1,
+    residues: Optional[torch.Tensor] = None,
+) -> WaveGroup:
+    """Materialise one wave bucket: on the host when ``residues`` is None or
+    on the CPU, with the native transposed packer (one call a segment, each
+    writing its (seg_cols, bpad) rows of the stack in place); else gathered
+    on ``residues``' device (``gather_wave_stack``).  The layout is
+    ``gather_wave_stack``'s.
+    """
+    if residues is None or residues.device.type == "cpu":
+        ws = width // n_segs
+        stack = np.empty((width + wave_sw.W, bpad), dtype=np.int8)
+        for s in range(n_segs):
+            native.pack_bucket_T_native(
+                db.residues, db.offsets, ids[s::n_segs], ws, bpad, PAD_SUBJECT, out=stack[s * ws : (s + 1) * ws]
+            )
+        stack[n_segs * ws :] = PAD_SUBJECT
+        stack = torch.from_numpy(stack)
+    else:
+        stack = gather_wave_stack(db, width, ids, bpad, n_segs, residues)
+    full_ids = np.full(bpad * n_segs, -1, dtype=np.int64)
     full_ids[: ids.shape[0]] = ids  # member k -> (lane k // S, seg k % S) == flat k
     return WaveGroup(width=width, lc=wave_sw.pick_lc(width), bt=bt, stack=stack, ids=full_ids, n_segs=n_segs)
 
@@ -260,10 +292,11 @@ def pack_database_wave(
     db: Database, device="cpu", max_rows: int = 1 << 20, chain: bool = True, plan=None
 ) -> PackedDatabase:
     """Pack a whole database into wave buckets resident on ``device``
-    (``plan``: a plan_wave_buckets result to reuse)."""
+    (``plan``: a plan_wave_buckets result to reuse): gathered on a device
+    from one upload of the residues, packed natively on the CPU."""
     if plan is None:
         plan = plan_wave_buckets(db, max_rows, chain=chain)
-    residues = upload_residues(db, device)
+    residues = None if torch.device(device).type == "cpu" else upload_residues(db, device)
     groups = tuple(
         pack_wave_group(db, width, ids, bt, bpad, n_segs, residues=residues)
         for width, ids, bt, bpad, n_segs in plan
@@ -272,8 +305,9 @@ def pack_database_wave(
 
 
 def iter_wave_groups(db: Database, device="cpu", max_rows: int = 1 << 20, chain: bool = True) -> Iterator[WaveGroup]:
-    """Yield wave buckets one at a time (bounded device memory per bucket)."""
-    residues = upload_residues(db, device)
+    """Yield wave buckets one at a time (bounded device memory per bucket;
+    on the CPU, the default, each packed natively on the host)."""
+    residues = None if torch.device(device).type == "cpu" else upload_residues(db, device)
     for width, ids, bt, bpad, n_segs in plan_wave_buckets(db, max_rows, chain=chain):
         yield pack_wave_group(db, width, ids, bt, bpad, n_segs, residues=residues)
 
@@ -391,9 +425,15 @@ def plan_batches(
     return BatchPlan(batches=tuple(batches), n_sequences=n, shapes=shapes)
 
 
-def pack_batch(db: Database, batch: Batch) -> np.ndarray:
-    """Materialise a (rows, width) int8 subject array for a batch: one
-    vectorised gather from the flat residue buffer (pads PAD_SUBJECT)."""
+def pack_batch(db: Database, batch: Batch, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Materialise a (rows, width) int8 subject array for a batch (pads
+    PAD_SUBJECT) with the native row packer, into ``out`` if given."""
+    return native.pack_batch_native(db.residues, db.offsets, batch.ids, batch.rows, batch.width, PAD_SUBJECT, out=out)
+
+
+def pack_batch_plain(db: Database, batch: Batch) -> np.ndarray:
+    """NumPy version of :func:`pack_batch`: one vectorised gather from the
+    flat residue buffer."""
     W, R = batch.width, batch.rows
     ids = batch.ids.astype(np.int64)
     offs = db.offsets[ids][:, None]  # (V, 1)
@@ -415,7 +455,8 @@ def iter_packed(db: Database, plan: BatchPlan) -> Iterator[Tuple[Batch, np.ndarr
 
 def pack_database(db: Database, plan: BatchPlan, device="cpu") -> PackedDatabase:
     """Materialise the full plan as stacked same-shape groups on ``device``
-    (packed on the host, one upload per group)."""
+    (each batch packed on the host in place into its group's stack, one
+    upload per group)."""
     by_shape: dict = {}
     for batch in plan.batches:
         by_shape.setdefault((batch.rows, batch.width), []).append(batch)
@@ -424,7 +465,7 @@ def pack_database(db: Database, plan: BatchPlan, device="cpu") -> PackedDatabase
         stack = np.empty((len(batches), rows, width), dtype=np.int8)
         ids = np.full((len(batches), rows), -1, dtype=np.int64)
         for c, b in enumerate(batches):
-            stack[c] = pack_batch(db, b)
+            pack_batch(db, b, out=stack[c])
             ids[c, : b.n_valid] = b.ids
         groups.append(PackedGroup(rows=rows, width=width, stack=torch.from_numpy(stack).to(device), ids=ids))
     return PackedDatabase(groups=tuple(groups), n_sequences=plan.n_sequences)

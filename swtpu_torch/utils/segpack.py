@@ -11,18 +11,21 @@ below zero at no extra per-row cost.
 
 The price is a lower saturation ceiling (~3,900 for W=512, S_MAX=8); scores
 that reach it are rescored exactly by the engine, so results stay exact.
-Packing runs in NumPy on the host; the stacks, rebases and segment ends are
-uploaded to the engine's device.
+The native segment packer (swtpu_torch.native) writes each batch on the
+host, in place into its group's stack (``pack_segments_plain`` is its NumPy
+version); the stacks, rebases and segment ends are uploaded to the engine's
+device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import native
 from ..io.fasta import Database
 from ..ops.profile import PAD_SUBJECT
 from ..ops.row_sw import _PROFILE_MAX
@@ -170,9 +173,16 @@ def _rows_to_batches(
     return batches
 
 
-def pack_segments(db: Database, batch: SegBatch) -> np.ndarray:
-    """Materialise the (rows, width) int8 residue array for a SegBatch (one
-    vectorised gather of every member's residues)."""
+def pack_segments(db: Database, batch: SegBatch, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Materialise the (rows, width) int8 residue array for a SegBatch with
+    the native segment packer, into ``out`` if given."""
+    return native.pack_segments_native(db.residues, db.offsets, batch.ids, batch.starts, batch.width, PAD_SUBJECT, out=out)
+
+
+def pack_segments_plain(db: Database, batch: SegBatch) -> np.ndarray:
+    """NumPy version of :func:`pack_segments` (one vectorised gather of
+    every member's residues; on a valid plan no member passes its row's
+    end, where the native packer would cut it)."""
     out = np.full((batch.rows, batch.width), PAD_SUBJECT, dtype=np.int8)
     r, s = np.nonzero(batch.ids >= 0)
     sid = batch.ids[r, s]
@@ -309,7 +319,9 @@ def pack_batches_to_groups(
         by_rows.setdefault(rows, []).append(_pad_batch_rows(b, rows))
     groups: List[PackedSegGroup] = []
     for rows, bs in sorted(by_rows.items()):
-        stack = np.stack([pack_segments(db, b) for b in bs])
+        stack = np.empty((len(bs), rows, width), dtype=np.int8)
+        for c, b in enumerate(bs):
+            pack_segments(db, b, out=stack[c])
         rebases = np.stack([build_rebase(b, gap, sat) for b in bs])
         ends = np.stack([b.ends for b in bs])
         groups.append(

@@ -19,7 +19,9 @@ prefetch depths, K6's stage switches) and K9's int16 tiles and chains are
 held to their plain versions, and the lab variants that keep the DP to K1.
 Every instantiation of the row-parallel lab kernel (K10: v2, v3, v4, v41) is
 held to its plain version and to K2, at gap 2 and at a gap past JAX's int8
-fold.
+fold.  The CLI on a FASTA file runs on the card through the native host
+runtime, and the streamed paths on natively packed buckets equal the
+resident ones.
 """
 
 from pathlib import Path
@@ -480,3 +482,38 @@ def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, gap):
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert got.shape == (C, B) and torch.equal(got, want), (v, s, ilp)
+
+
+def test_cli_and_native_packed_streaming_on_card(cuda, tmp_path):
+    """A FASTA file through ``python -m swtpu_torch`` on the card (native
+    parse, resident wave pack) equals the CPU engine's scores; the streamed
+    wavefront path (native host buckets) and K3 streamed (native row
+    batches) equal the resident wave and K2 paths."""
+    import subprocess
+    import sys
+
+    from swtpu_torch.alphabet import decode
+    from swtpu_torch.io.fasta import write_fasta
+
+    rng = np.random.default_rng(11)
+    seqs = [decode(rng.integers(0, 25, int(n))) for n in rng.integers(0, 700, 400)]  # empty ones included
+    path = tmp_path / "db.fasta"
+    write_fasta(path, seqs)
+    qpath = DATA / "queries" / "P02232.fasta"
+    out = subprocess.run([sys.executable, "-m", "swtpu_torch", "--query", str(qpath), "--db", str(path)],
+                         cwd=DATA.parent.parent, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    query, db = parse_query(qpath), parse_database(path)
+    want = SearchEngine(SWConfig(), device="cpu").search(query, db).scores
+    dump = [ln for ln in out.stdout.splitlines() if ":" in ln and ln.split(":")[0].isdigit()]
+    assert dump == [f"{i}:{s}" for i, s in enumerate(want.tolist())]
+
+    before = wave_sw.sw_wave.launches
+    streamed = SearchEngine(SWConfig(device_resident=False), device=cuda).search_many([query], db)[0]
+    assert wave_sw.sw_wave.launches > before and np.array_equal(streamed.scores, want)
+    k2 = SearchEngine(SWConfig(use_wave=False), device=cuda)
+    assert np.array_equal(k2.search(query, db).scores, want)
+    before = bucket_sw.sw_score_bucket.launches
+    k3 = SearchEngine(SWConfig(use_wave=False, device_resident=False), device=cuda)
+    assert np.array_equal(k3.search(query, db).scores, want)
+    assert bucket_sw.sw_score_bucket.launches - before == len(k3.plan(db).batches)

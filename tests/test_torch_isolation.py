@@ -1,11 +1,11 @@
 """The port stands alone and never hides the device.
 
 * importing swtpu_torch (its stats copy, the prefilter, the int8, chain,
-  wavefront-lab, row-lab and int16 kernels' wrappers and the roofline and
-  lab tools included) and running a search, a
+  wavefront-lab, row-lab and int16 kernels' wrappers, the native host
+  runtime and the roofline and lab tools included) and running a search, a
   row-path search, a batched top-K with E-values and a prefiltered search
-  loads neither JAX nor swtpu (a subprocess: every pytest process here has
-  imported JAX already);
+  (through the native parse, packers and signatures) loads neither JAX nor
+  swtpu (a subprocess: every pytest process here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
 * every knob of a later slice raises instead of being ignored, and the
   serving, affine-gap, row-path, composed-dispatch and prefilter knobs are
@@ -34,7 +34,7 @@ import swtpu_torch.ops.row_sw, swtpu_torch.ops.bucket_sw, swtpu_torch.utils.segp
 import swtpu_torch.ops.prefilter, swtpu_torch.ops.int8_mma, swtpu_torch.ops.vpu_chain, swtpu_torch.tools.roofline
 import swtpu_torch.ops.wave_lab, swtpu_torch.ops.i16_probe, swtpu_torch.tools.buckets
 import swtpu_torch.tools.probe_i16, swtpu_torch.tools.probe_breakdown, swtpu_torch.tools.wave_lab
-import swtpu_torch.ops.rows_lab, swtpu_torch.tools.pallas_lab
+import swtpu_torch.ops.rows_lab, swtpu_torch.tools.pallas_lab, swtpu_torch.native
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
