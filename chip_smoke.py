@@ -148,7 +148,30 @@ Phases (one line each; any failure exits non-zero with no result line):
               segment groups' scores, to the wavefront path's scores of all
               559,228 sequences; one plain pass for all; a per-group table
               of milliseconds with each instantiation's ratio to K2
- 14. kernels  one JSON line per kernel and mode: launches on its path, error,
+ 14. mesh     the port's single-host mesh (swtpu_torch.parallel) on meshes
+              that name the one card n times (and on distinct cards where the
+              machine has n or more): every shard's kernels, the lane split,
+              the merge and the carry hand-off between pipeline stages run
+              for real; copies between cards and scaling cannot show on one
+              card.  mesh.kernel (after the kernel phases): tools/tpu_fuzz.py's
+              main_shard cases (seed 555) and tools/tpu_validate.py's check 7
+              through the query-band pipeline at n = 1, 2, 4, linear and at
+              gaps 11/1, against one sw_wave and its plain version; and
+              make_sharded_step's K3 route on 2 and 3 shards, against one K3
+              launch over the batch and the plain scorer.
+              mesh.search: the same resident database lane-sharded over 4 and
+              3 shards (counts zeroed just before P01008's first search, read
+              just after: n launches a bucket), P01008's scores, top-10 hits
+              and E-values, gaps 10/2, composed dispatch, the 17 queries
+              through search_many and search_queued, 3 streamed queries, all
+              bit-equal to one device; each shard's launches and ms.
+              mesh.query_shard: the suite's 4,548-residue query against the
+              database's first 20,000 sequences at n = 4, linear and at gaps
+              10/2, bit-equal to one device (counts zeroed just before, read
+              just after: a hand-off launch a device a lane tile); the CLI
+              with --mesh 1 and --mesh 1 --query-shard against the subset
+              golden, and --mesh 2 (exit 2 on one card)
+ 15. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time, the card's lower bound for the same work and
               the library call's time, where one computes the same function
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
@@ -2267,6 +2290,333 @@ def phase_prefilter(db, engine):
     }
 
 
+MESH_QUERY_SHARD_SEQS = 20_000  # mesh.query_shard: the database's first sequences
+MESH_QUERY_SHARD_QUERY = "P08519"  # mesh.query_shard: the suite's 4,548-residue query
+MESH_SIZES = (4, 3)  # mesh.search's lane-sharded meshes
+
+
+def mesh_devices(n):
+    """The devices of an n-shard mesh: the one card named n times (every
+    shard's kernels, the lane split and the merge run for real; no copy
+    between cards and no scaling can show), and where the machine has n
+    cards or more, also those cards."""
+    import torch
+
+    meshes = [("cuda:0 x %d" % n, ["cuda:0"] * n)]
+    if n > 1 and torch.cuda.device_count() >= n:
+        meshes.append(("cuda:0..%d" % (n - 1), [f"cuda:{i}" for i in range(n)]))
+    return meshes
+
+
+def phase_mesh_kernel():
+    """mesh.kernel: tools/tpu_fuzz.py's main_shard cases (seed 555) and
+    tools/tpu_validate.py's check 7 through the query-band pipeline at n = 1,
+    2, 4, linear and at gaps 11/1, against one sw_wave over the whole
+    profile and its plain version; every launch a band-carry hand-off.  Then
+    make_sharded_step's K3 route on 2 and 3 shards of check 7's subjects,
+    ties across shards included, against one K3 launch and the plain
+    scorer."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.matrices import blosum50_ref
+    from swtpu_torch.ops import bucket_sw, row_sw, wave_sw
+    from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
+    from swtpu_torch.parallel import make_sharded_step, query_shard
+    from swtpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mat = blosum50_ref()
+    rng = np.random.default_rng(555)
+    cases = []
+    for _ in range(3):  # tpu_fuzz.main_shard's draws, in its order
+        L = int(rng.choice([150, 333, 700]))
+        B = int(rng.integers(100, 900))
+        Q = int(rng.integers(40, 600))
+        gap = int(rng.choice([1, 2]))
+        subj = np.full((B, L), PAD_SUBJECT, np.int8)
+        for b in range(B):
+            m = int(rng.integers(0, L + 1))
+            subj[b, :m] = rng.integers(0, 25, m)
+        cases.append((f"fuzz B={B} L={L} Q={Q}", rng.integers(0, 25, Q).astype(np.int8), subj, gap))
+    rng2 = np.random.default_rng(13)  # tpu_validate.py check 7
+    subj = np.full((700, 333), PAD_SUBJECT, np.int8)
+    for i in range(700):
+        m = int(rng2.integers(5, 333))
+        subj[i, :m] = rng2.integers(0, 25, m)
+    cases.append(("check7 B=700 L=333 Q=500", rng2.integers(0, 25, 500).astype(np.int8), subj, 2))
+
+    rows, err, launched = [], 0, 0
+    for name, q, subj, gap in cases:
+        subjT, bt = query_shard.wave_layout(subj)
+        n_tiles = subjT.shape[1] // bt
+        prof = torch.from_numpy(make_profile(q, mat, pad_rows_to=wave_sw.W)).cuda()
+        stack = torch.from_numpy(subjT).cuda()
+        for gaps in (dict(gap=gap), dict(gap_open=11, gap_extend=1)):
+            single = wave_sw.sw_wave(prof, stack, **gaps)[: subj.shape[0]].cpu().numpy()
+            plain = wave_sw.sw_wave_plain(prof, stack, **gaps)[: subj.shape[0]].cpu().numpy()
+            if not np.array_equal(single, plain):
+                raise AssertionError(f"mesh.kernel {name} {gaps}: one sw_wave differs from its plain version")
+            for n in (1, 2, 4):
+                for label, devices in mesh_devices(n):
+                    before = wave_sw.sw_wave.carry_launches
+                    got = query_shard.wave_query_sharded_scores(make_mesh(devices=devices), q, subj, mat, **gaps)
+                    launches = wave_sw.sw_wave.carry_launches - before
+                    launched += launches
+                    if launches != n * n_tiles:
+                        raise AssertionError(f"mesh.kernel {name}: {launches} hand-off launches for {n} x {n_tiles} tiles")
+                    err = max(err, int(np.abs(got.astype(np.int64) - single).max()))
+                    if not np.array_equal(got, single):
+                        raise AssertionError(f"mesh.kernel {name} {gaps} on {label}: pipeline differs from one sw_wave")
+                    rows.append((name, "linear" if "gap" in gaps else "11/1", label, n_tiles, launches))
+    # make_sharded_step's K3 route: check 7's subjects and 68 of them again
+    # (each tied with a row of another shard), one K3 launch a shard, the
+    # merged top-8 against one K3 launch over the batch and the plain scorer.
+    _, q7, subj7, gap7 = cases[-1]
+    k3_prof = torch.from_numpy(make_profile(q7, mat, pad_rows_to=32)).cuda()
+    k3_subj = torch.from_numpy(np.concatenate([subj7, subj7[:68]])).cuda()
+    whole = bucket_sw.sw_score_bucket(k3_prof, k3_subj, gap=gap7, strip=32).cpu().numpy()
+    plain = row_sw.sw_score_bucket(k3_prof, k3_subj, gap=gap7, strip=32).cpu().numpy()
+    top = np.lexsort((np.arange(whole.shape[0]), -whole))[:8]  # (score desc, id asc)
+    k3_runs = []
+    for n in (2, 3):
+        for label, devices in mesh_devices(n):
+            step = make_sharded_step(make_mesh(devices=devices), gap=gap7, strip=32, top_k=8, use_pallas=True)
+            before = bucket_sw.sw_score_bucket.launches
+            scores, top_ids, top_scores = step(k3_prof, k3_subj)
+            launches = bucket_sw.sw_score_bucket.launches - before
+            ok = (launches == n and np.array_equal(whole, plain) and np.array_equal(scores.cpu().numpy(), whole)
+                  and np.array_equal(top_ids.cpu().numpy(), top) and np.array_equal(top_scores.cpu().numpy(), whole[top]))
+            if not ok:
+                raise AssertionError(f"mesh.kernel make_sharded_step K3 on {label}: differs from one K3 launch and the plain scorer")
+            k3_runs.append((label, launches))
+    say("mesh.kernel", cases=len(cases), runs=len(rows), hand_off_launches=launched, max_abs_err=err,
+        columns=["case", "gaps", "mesh", "lane_tiles", "launches"], rows=rows, equal_single_and_plain=True,
+        sharded_step_k3=k3_runs, seconds=round(time.perf_counter() - t_phase, 3))
+    return err
+
+
+def phase_mesh_search(db, first_scores, suite_scores, affine_engine):
+    """mesh.search: the SwissProt-shaped database on lane-sharded meshes of 4
+    and 3 (the card named n times): P01008's scores (counts zeroed just
+    before the first search, read just after: n launches a bucket), top-10
+    hits and E-values, gaps 10/2, composed dispatch, the 17-query suite
+    through search_many and search_queued, and 3 streamed queries, all
+    bit-equal to the single-device engine; each shard's launches and ms; the
+    n = 4 shards' launches alone against their plain version."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import wave_sw
+    from swtpu_torch.parallel.mesh import on_device
+
+    t_phase = time.perf_counter()
+    queries = [parse_query(ROOT / "tests" / "data" / "queries" / f"{name}.fasta") for name in SUITE]
+    query = queries[SUITE.index(MAIN_QUERY)]
+    affine_want = affine_engine.search(query, db).scores
+    ref_topk = SearchEngine(SWConfig(top_k=10, evalue=True), device="cuda").search(query, db)
+    entry = None
+
+    def same(name, got, want):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"mesh.search {name}: {int((got != want).sum())} scores differ from one device's")
+
+    for n in MESH_SIZES:
+        for label, devices in mesh_devices(n):
+            t_mesh = time.perf_counter()
+            eng = SearchEngine(SWConfig(mesh_shape=(n,)), device=devices)
+            # --- the mesh's main path: counts zeroed just before, read just after
+            wave_sw.sw_wave.launches = 0
+            t0 = time.perf_counter()
+            res = eng.search(query, db)
+            first_wall = time.perf_counter() - t0
+            launches = wave_sw.sw_wave.launches
+            packed = eng._resident_packed(db)
+            groups = packed.wave_groups
+            if launches != n * len(groups) or launches == 0:
+                raise AssertionError(f"mesh.search {label}: {launches} launches for {n} shards x {len(groups)} buckets")
+            same(f"{label} P01008", res.scores, first_scores)
+            timed = [eng.search(query, db).metrics for _ in range(3)]
+            # each shard's launches alone, back to back on its device
+            profile = eng._profile(query)
+            gap = eng.config.gap_penalty
+            shard_ms, shard_lanes = [], []
+            for k in range(n):
+                dev = groups[0].parts[k].device
+                prof_k = profile.to(dev)
+                fn = lambda k=k, p=prof_k: [wave_sw.sw_wave(p, g.parts[k], gap=gap, n_segs=g.n_segs) for g in groups]  # noqa: E731
+                with on_device(dev):  # events and launches on the shard's own device
+                    events_ms(fn)  # warm
+                    shard_ms.append(events_ms(fn, reps=3)[0])
+                shard_lanes.append(sum(g.parts[k].shape[1] for g in groups))
+            topk = SearchEngine(SWConfig(mesh_shape=(n,), top_k=10, evalue=True), device=devices).search(query, db)
+            if topk.hits != ref_topk.hits or topk.top_k_stats(10) != ref_topk.top_k_stats(10):
+                raise AssertionError(f"mesh.search {label}: top-10 hits or E-values differ from one device's")
+            aff = SearchEngine(SWConfig(mesh_shape=(n,), **AFFINE), device=devices)
+            same(f"{label} affine", aff.search(query, db).scores, affine_want)
+            del aff
+            comp = SearchEngine(SWConfig(mesh_shape=(n,), wave_compose=True), device=devices)
+            same(f"{label} composed", comp.search(query, db).scores, first_scores)
+            del comp
+            t0 = time.perf_counter()
+            many = eng.search_many(queries, db)
+            many_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            queued = eng.search_queued(queries, db)
+            queued_wall = time.perf_counter() - t0
+            for name, a, b, want in zip(SUITE, many, queued, suite_scores):
+                same(f"{label} search_many {name}", a.scores, want)
+                same(f"{label} search_queued {name}", b.scores, want)
+            three = [SUITE.index(x) for x in ("P02232", "P05013", "P14942")]
+            streamed = SearchEngine(SWConfig(mesh_shape=(n,), device_resident=False), device=devices)
+            for i, r in zip(three, streamed.search_many([queries[i] for i in three], db)):
+                same(f"{label} streamed {SUITE[i]}", r.scores, suite_scores[i])
+            say("mesh.search", mesh=label, shards=n, buckets=len(groups), launches_first_search=launches,
+                first_search_wall_s=first_wall, device_seconds=[m.device_seconds for m in timed],
+                wall_seconds=[m.wall_seconds for m in timed], shard_launches=[len(groups)] * n, shard_ms=shard_ms,
+                shard_lanes=shard_lanes, suite_many_device_s=sum(r.metrics.device_seconds for r in many),
+                suite_many_wall_s=many_wall, suite_queued_device_s=sum(r.metrics.device_seconds for r in queued),
+                suite_queued_wall_s=queued_wall, topk_hits_and_evalues_equal=True, bit_equal_to_single=True,
+                seconds=round(time.perf_counter() - t_mesh, 3))
+            if entry is None:  # n = 4 on the one card: the kernel line's mesh entry
+                kernel_ms = sum(shard_ms)
+                plain_ms, plain = events_ms(lambda: [
+                    wave_sw.sw_wave_plain(profile, part, gap=gap, n_segs=g.n_segs) for g in groups for part in g.parts
+                ])
+                flat = torch.cat([
+                    torch.cat([plain[i * n + k] for k in range(n)]) for i in range(len(groups))
+                ]).cpu().numpy()
+                plain_scores = eng._reduce_flat(flat, packed)
+                err = int(np.abs(plain_scores.astype(np.int64) - res.scores.astype(np.int64)).max())
+                if err:
+                    raise AssertionError(f"mesh.search: the shards' plain version differs by {err}")
+                qpad = profile.shape[0]
+                cells = sum(qpad * g.n_segs * g.seg_cols * g.lanes for g in groups)
+                nbytes = sum(g.cells + n * qpad * 32 + 4 * g.rows for g in groups)
+                bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / int32_ops_per_s
+                entry = {
+                    "name": f"sw_wave (lane-sharded mesh, {label})", "route": "cuda",
+                    "source": "swtpu_torch/csrc/sw_wave.cu", "replaces": "swtpu/ops/wave_sw.py:815",
+                    "launches": launches, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                    "bound_ms": max(bytes_ms, ops_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                    "library_ms": None,
+                }
+            del eng, streamed
+            torch.cuda.empty_cache()
+    say("mesh.search.done", seconds=round(time.perf_counter() - t_phase, 3))
+    return entry
+
+
+def phase_mesh_query_shard(db):
+    """mesh.query_shard: the suite's 4,548-residue query against the
+    database's first 20,000 sequences through the query-band pipeline at n = 4
+    (counts zeroed just before each search, read just after: every launch a
+    band-carry hand-off, four a lane tile), linear and at gaps 10/2, against
+    the single-device engine; the CLI with --mesh 1 and --mesh 1
+    --query-shard on the committed subset against its golden, and --mesh 2,
+    which fails on one card and runs where there are two."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from swtpu_torch.cli import main as cli_main
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import wave_sw
+    from swtpu_torch.ops.profile import make_profile
+
+    t_phase = time.perf_counter()
+    query = parse_query(ROOT / "tests" / "data" / "queries" / f"{MESH_QUERY_SHARD_QUERY}.fasta")
+    sub = db.take(np.arange(MESH_QUERY_SHARD_SEQS))
+    n = 4
+    entry = None
+    for gname, gaps in (("linear", {}), ("affine", AFFINE)):
+        one = SearchEngine(SWConfig(**gaps), device="cuda")
+        want = one.search(query, sub).scores
+        single_s = [one.search(query, sub).metrics.device_seconds for _ in range(2)]
+        del one
+        for label, devices in mesh_devices(n):
+            eng = SearchEngine(SWConfig(mesh_shape=(n,), query_shard=True, **gaps), device=devices)
+            packed = eng._resident_packed(sub)
+            tiles = sum(g.parts[0].shape[0] for g in packed.wave_groups)
+            wave_sw.sw_wave.launches = wave_sw.sw_wave.carry_launches = 0
+            res = eng.search(query, sub)
+            launched = {"launches": wave_sw.sw_wave.launches, "carry_launches": wave_sw.sw_wave.carry_launches}
+            if launched["carry_launches"] != n * tiles or launched["launches"] != n * tiles:
+                raise AssertionError(f"mesh.query_shard {label}: {launched} for {n} devices x {tiles} tiles")
+            err = int(np.abs(res.scores.astype(np.int64) - want.astype(np.int64)).max())
+            if err:
+                raise AssertionError(f"mesh.query_shard {gname} {label}: scores differ from one device's by {err}")
+            timed = [eng.search(query, sub).metrics for _ in range(2)]
+            profile = eng._profile(query)
+            # events on one device span the pipeline only when every stage is on it
+            kernel_ms = events_ms(lambda: eng._flat(profile, packed), reps=2)[0] if len(eng._devices) == 1 else None
+            say("mesh.query_shard", query=MESH_QUERY_SHARD_QUERY, query_length=query.length, sequences=sub.n, gaps=gname, mesh=label,
+                buckets=len(packed.wave_groups), lane_tiles=tiles, launches=launched, pipeline_kernel_ms=kernel_ms,
+                device_seconds=[m.device_seconds for m in timed], wall_seconds=[m.wall_seconds for m in timed],
+                single_device_seconds=single_s,
+                max_abs_err=err, bit_equal_to_single=True)
+            if entry is None:
+                # The plain version of the hand-off on one lane tile of each
+                # bucket, the pipeline's kernels on the same tiles beside it.
+                bands = [profile[k * profile.shape[0] // n:(k + 1) * profile.shape[0] // n] for k in range(n)]
+
+                def pipe(fn):
+                    outs = []
+                    for g in packed.wave_groups:
+                        carry = None
+                        for k in range(n):
+                            s_k, carry = fn(bands[k], g.parts[k][0], carry, return_carry=True, **eng._gaps)
+                            outs.append(s_k)
+                    return outs
+
+                sample_ms, got = events_ms(lambda: pipe(wave_sw.sw_wave))
+                plain_ms, plain = events_ms(lambda: pipe(wave_sw.sw_wave_plain))
+                sample_err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, plain))
+                if sample_err:
+                    raise AssertionError(f"mesh.query_shard: the hand-off pipeline differs from its plain version by {sample_err}")
+                qpad = profile.shape[0]
+                cells = sum(qpad * g.width * g.lanes for g in packed.wave_groups)
+                carry_io = sum(4 * g.width * g.lanes * (2 * n - 1) for g in packed.wave_groups)
+                nbytes = sum(n * g.cells + qpad * 32 + n * 4 * g.lanes for g in packed.wave_groups) + carry_io
+                bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / int32_ops_per_s
+                entry = {
+                    "name": f"sw_wave (carry hand-off, query-shard pipeline, {label})", "route": "cuda",
+                    "source": "swtpu_torch/csrc/sw_wave.cu", "replaces": "swtpu/ops/wave_sw.py:815",
+                    "launches": launched["carry_launches"], "max_abs_err": max(err, sample_err), "ms": kernel_ms,
+                    "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+                    "plain_sample": "the first lane tile of each bucket, the %d devices' bands in turn (kernel %.3f ms "
+                                    "on the same sample)" % (n, sample_ms),
+                }
+            del eng
+    # --- the CLI: --mesh 1, --mesh 1 --query-shard, --mesh 2
+    golden = (ROOT / "tests" / "data" / "golden_P02232_subset.txt").read_text().split()
+    base = ["--query", str(ROOT / "tests" / "data" / "queries" / "P02232.fasta"),
+            "--db", str(ROOT / "tests" / "data" / "uniprot_subset.fasta")]
+    cli = {}
+    for flags in (["--mesh", "1"], ["--mesh", "1", "--query-shard"], ["--mesh", "2"]):
+        out, errs = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(errs):
+            rc = cli_main(base + flags)
+        dump = [ln.split(":")[1] for ln in out.getvalue().splitlines() if ln[:1].isdigit() and ":" in ln]
+        two_cards = torch.cuda.device_count() >= 2
+        if flags == ["--mesh", "2"] and not two_cards:
+            if rc != 2 or "only 1 available" not in errs.getvalue():
+                raise AssertionError(f"--mesh 2 on one card: rc {rc}, {errs.getvalue()!r}")
+        elif rc != 0 or dump != golden:
+            raise AssertionError(f"CLI {' '.join(flags)}: rc {rc}, dump equal to the golden: {dump == golden}")
+        cli[" ".join(flags)] = {"rc": rc, "stderr": errs.getvalue().strip()[:160]}
+    say("mesh.cli", runs=cli, golden="tests/data/golden_P02232_subset.txt", seconds=round(time.perf_counter() - t_phase, 3))
+    return entry
+
+
 def main() -> int:
     try:
         import torch
@@ -2292,6 +2642,7 @@ def main() -> int:
         rows_err = phase_kernel_rows()
         rows_lab_err = phase_kernel_rows_lab()
         carry_err = phase_kernel_carry()
+        mesh_kernel_err = phase_mesh_kernel()
         counts_err, probe_err = phase_kernel_mma()
         chain_err = phase_kernel_chain()
         lab_err = phase_kernel_lab()
@@ -2308,6 +2659,8 @@ def main() -> int:
         k2, k3, row_engine = phase_rows(db, engine)
         phase_native_pack(db, engine, row_engine)
         carry = phase_compose(db, engine, affine_engine, suite_scores)
+        mesh_lanes = phase_mesh_search(db, suite_scores[SUITE.index(MAIN_QUERY)], suite_scores, affine_engine)
+        mesh_bands = phase_mesh_query_shard(db)
         coarse = phase_prefilter(db, engine)
         labs = phase_lab(db, engine)
         k10 = phase_lab_rows(db, engine, row_engine)
@@ -2321,6 +2674,7 @@ def main() -> int:
     for k in (k2, k3):
         k["max_abs_err"] = max(k["max_abs_err"], rows_err)
     carry["max_abs_err"] = max(carry["max_abs_err"], carry_err)
+    mesh_bands["max_abs_err"] = max(mesh_bands["max_abs_err"], mesh_kernel_err)
     coarse["max_abs_err"] = max(coarse["max_abs_err"], counts_err)
     probe["max_abs_err"] = max(probe["max_abs_err"], probe_err)
     chain["max_abs_err"] = max(chain["max_abs_err"], chain_err)
@@ -2330,7 +2684,8 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], rows_lab_err)
     for k in k9:
         k["max_abs_err"] = max(k["max_abs_err"], i16_err)
-    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, coarse, probe, chain, *labs, *k9, *k10]}))
+    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, mesh_lanes, mesh_bands, coarse, probe, chain,
+                                  *labs, *k9, *k10]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,11 @@ for the CUDA kernels K2 and K3, ``--score-dtype int16`` for the narrow-type
 parity mode, ``--batch-rows``/``--length-quantum`` for its ladder);
 ``--compose`` for composed band-group dispatch; ``--prefilter FRAC`` for the
 heuristic two-phase search (k-mer coarse pass, exact rescore of the top
-candidates; requires ``--top-k``).  Runs on
-the card unless ``--device cpu``.  Flags of features not ported yet are not
-accepted.
+candidates; requires ``--top-k``); ``--mesh N`` to shard the database's
+lanes over N cards (N CPU shards with ``--device cpu``), with
+``--query-shard`` to shard the query's bands instead.  Runs on the card
+unless ``--device cpu``.  Flags of features not ported yet are not
+accepted, and a combination that a later slice brings exits 2.
 
 Usage::
 
@@ -96,6 +98,19 @@ def build_parser() -> argparse.ArgumentParser:
         "of the database (requires --top-k; reported scores are exact, but hits outside the "
         "candidate set are missed)",
     )
+    p.add_argument(
+        "--mesh",
+        type=int,
+        default=1,
+        metavar="N",
+        help="shard the database over N devices: the first N cards, or N CPU shards with --device cpu",
+    )
+    p.add_argument(
+        "--query-shard",
+        action="store_true",
+        help="with --mesh N: shard the query's bands across the devices instead (systolic wavefront "
+        "pipeline; latency mode for a long query against a small database, which is replicated)",
+    )
     p.add_argument("--batch-rows", type=int, default=8192)
     p.add_argument("--length-quantum", type=int, default=128)
     return p
@@ -132,8 +147,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             evalue=args.evalue,
             wave_compose=args.compose,
             prefilter=args.prefilter,
+            mesh_shape=(args.mesh,),
+            query_shard=args.query_shard,
         )
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         print(f"swtpu_torch: error: {e}", file=sys.stderr)
         return 2
 

@@ -6,11 +6,11 @@ or a device top-K, E-values, and the alignment traceback; and swtpu's
 row-parallel scoring family (``use_wave=False``, ``score_dtype="int16"``):
 ladder and segment packing, the int32, fast16, seg16 and int16-parity
 scorers with their exact rescore, and the CUDA kernels K2 and K3 behind
-``use_pallas``; composed band-group dispatch (``wave_compose``); and the
+``use_pallas``; composed band-group dispatch (``wave_compose``); the
 k-mer prefilter (``prefilter``), whose coarse pass is the CUDA kernel of
-``ops.int8_mma``.  A
-knob of a feature that a later slice of the port brings (``ROADMAP.md``
-Queue A) keeps its field and default here, and setting it to anything else
+``ops.int8_mma``; and single-host multi-device search (``mesh_shape``,
+``query_shard``: swtpu_torch.parallel) on the wavefront path.  A
+combination that a later slice of the port brings (``ROADMAP.md`` Queue A)
 raises ``NotImplementedError`` naming that slice, so no setting is silently
 ignored.  The TPU-only ``interpret`` and ``wave_unroll_block`` have no
 counterpart.
@@ -19,6 +19,7 @@ counterpart.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -98,9 +99,17 @@ class SWConfig:
     prefilter: Optional[float] = None
     prefilter_min_candidates: int = 256
 
-    # --- knobs of later slices: defaults only ---------------------------------
+    # --- parallelism (implemented on the wavefront path) ------------------------
+    # Device mesh axis sizes: the database's lanes shard over prod(mesh_shape)
+    # devices (swtpu_torch.parallel.mesh), one contiguous lane shard of every
+    # bucket a device, and the results merge on the first.
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("db",)
+    # Query-band sharding: with a mesh, split the query's bands across the
+    # devices instead of the lanes, pipelining lane tiles with the kernel's
+    # band carry handed from device k to k+1 (swtpu_torch.parallel.
+    # query_shard); the database is replicated.  For latency on long
+    # queries against small databases.
     query_shard: bool = False
 
     def __post_init__(self):
@@ -117,6 +126,10 @@ class SWConfig:
             raise ValueError("length_quantum and batch_rows must be >= 1")
         if self.score_dtype not in ("int32", "int16"):
             raise ValueError(f"unsupported score_dtype {self.score_dtype!r}")
+        if len(self.mesh_shape) != len(self.mesh_axes):
+            raise ValueError("mesh_shape and mesh_axes must align")
+        if any(int(n) < 1 for n in self.mesh_shape):
+            raise ValueError(f"mesh_shape sizes must be >= 1 (got {self.mesh_shape})")
         if self.device_resident_cells < 0:
             raise ValueError("device_resident_cells must be >= 0")
         if self.top_k is not None and self.top_k < 1:
@@ -136,22 +149,37 @@ class SWConfig:
                 )
             if self.prefilter_min_candidates < 1:
                 raise ValueError("prefilter_min_candidates must be >= 1")
-        defaults = SWConfig.__dataclass_fields__
-        for name, later in _LATER_SLICES.items():
-            value = getattr(self, name)
-            if value != defaults[name].default:
-                raise NotImplementedError(
-                    f"SWConfig.{name}={value!r} is not ported yet: it arrives with "
-                    f"{later} (ROADMAP.md Queue A)"
+        if self.n_devices > 1 or self.query_shard:
+            # swtpu's engine checks (swtpu/models/search.py:232-256), here so
+            # that the CLI refuses before it parses anything.
+            if self.wave_chain and self.query_shard:
+                raise ValueError("wave_chain=True is incompatible with query_shard")
+            if self.query_shard and (self.score_dtype == "int16" or self.use_wave is False):
+                raise ValueError(
+                    "query_shard requires the wavefront path: leave use_wave at None or True "
+                    "and score_dtype at 'int32'"
                 )
+            later = self._later_slice()
+            if later is not None:
+                raise NotImplementedError(f"{later} is not ported yet: it arrives with slice A14b (ROADMAP.md Queue A)")
+
+    def _later_slice(self) -> Optional[str]:
+        """The multi-device combination that slice A14b of the port brings,
+        if this config asks for one; none falls back to one device."""
+        if self.n_devices == 1:
+            return None
+        if self.score_dtype == "int16" or self.use_wave is False:
+            return "the row path (use_wave=False or score_dtype='int16') under a mesh"
+        if self.prefilter is not None:
+            return "the prefilter under a mesh"
+        if self.query_shard and not self.device_resident:
+            return "a streamed (non-resident) database under query_shard"
+        return None
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(int(n) for n in self.mesh_shape)
 
     def replace(self, **kw) -> "SWConfig":
         return dataclasses.replace(self, **kw)
 
-
-# Field -> the slice of the port that implements it.
-_LATER_SLICES = {
-    "mesh_shape": "slice A14 (multi-GPU)",
-    "mesh_axes": "slice A14 (multi-GPU)",
-    "query_shard": "slice A14 (multi-GPU)",
-}

@@ -88,6 +88,20 @@ class Database:
         src = np.repeat(self.offsets[ids] - off[:-1], lens) + np.arange(int(off[-1]), dtype=np.int64)
         return Database(residues=self.residues[src], offsets=off)
 
+    def shard(self, index: int, count: int) -> "Database":
+        """Contiguous shard ``index`` of ``count`` (:func:`shard_range`);
+        record i of the shard is record ``lo + i`` of this database."""
+        lo, hi = shard_range(self.n, index, count)
+        off = self.offsets[lo : hi + 1]
+        return Database(residues=self.residues[int(off[0]) : int(off[-1])], offsets=(off - off[0]).copy())
+
+
+def shard_range(n: int, index: int, count: int) -> Tuple[int, int]:
+    """Even contiguous [lo, hi) split of n items into ``count`` shards."""
+    base, rem = divmod(n, count)
+    lo = index * base + min(index, rem)
+    return lo, lo + base + (1 if index < rem else 0)
+
 
 def _split_records(data: bytes) -> List[Tuple[bytes, bytes]]:
     """Split FASTA bytes into (header line as read, sequence bytes without

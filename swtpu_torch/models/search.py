@@ -31,10 +31,20 @@ Serving paths beside the single search:
   next (the kernel's hand-off mode), and ``search_many`` serves a piece
   through those chains until ``warmup_many_background`` has run its fused
   shape; ``warmup`` and ``warmup_background`` run each shape a batch needs
-  once, ahead of it.
+  once, ahead of it;
+* with ``SWConfig.mesh_shape = (n,)`` the wavefront path runs on a mesh of
+  n devices (swtpu_torch.parallel): every bucket's lanes shard
+  contiguously over the devices, each shard's launches run on its own
+  device (``_score_shards``), and the results merge on the primary: flat
+  scores concatenated in mesh order, or each shard's top-K keys and null
+  moments reduced to one top-K and one moment vector; with
+  ``SWConfig.query_shard`` the query's bands shard instead, through the
+  systolic pipeline of ``parallel.query_shard``.
 
 The engine runs on the card unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises rather than fall back.
+A mesh takes the first n cards unless the caller names its devices (a
+sequence, in which a device may repeat, or ``"cpu"`` for n CPU shards).
 """
 
 from __future__ import annotations
@@ -56,6 +66,8 @@ from ..matrices import get_matrix
 from ..ops import bucket_sw, int8_mma, row_sw, wave_sw
 from ..ops import prefilter as pf
 from ..ops.profile import PAD_SUBJECT, make_profile
+from ..parallel import query_shard
+from ..parallel.mesh import Mesh, lane_bounds, make_mesh, on_device, replicate, replicate_tiles, shard_lanes
 from ..utils import segpack
 from ..utils.bucketing import (
     BatchPlan,
@@ -213,9 +225,21 @@ class SearchEngine:
 
     def __init__(self, config: SWConfig = SWConfig(), device=None):
         self.config = config
-        self.device = resolve_device(device)
+        # A mesh of config.n_devices > 1 devices, or None for one device;
+        # self.device is the mesh's primary, where results merge.
+        self.mesh: Optional[Mesh] = self._resolve_mesh(device)
+        if self.mesh is None and isinstance(device, (list, tuple, Mesh)):  # a list of one device
+            device = (device.devices if isinstance(device, Mesh) else device)[0]
+        self.device = self.mesh.primary if self.mesh is not None else resolve_device(device)
+        self._devices = self.mesh.distinct if self.mesh is not None else (self.device,)
+        self._qshard = config.query_shard and self.mesh is not None
+        # The devices a bucket's lanes split over, one part each: the mesh
+        # when it is lane-sharded, else the one device.
+        self._lanes = self.mesh if self.mesh is not None and not self._qshard else Mesh((self.device,))
         self.matrix = get_matrix(config.matrix)
-        self._wave_chain = True if config.wave_chain is None else config.wave_chain
+        # Subject chaining: on unless asked off, and off under query_shard
+        # (one subject a lane: the pipeline's carry chain is a lane's).
+        self._wave_chain = (not config.query_shard) if config.wave_chain is None else config.wave_chain
         # The kernel's gap arguments, at every launch (swtpu's wave_local): a
         # config with gap_open runs the affine mode, even when open == extend.
         self._affine = config.gap_open is not None
@@ -258,9 +282,53 @@ class SearchEngine:
 
     # --- device plumbing -------------------------------------------------------
 
+    def _resolve_mesh(self, device) -> Optional[Mesh]:
+        """The mesh of ``config.mesh_shape``: None for one device; for n > 1,
+        the first n cards (``device`` None or ``"cuda"``), n CPU shards
+        (``"cpu"``), or the n devices of a sequence or Mesh as given."""
+        n, axis = self.config.n_devices, self.config.mesh_axes[0]
+        if isinstance(device, Mesh):
+            device = device.devices
+        if isinstance(device, (list, tuple)):
+            if len(device) != n:
+                raise ValueError(f"mesh_shape={self.config.mesh_shape} needs {n} devices, {len(device)} given")
+            if n == 1:
+                return None
+            mesh = make_mesh(n, axis, devices=device)
+            if len({d.type for d in mesh.devices}) > 1:
+                raise ValueError(f"a mesh's devices are all CUDA or all CPU, not {mesh.devices}")
+            return mesh
+        if n == 1:
+            return None
+        if device is None or torch.device(device) == torch.device("cuda"):
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"no CUDA device is available for mesh_shape={self.config.mesh_shape}; pass "
+                    "device='cpu' to shard over the CPU"
+                )
+            return make_mesh(n, axis)
+        if torch.device(device).type == "cpu":
+            return make_mesh(n, axis, devices=("cpu",) * n)
+        raise ValueError(
+            f"mesh_shape={self.config.mesh_shape} takes device=None or 'cuda' (the first {n} cards), "
+            f"'cpu', or a sequence of {n} devices, not {device!r}"
+        )
+
     @property
     def _on_cuda(self) -> bool:
         return self.device.type == "cuda"
+
+    def _replicas(self, t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``t`` (on the primary) on the device of every lane shard."""
+        return replicate(t, self._lanes)
+
+    def _place(self, group):
+        """A bucket packed on the primary, on the engine's devices: its lane
+        shards, shard k on device k (one part on one device), or under
+        query_shard a tile-major replica on every mesh device."""
+        if self._qshard:
+            return dataclasses.replace(group, parts=replicate_tiles(group.stack, group.bt, self.mesh))
+        return dataclasses.replace(group, parts=shard_lanes(group.stack, self._lanes))
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, without a host sync on the
@@ -278,24 +346,39 @@ class SearchEngine:
         return host.copy_(t, non_blocking=True)
 
     def _sync(self) -> None:
+        """Wait for every device's current stream (one host thread enqueued
+        on all of them; no shard syncs on its own)."""
         if self._on_cuda:
-            torch.cuda.current_stream(self.device).synchronize()
+            for dev in self._devices:
+                torch.cuda.current_stream(dev).synchronize()
 
     def _mark(self):
-        """A point on the current stream: a CUDA event on the card, the host
-        clock on the CPU (where the work before it has already run)."""
+        """A point on the current streams: a CUDA event on each of the
+        engine's devices, the host clock on the CPU (where the work before it
+        has already run)."""
         if not self._on_cuda:
             return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
+        marks = []
+        for dev in self._devices:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(dev))
+            marks.append(ev)
+        return tuple(marks)
+
+    @staticmethod
+    def _wait(mark) -> None:
+        """Wait until a mark's events have completed."""
+        if not isinstance(mark, float):
+            for ev in mark:
+                ev.synchronize()
 
     @staticmethod
     def _seconds(start, end) -> float:
-        """Seconds between two marks; a CUDA end mark must have completed."""
+        """Seconds between two marks, the longest device's span (events
+        compare only on one device); a CUDA end mark must have completed."""
         if isinstance(start, float):
             return end - start
-        return start.elapsed_time(end) / 1e3
+        return max(a.elapsed_time(b) for a, b in zip(start, end)) / 1e3
 
     @contextlib.contextmanager
     def _oom_hint(self, what: str):
@@ -411,12 +494,16 @@ class SearchEngine:
 
     def pack_to_device(self, db: Database, plan=None) -> PackedDatabase:
         """Pack the whole database on the engine's device: into wave buckets
-        on the wavefront path (``plan``: a plan_wave_buckets result), else
+        on the wavefront path (``plan``: a plan_wave_buckets result), each
+        then placed on the mesh (``_place``), else
         into ladder groups (``plan``: a BatchPlan) and, with segment packing,
         segment-packed groups for every sequence shorter than
         max(seg_widths)."""
         if self._wave_enabled:
-            return pack_database_wave(db, device=self.device, chain=self._wave_chain, plan=plan)
+            if plan is None:
+                plan = self._wave_plan(db)
+            packed = pack_database_wave(db, device=self.device, plan=plan)
+            return dataclasses.replace(packed, wave_groups=tuple(self._place(g) for g in packed.wave_groups))
         cfg = self.config
         # Segment packing needs a usable saturation ceiling; large gap
         # penalties (or int16 mode) pack plain ladder batches.
@@ -469,10 +556,12 @@ class SearchEngine:
             return self._resident[1]
         if not self.config.device_resident:
             return None
-        budget = resident_cell_budget(self.config.device_resident_cells, self.device)
+        budget = resident_cell_budget(self.config.device_resident_cells, self._devices)
         if self._wave_enabled:
-            plan = plan_wave_buckets(db, chain=self._wave_chain)
+            plan = self._wave_plan(db)
             need = sum((width + wave_sw.W) * bpad for width, _, _, bpad, _ in plan)
+            if self._qshard:  # every device holds the whole database
+                need *= len(self._devices)
         else:
             if plan is None:
                 plan = self.plan(db)
@@ -484,30 +573,69 @@ class SearchEngine:
 
     # --- scoring ------------------------------------------------------------------
 
-    def _packed_step(self, profile: torch.Tensor, groups) -> torch.Tensor:
-        """Score every bucket, one launch each; flat scores on the device,
-        (total,) for a (qpad, 32) profile or (Q, total) for a profile stack.
+    def _wave_plan(self, db: Database):
+        """The wave plan of ``db``: its buckets' lanes padded to split into
+        equal shards of whole lane tiles over the lane shards' devices."""
+        return plan_wave_buckets(db, lane_multiple=self._lanes.size, chain=self._wave_chain)
+
+    def _score_shards(self, groups, launch) -> List[List[torch.Tensor]]:
+        """Every bucket call of the wavefront path: ``launch(k, group,
+        part)`` for each bucket and each of its lane shards, on shard k's
+        device (inside its device context: a kernel entry point sets the
+        thread's CUDA device itself); returns the outputs per shard, in
+        bucket order, where they were computed.  One device is one shard."""
+        outs: List[List[torch.Tensor]] = [[] for _ in range(self._lanes.size)]
+        for g in groups:
+            for k, part in enumerate(g.parts):
+                with on_device(part.device):
+                    outs[k].append(launch(k, g, part))
+        return outs
+
+    def _gather(self, outs: List[List[torch.Tensor]], profile: torch.Tensor) -> torch.Tensor:
+        """Per-shard outputs as one flat array on the primary device, bucket
+        by bucket and each bucket's shards in mesh order: the lane-major
+        (lane, segment) order of the bucket's ids."""
+        if not outs[0]:
+            return torch.zeros(*profile.shape[:-2], 0, dtype=torch.int32, device=self.device)
+        return torch.cat(
+            [shard[i].to(self.device, non_blocking=True) for i in range(len(outs[0])) for shard in outs], dim=-1
+        )
+
+    def _packed_outs(self, profile: torch.Tensor, groups) -> List[List[torch.Tensor]]:
+        """Score every bucket, one launch a lane shard; per-shard outputs
+        (``_score_shards``), (lanes,) for a (qpad, 32) profile or (Q, lanes)
+        for a profile stack, which every device gets a replica of.
 
         A stack of several queries whose band carry would exceed the scratch
-        share of free device memory (utils/memory.py) is split along the
-        query axis into as many launches as it takes.
+        share of its device's free memory (utils/memory.py) is split along
+        the query axis into as many launches as it takes.
         """
-        budget = scratch_budget_bytes(self.device) if profile.dim() == 3 and profile.shape[0] > 1 else None
+        profiles = self._replicas(profile)
+        multi = profile.dim() == 3 and profile.shape[0] > 1
         n_bands = profile.shape[-2] // wave_sw.W
-        outs = []
-        for g in groups:
-            per_query = wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, g.lanes, self._affine)
-            if budget is not None and per_query * profile.shape[0] > budget:
+        # Free memory is read once a call and device, not once a bucket.
+        free = {dev: scratch_budget_bytes(dev) for dev in self._lanes.distinct} if multi else {}
+        budgets = [free.get(dev) for dev in self._lanes.devices]
+
+        def launch(k, g, part):
+            prof = profiles[k]
+            budget = budgets[k]
+            per_query = wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, part.shape[1], self._affine)
+            if budget is not None and per_query * prof.shape[0] > budget:
                 step = max(1, budget // per_query)
-                outs.append(torch.cat([
-                    wave_sw.sw_wave(profile[i : i + step], g.stack, n_segs=g.n_segs, **self._gaps)
-                    for i in range(0, profile.shape[0], step)
-                ]))
-            else:
-                outs.append(wave_sw.sw_wave(profile, g.stack, n_segs=g.n_segs, **self._gaps))
-        if not outs:
-            return torch.zeros(*profile.shape[:-2], 0, dtype=torch.int32, device=self.device)
-        return torch.cat(outs, dim=-1)
+                return torch.cat([
+                    wave_sw.sw_wave(prof[i : i + step], part, n_segs=g.n_segs, **self._gaps)
+                    for i in range(0, prof.shape[0], step)
+                ])
+            return wave_sw.sw_wave(prof, part, n_segs=g.n_segs, **self._gaps)
+
+        return self._score_shards(groups, launch)
+
+    def _packed_step(self, profile: torch.Tensor, groups) -> torch.Tensor:
+        """Score every bucket, one launch a lane shard; flat scores on the
+        primary device, (total,) for a (qpad, 32) profile or (Q, total) for
+        a profile stack."""
+        return self._gather(self._packed_outs(profile, groups), profile)
 
     def _fused_step(self, profile: torch.Tensor, stack: torch.Tensor) -> int:
         """Chunks per K2 launch over a (C, B, L) stack: all C, or as many as
@@ -555,15 +683,33 @@ class SearchEngine:
             return torch.zeros(0, dtype=torch.int32, device=self.device)
         return torch.cat([o.reshape(-1) for o in outs])
 
-    def _flat(self, profile: torch.Tensor, packed: PackedDatabase, compose: bool = False) -> torch.Tensor:
-        """One query's flat scores against a resident pack, on the device:
-        through the composed chain with ``compose``, else one launch per
-        bucket (or the row path's scorers)."""
+    def _scored(self, profile: torch.Tensor, packed: PackedDatabase, compose: bool = False) -> List[List[torch.Tensor]]:
+        """One query's scores against a resident pack, per shard
+        (``_score_shards``): through the composed chain with ``compose``,
+        through the query-band pipeline under query_shard, else one launch
+        per bucket (or the row path's scorers, on one device)."""
         if compose:
-            return self._composed_flat(profile, packed)
+            return self._composed_outs(profile, packed)
+        if self._qshard:
+            return [[self._query_sharded(profile, g) for g in packed.wave_groups]]
         if self._wave_enabled:
-            return self._packed_step(profile, packed.wave_groups)
-        return self._row_step(profile, packed)
+            return self._packed_outs(profile, packed.wave_groups)
+        return [[self._row_step(profile, packed)]]
+
+    def _flat(self, profile: torch.Tensor, packed: PackedDatabase, compose: bool = False) -> torch.Tensor:
+        """One query's flat scores against a resident pack, on the primary
+        device (``_scored``, gathered)."""
+        return self._gather(self._scored(profile, packed, compose), profile)
+
+    def _query_sharded(self, profile: torch.Tensor, group) -> torch.Tensor:
+        """One bucket's scores through the query-band pipeline: device k
+        scores its block of the profile's bands on every lane tile of its
+        replica, from device k - 1's band carry (parallel.query_shard)."""
+        if group.n_segs != 1:
+            raise ValueError("query_shard scores one subject a lane: its pack is unchained")
+        return query_shard.wave_pipeline(
+            query_shard.band_slices(profile, self.mesh), group.parts, self.mesh, **self._gaps
+        )
 
     def _group_threshold(self, width: int) -> Optional[int]:
         """Saturation (rescore) threshold of a ladder group of this width.
@@ -645,21 +791,24 @@ class SearchEngine:
 
     def _evalue_bins(self, db: Database, ids_flat: np.ndarray):
         """Length-bin metadata for the device null reduction: bin edges over
-        subject lengths, the bin id of every flat slot on the device (pad
+        subject lengths, the bin id of every flat slot on the host (pad
         slots -> overflow bin), and the per-bin log-length/subject-count
         vectors of the length-corrected fit (swtpu_torch.stats)."""
         from .. import stats as st
 
         edges = st.length_bin_edges(db.lengths)
         lens = np.where(ids_flat >= 0, db.lengths[np.maximum(ids_flat, 0)], 0)
-        bins = self._upload(st.length_bin_ids(lens, edges).astype(np.int64))
+        bins = st.length_bin_ids(lens, edges).astype(np.int64)
         log_len, n_subj = st.bin_log_lengths(db.lengths, edges)
         return edges, bins, log_len, n_subj, len(edges)
 
     def _topk_setup(self, db: Database, packed: PackedDatabase):
-        """(total, kk, key low bits on the device, (bins, nb)|None, evalue
-        metadata|None) of top-K searches against ``packed``, cached per
-        (db, packed)."""
+        """(total, kk, key low bits, (bins, nb)|None, evalue metadata|None,
+        shards|None) of top-K searches against ``packed``, cached per (db,
+        packed).  On one device the low bits and bins cover the flat array
+        on the device; on a lane-sharded mesh ``shards`` holds each shard's
+        (total, kk, low bits, (bins, nb)|None) on its device instead, over
+        its slice of every bucket, and the flat-array ones are None."""
         cached = self._topk_cache
         if cached is not None and cached[0] is db and cached[1] is packed:
             return cached[2]
@@ -667,25 +816,66 @@ class SearchEngine:
         if ids_flat.size and int(ids_flat.max()) >= _ID_MASK:
             raise ValueError(f"device top-K keys hold file ids below {_ID_MASK}; the database has {db.n}")
         total = int(ids_flat.shape[0])
-        low = self._upload(np.where(ids_flat >= 0, _ID_MASK - ids_flat, 0))
+        kk = self._topk_kk(self.config.top_k, total)
+        low = np.where(ids_flat >= 0, _ID_MASK - ids_flat, 0)
         bins = meta = None
         if self.config.evalue:
-            edges, bins_dev, log_len, n_subj, nb = self._evalue_bins(db, ids_flat)
-            bins, meta = (bins_dev, nb), (edges, log_len, n_subj)
-        setup = (total, self._topk_kk(self.config.top_k, total), low, bins, meta)
+            edges, bins, log_len, n_subj, nb = self._evalue_bins(db, ids_flat)
+            meta = (edges, log_len, n_subj)
+        if self._lanes.size == 1:
+            setup = (total, kk, self._upload(low), None if bins is None else (self._upload(bins), nb), meta, None)
+        else:
+            # A bucket's ids are lane-major, so shard k's slots are its k-th
+            # equal slice of every bucket.
+            n = self._lanes.size
+            cuts = np.cumsum([0] + [g.rows for g in packed.wave_groups])
+            shards = []
+            for k, dev in enumerate(self._lanes.devices):
+                sel = np.concatenate([np.split(np.arange(a, b), n)[k] for a, b in zip(cuts[:-1], cuts[1:])])
+                put = lambda a: torch.from_numpy(np.ascontiguousarray(a[sel])).to(dev)  # noqa: E731
+                shards.append((int(sel.size), min(kk, int(sel.size)), put(low), None if bins is None else (put(bins), nb)))
+            setup = (total, kk, None, None, meta, tuple(shards))
         self._topk_cache = (db, packed, setup)
         return setup
 
     @staticmethod
-    def _topk_reduce(flat: torch.Tensor, setup):
-        """Device top-kk of flat scores along the last axis in (score desc,
-        id asc) order, and the null moments when collecting E-value
-        statistics: (vals, ids, moms|None) on the device.  torch.topk leaves
-        the order of equal values unspecified; the keys have none."""
-        _, kk, low, bins, _ = setup
+    def _topk_keys(flat: torch.Tensor, setup):
+        """Device top-kk keys of flat scores along the last axis (score high,
+        ``_ID_MASK - id`` low: descending = (score desc, id asc)), and the
+        null moments when collecting E-value statistics, or None.
+        torch.topk leaves the order of equal values unspecified; the keys
+        have none.  ``setup``: its kk, low bits and bins are read."""
+        kk, low, bins = setup[1:4]
         key = torch.topk((flat.to(torch.int64) << 32) | low, kk, dim=-1, largest=True, sorted=True).values
-        moms = _null_moments(flat, *bins) if bins is not None else None
+        return key, (_null_moments(flat, *bins) if bins is not None else None)
+
+    @staticmethod
+    def _topk_reduce(flat: torch.Tensor, setup):
+        """Device top-kk of flat scores (``_topk_keys``) as (vals, ids,
+        moms|None) on the device, in (score desc, id asc) order."""
+        key, moms = SearchEngine._topk_keys(flat, setup)
         return (key >> 32).to(torch.int32), _ID_MASK - (key & _ID_MASK), moms
+
+    def _topk_of(self, outs: List[List[torch.Tensor]], setup):
+        """The device top-K of per-shard outputs (``_score_shards``) as
+        (vals, ids, moms|None) on the primary device.  On a mesh each shard
+        reduces its own keys and moments on its device; the primary takes
+        the top-kk of the n x kk keys (each shard's top-kk holds every key
+        of the overall top-kk that it owns) and adds the moment vectors, as
+        swtpu's collective merge does."""
+        shards = setup[5]
+        if shards is None:
+            return self._topk_reduce(torch.cat(outs[0], dim=-1), setup)
+        keys, moms = [], []
+        for shard, shard_setup in zip(outs, shards):
+            flat = torch.cat(shard, dim=-1)
+            with on_device(flat.device):
+                key, mom = self._topk_keys(flat, shard_setup)
+            keys.append(key.to(self.device, non_blocking=True))
+            moms.append(None if mom is None else mom.to(self.device, non_blocking=True))
+        key = torch.topk(torch.cat(keys, dim=-1), setup[1], dim=-1, largest=True, sorted=True).values
+        mom = None if moms[0] is None else torch.stack(moms).sum(dim=0)
+        return (key >> 32).to(torch.int32), _ID_MASK - (key & _ID_MASK), mom
 
     def _build_null(self, q: Query, db: Database, vals, cand_ids, moms, edges, log_len, n_subj):
         """swtpu_torch.stats.NullStats from the device moment vector
@@ -758,7 +948,7 @@ class SearchEngine:
     def _topk_result(self, q, db, packed, setup, vals, ids, moms, metrics) -> SearchResult:
         """A hits-only result from one query's fetched candidates, or its
         full-array search when boundary ties defeat the candidate set."""
-        total, kk, _, _, meta = setup
+        total, kk, meta = setup[0], setup[1], setup[4]
         cand_ids = np.where(ids == _ID_MASK, -1, ids)
         hits = self._resolve_topk_hits(vals, cand_ids, self.config.top_k, kk, total, db)
         if hits is None:
@@ -793,11 +983,13 @@ class SearchEngine:
         qpad = profile.shape[0]
         launches0 = self._launches()
 
-        if cfg.top_k is not None and not skip_device_topk and packed.wave_groups:
+        # Under query_shard the full array comes back and the host takes the
+        # top-K, as in swtpu (whose collective top-K is lane sharding's).
+        if cfg.top_k is not None and not skip_device_topk and packed.wave_groups and not self._qshard:
             setup = self._topk_setup(db, packed)
             with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells"):
                 t0 = self._mark()
-                vals, ids, moms = self._topk_reduce(self._flat(profile, packed, compose), setup)
+                vals, ids, moms = self._topk_of(self._scored(profile, packed, compose), setup)
                 t1 = self._mark()
                 vals, ids, moms = (None if x is None else self._to_host(x) for x in (vals, ids, moms))
                 self._sync()
@@ -813,8 +1005,7 @@ class SearchEngine:
             t0 = self._mark()
             flat = self._flat(profile, packed, compose)
             t1 = self._mark()
-            if self._on_cuda:
-                t1.synchronize()
+            self._wait(t1)
             device_seconds = self._seconds(t0, t1)
         t_copy = time.perf_counter()
         flat_all = flat.cpu().numpy()
@@ -841,6 +1032,12 @@ class SearchEngine:
         packed = self._resident_packed(db, plan)
         if packed is not None:
             return self.search_packed(query, db, packed)
+        if self._qshard:
+            raise NotImplementedError(
+                "a database that cannot be resident under query_shard streams through swtpu's row "
+                "ladder, which arrives with slice A14b (ROADMAP.md Queue A); raise "
+                "device_resident_cells or search it without query_shard"
+            )
         if not self._wave_enabled:
             return self._attach_null(self._search_rows_streaming(query, db, plan), query, db)
         return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
@@ -894,8 +1091,8 @@ class SearchEngine:
             profiles = self._piece_profiles(queries, qpad, piece)
             with self._oom_hint(f"batched scoring of {len(piece)} queries vs {packed.total_cells} packed cells"):
                 t0 = self._mark()
-                flat = self._packed_step(profiles, packed.wave_groups)  # (Q, total)
-                fetched = self._topk_reduce(flat, setup) if topk else (flat,)
+                outs = self._packed_outs(profiles, packed.wave_groups)  # per shard, (Q, lanes) a bucket
+                fetched = self._topk_of(outs, setup) if topk else (self._gather(outs, profiles),)
                 t1 = self._mark()
                 fetched = [None if x is None else self._to_host(x) for x in fetched]
                 self._sync()
@@ -948,7 +1145,9 @@ class SearchEngine:
                     self._attach_null(r, q, db)
                     for q, r in zip(queries, self._search_many_wave_streaming(queries, db))
                 ]
-        if not packed.wave_groups:  # every record is empty: nothing to launch
+        if not packed.wave_groups or self._qshard:
+            # Nothing to launch (every record is empty), or the band
+            # pipeline, which carries one query: a search a query.
             return [self.search_packed(q, db, packed) for q in queries]
         return self._search_many_wave(queries, db, packed)
 
@@ -981,6 +1180,8 @@ class SearchEngine:
             packed = self._resident_packed(db, plan)
             if packed is None:
                 return [self.search(q, db, plan) for q in queries]
+        if self._qshard:  # the band pipeline carries one query: a search a query
+            return [self.search_packed(q, db, packed) for q in queries]
         topk = self.config.top_k is not None and bool(packed.wave_groups)
         setup = self._topk_setup(db, packed) if topk else None
 
@@ -992,8 +1193,8 @@ class SearchEngine:
             for q in queries:
                 compose = self._compose_for(q, packed)
                 profile = self._profile(q, compose)
-                flat = self._flat(profile, packed, compose)
-                fetched = self._topk_reduce(flat, setup) if topk else (flat,)
+                outs = self._scored(profile, packed, compose)
+                fetched = self._topk_of(outs, setup) if topk else (self._gather(outs, profile),)
                 # Each query's copy streams while later queries compute.
                 pending.append((profile, [None if x is None else self._to_host(x) for x in fetched]))
             t1 = self._mark()
@@ -1045,8 +1246,12 @@ class SearchEngine:
 
     def _fused_key(self, q: Query) -> int:
         """Rows of a query's fused (one launch a bucket) profile: the shape
-        warmup_background runs and marks warm, and _compose_for checks."""
-        return self._query_pad(q.length, wave_sw.W if self._wave_enabled else self.config.query_strip)
+        warmup_background runs and marks warm, and _compose_for checks.
+        Under query_shard the band quantum is W x n, so that every device
+        owns as many whole bands."""
+        if not self._wave_enabled:
+            return self._query_pad(q.length, self.config.query_strip)
+        return self._query_pad(q.length, wave_sw.W * (self.mesh.size if self._qshard else 1))
 
     def _compose_for(self, q: Query, packed: Optional[PackedDatabase]) -> bool:
         """Tiered routing: compose unless warmup_background has run this
@@ -1058,32 +1263,45 @@ class SearchEngine:
         a full carry for every bucket (4 bytes a column and lane, 8 affine)."""
         return sum(wave_sw.carry_bytes(1, g.n_segs, g.seg_cols, g.lanes, self._affine, hand_off=True) for g in groups)
 
-    def _composed_flat(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
-        """One query's flat scores (``_packed_step``'s layout) through the
-        composed chain: for each band group of ``_compose_groups`` in band
-        order, one hand-off launch per bucket in plan order, each consuming
-        and rewriting its bucket's carry in place, and the running max of
-        the groups' scores.  The chain holds every bucket's carry at once;
-        past the scratch share of free device memory it raises (swtpu does
-        not split a chain either)."""
+    def _composed_outs(self, profile: torch.Tensor, packed: PackedDatabase) -> List[List[torch.Tensor]]:
+        """One query's per-shard scores (``_packed_outs``' layout) through
+        the composed chain: for each band group of ``_compose_groups`` in
+        band order, one hand-off launch per bucket and lane shard in plan
+        order, each consuming and rewriting its shard's carry in place (a
+        carry never leaves its shard's device), and the running max of the
+        groups' scores.  The chain holds every carry at once; past the
+        scratch share of a device's free memory it raises (swtpu does not
+        split a chain either)."""
         groups = packed.wave_groups
-        need, budget = self._chain_bytes(groups), scratch_budget_bytes(self.device)
-        if budget is not None and need > budget:
-            raise torch.cuda.OutOfMemoryError(
-                f"a composed chain holds {need} bytes of band carries, over the scratch share of {budget}"
-            )
-        carries = [wave_sw.virgin_carry(g.stack, self._affine) for g in groups]
-        flats: List[Optional[torch.Tensor]] = [None] * len(groups)
+        need: dict = {}
+        for g in groups:
+            for part in g.parts:
+                need[part.device] = need.get(part.device, 0) + wave_sw.carry_bytes(
+                    1, g.n_segs, g.seg_cols, part.shape[1], self._affine, hand_off=True
+                )
+        for dev, nbytes in need.items():
+            budget = scratch_budget_bytes(dev)
+            if budget is not None and nbytes > budget:
+                raise torch.cuda.OutOfMemoryError(
+                    f"a composed chain holds {nbytes} bytes of band carries on {dev}, over the scratch share of {budget}"
+                )
+        profiles = self._replicas(profile)
+        carries = {(id(g), k): wave_sw.virgin_carry(part, self._affine) for g in groups for k, part in enumerate(g.parts)}
+        outs: Optional[List[List[torch.Tensor]]] = None
         band = 0
         for rung in self._compose_groups(profile.shape[0] // wave_sw.W):
-            part = profile[band * wave_sw.W : (band + rung) * wave_sw.W]
+            lo, hi = band * wave_sw.W, (band + rung) * wave_sw.W
             band += rung
-            for k, g in enumerate(groups):
-                scores, carries[k] = wave_sw.sw_wave(
-                    part, g.stack, carries[k], n_segs=g.n_segs, return_carry=True, **self._gaps
+
+            def launch(k, g, part):
+                scores, carries[(id(g), k)] = wave_sw.sw_wave(
+                    profiles[k][lo:hi], part, carries[(id(g), k)], n_segs=g.n_segs, return_carry=True, **self._gaps
                 )
-                flats[k] = scores if flats[k] is None else torch.maximum(flats[k], scores)
-        return torch.cat(flats)
+                return scores
+
+            step = self._score_shards(groups, launch)
+            outs = step if outs is None else [[torch.maximum(a, b) for a, b in zip(x, y)] for x, y in zip(outs, step)]
+        return outs
 
     # --- warmups ------------------------------------------------------------------------
 
@@ -1099,10 +1317,11 @@ class SearchEngine:
         or loads the kernel library, and any one packs the database resident
         and warms the caching allocator; nothing is compiled per shape.  A
         failure in a worker is raised here.  No-op (0.0) for a database that
-        streams, as :meth:`search_queued` then falls back to searches.
+        streams, as :meth:`search_queued` then falls back to searches, and
+        under query_shard, whose searches run one query at a time.
         ``plan`` as in :meth:`search`."""
         packed = self._resident_packed(db, plan)
-        if packed is None or not queries:
+        if packed is None or self._qshard or not queries:
             return 0.0
         t0 = time.perf_counter()
         seen: dict = {}
@@ -1122,10 +1341,10 @@ class SearchEngine:
 
         def fire(q: Query) -> None:
             compose = self._compose_for(q, packed)
-            flat = self._flat(self._profile(q, compose), packed, compose)
+            outs = self._scored(self._profile(q, compose), packed, compose)
             if setup is not None:
-                self._topk_reduce(flat, setup)
-            self._sync()  # this thread's stream: the dispatch has run
+                self._topk_of(outs, setup)
+            self._sync()  # this thread's streams: the dispatch has run
 
         with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
             list(ex.map(fire, seen.values()))  # raises the first worker's exception
@@ -1153,6 +1372,14 @@ class SearchEngine:
         t.start()
         return t
 
+    def _warm_step(self, profile: torch.Tensor, groups, setup) -> None:
+        """A background warmer's fused dispatch: the full flat array, or
+        with ``setup`` the device top-K, as the searches it warms end."""
+        if setup is None:
+            self._packed_step(profile, groups)
+        else:
+            self._topk_of(self._packed_outs(profile, groups), setup)
+
     def warmup_background(
         self, queries: List[Query], db: Database, plan: Optional[BatchPlan] = None, threads: int = 8
     ) -> threading.Thread:
@@ -1173,9 +1400,7 @@ class SearchEngine:
 
         def fire(item) -> None:
             key, q = item
-            flat = self._packed_step(self._profile(q), packed.wave_groups)
-            if setup is not None:
-                self._topk_reduce(flat, setup)
+            self._warm_step(self._profile(q), packed.wave_groups, setup)
             self._sync()
             self._fused_warm.add(key)
 
@@ -1201,9 +1426,7 @@ class SearchEngine:
 
         def fire(item) -> None:
             key, (qpad, qs) = item
-            flat = self._packed_step(self._piece_profiles(qs, qpad, list(range(len(qs)))), packed.wave_groups)
-            if setup is not None:
-                self._topk_reduce(flat, setup)
+            self._warm_step(self._piece_profiles(qs, qpad, list(range(len(qs)))), packed.wave_groups, setup)
             self._sync()
             self._fused_many_warm.add(key)
 
@@ -1476,26 +1699,34 @@ class SearchEngine:
 
     # --- streaming ----------------------------------------------------------------------
 
-    def _upload_bucket(self, host_stack: torch.Tensor, copy_stream) -> torch.Tensor:
-        """A host-packed bucket on the device.  On the card the copy runs
-        pinned on ``copy_stream``; the current stream waits for it, and the
-        bucket is recorded on the current stream so the caching allocator
-        cannot hand its memory back while a kernel still reads it."""
-        if copy_stream is None:
-            return host_stack.to(self.device)
-        compute = torch.cuda.current_stream(self.device)
-        pinned = host_stack.pin_memory()
-        with torch.cuda.stream(copy_stream):
-            stack = pinned.to(self.device, non_blocking=True)
-        compute.wait_stream(copy_stream)
-        stack.record_stream(compute)
-        return stack
+    def _upload_bucket(self, host_stack: torch.Tensor, copy_streams) -> Tuple[torch.Tensor, ...]:
+        """A host-packed bucket's lane shards, shard k on device k (the
+        whole stack on one device).  On the card each copy runs pinned on
+        its device's copy stream (``copy_streams``, by device); the device's
+        current stream waits for it, and the shard is recorded on that
+        stream so the caching allocator cannot hand its memory back while a
+        kernel still reads it."""
+        bounds = lane_bounds(host_stack.shape[1], self._lanes.size)
+        out = []
+        for (lo, hi), dev in zip(bounds, self._lanes.devices):
+            part = host_stack[:, lo:hi]
+            if copy_streams is None:
+                out.append(part.contiguous().to(dev))
+                continue
+            with on_device(dev):
+                compute = torch.cuda.current_stream(dev)
+                pinned = part.contiguous().pin_memory()
+                with torch.cuda.stream(copy_streams[dev]):
+                    shard = pinned.to(dev, non_blocking=True)
+                compute.wait_stream(copy_streams[dev])
+                shard.record_stream(compute)
+            out.append(shard)
+        return tuple(out)
 
-    def _stream_bucket(self, group, pieces, copy_stream):
+    def _stream_bucket(self, group, pieces, copy_streams):
         """Upload one host-packed bucket and enqueue every piece against it;
         returns the in-flight entry that _drain_streamed completes."""
-        stack = self._upload_bucket(group.stack, copy_stream)
-        on_device = (dataclasses.replace(group, stack=stack),)
+        on_device = (dataclasses.replace(group, parts=self._upload_bucket(group.stack, copy_streams)),)
         t0 = self._mark()
         outs = [(piece, self._packed_step(profiles, on_device)) for _, piece, profiles in pieces]
         t1 = self._mark()
@@ -1506,8 +1737,7 @@ class SearchEngine:
         """Wait for one in-flight bucket (not the ones behind it), scatter
         its scores; returns its kernel seconds."""
         ids, outs, t0, t1, copied = entry
-        if not isinstance(copied, float):
-            copied.synchronize()
+        self._wait(copied)
         valid = ids >= 0
         for piece, host in outs:
             flat = host.numpy()  # (Q, rows)
@@ -1534,9 +1764,10 @@ class SearchEngine:
         ]
         qpad_of = {i: qpad for qpad, piece, _ in pieces for i in piece}
         scores = [np.zeros(db.n, dtype=np.int32) for _ in queries]
-        copy_stream = torch.cuda.Stream(self.device) if self._on_cuda else None
+        copy_streams = {dev: torch.cuda.Stream(dev) for dev in self._devices} if self._on_cuda else None
         launches0 = wave_sw.sw_wave.launches
-        buckets = iter_wave_groups(db, chain=self._wave_chain)  # packed on the host, one at a time
+        # packed on the host, one at a time
+        buckets = iter_wave_groups(db, chain=self._wave_chain, lane_multiple=self._lanes.size)
         inflight = []
         padded_total = 0
         pack_time = device_seconds = 0.0
@@ -1548,7 +1779,7 @@ class SearchEngine:
                 if group is None:
                     break
                 padded_total += group.cells
-                inflight.append(self._stream_bucket(group, pieces, copy_stream))
+                inflight.append(self._stream_bucket(group, pieces, copy_streams))
                 if len(inflight) >= 2:  # bound device residency to 2 buckets
                     device_seconds += self._drain_streamed(inflight.pop(0), scores)
             while inflight:

@@ -62,14 +62,24 @@ class WaveGroup:
     ids[lane * n_segs + s], matching the kernel's flat score order; -1 marks
     pad slots.  ``lc``/``bt`` are the TPU kernel's chunk and lane tile,
     kept for comparison with swtpu.
+
+    ``parts`` holds the subjects, one part a device: ``(stack,)`` as packed
+    here; an engine on a mesh places each part on its device (see
+    ``SearchEngine._place``).
     """
 
     width: int
     lc: int
     bt: int
-    stack: torch.Tensor  # (width + 32, Bpad) int8
+    parts: Tuple[torch.Tensor, ...]  # ((width + 32, Bpad) int8,) as packed
     ids: np.ndarray  # (Bpad * n_segs,) int64 lane-major, -1 = pad slot
     n_segs: int = 1
+
+    @property
+    def stack(self) -> torch.Tensor:
+        """The (width + 32, Bpad) int8 stack of a bucket in one part."""
+        (stack,) = self.parts
+        return stack
 
     @property
     def lanes(self) -> int:
@@ -285,7 +295,7 @@ def pack_wave_group(
         stack = gather_wave_stack(db, width, ids, bpad, n_segs, residues)
     full_ids = np.full(bpad * n_segs, -1, dtype=np.int64)
     full_ids[: ids.shape[0]] = ids  # member k -> (lane k // S, seg k % S) == flat k
-    return WaveGroup(width=width, lc=wave_sw.pick_lc(width), bt=bt, stack=stack, ids=full_ids, n_segs=n_segs)
+    return WaveGroup(width=width, lc=wave_sw.pick_lc(width), bt=bt, parts=(stack,), ids=full_ids, n_segs=n_segs)
 
 
 def pack_database_wave(
@@ -304,11 +314,14 @@ def pack_database_wave(
     return PackedDatabase(groups=(), n_sequences=db.n, wave_groups=groups)
 
 
-def iter_wave_groups(db: Database, device="cpu", max_rows: int = 1 << 20, chain: bool = True) -> Iterator[WaveGroup]:
+def iter_wave_groups(
+    db: Database, device="cpu", max_rows: int = 1 << 20, chain: bool = True, lane_multiple: int = 1
+) -> Iterator[WaveGroup]:
     """Yield wave buckets one at a time (bounded device memory per bucket;
-    on the CPU, the default, each packed natively on the host)."""
+    on the CPU, the default, each packed natively on the host); a mesh's
+    lane-sharded streaming plans with ``lane_multiple`` = its size."""
     residues = None if torch.device(device).type == "cpu" else upload_residues(db, device)
-    for width, ids, bt, bpad, n_segs in plan_wave_buckets(db, max_rows, chain=chain):
+    for width, ids, bt, bpad, n_segs in plan_wave_buckets(db, max_rows, lane_multiple=lane_multiple, chain=chain):
         yield pack_wave_group(db, width, ids, bt, bpad, n_segs, residues=residues)
 
 

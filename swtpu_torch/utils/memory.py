@@ -2,12 +2,14 @@
 
 The budgets honour the card's actual free memory, as reported by
 ``torch.cuda.mem_get_info``; on the CPU the configured budget stands and
-scratch is not capped.
+scratch is not capped.  Over a mesh the residency budget counts each
+distinct device once: a mesh that names one card four times plans one
+card's worth of residency, not four.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -24,22 +26,32 @@ def device_free_bytes(device: torch.device) -> Optional[int]:
     return int(free)
 
 
-def resident_cell_budget(configured: int, device: torch.device, safety: float = SAFETY) -> int:
+def resident_cell_budget(
+    configured: int, devices: Union[torch.device, Sequence[torch.device]], safety: float = SAFETY
+) -> int:
     """Residency budget (int8 subject cells) honouring free device memory.
 
     The packed database costs 1 byte a cell, but each kernel launch also
     takes a band carry of 4 bytes a column-cell of its bucket (8 with
-    affine gaps) for each of its queries, so only
-    ``safety`` of free memory goes to resident subjects.
+    affine gaps) for each of its queries, so only ``safety`` of free memory
+    goes to resident subjects.  ``devices``: one device, or a mesh's; the
+    budget is a device's (``configured``, capped by the least free memory
+    of the distinct devices) times the count of distinct devices, as swtpu
+    multiplies its budget by the mesh size.
     """
-    free = device_free_bytes(device)
-    if free is None:
-        return configured
-    return min(configured, int(free * safety))
+    if isinstance(devices, torch.device):
+        devices = (devices,)
+    distinct = tuple(dict.fromkeys(devices))
+    free = [device_free_bytes(d) for d in distinct]
+    per_device = configured
+    if all(f is not None for f in free):
+        per_device = min(configured, int(min(free) * safety))
+    return per_device * len(distinct)
 
 
 def scratch_budget_bytes(device: torch.device, safety: float = SAFETY) -> Optional[int]:
     """Bytes one launch may take for scratch (the band carry of all its
-    queries): ``safety`` of free device memory, or None (no cap) on the CPU."""
+    queries) on ``device``: ``safety`` of its free memory, or None (no cap)
+    on the CPU.  Under a mesh each shard's launch asks of its own device."""
     free = device_free_bytes(device)
     return None if free is None else int(free * safety)

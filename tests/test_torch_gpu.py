@@ -21,7 +21,9 @@ Every instantiation of the row-parallel lab kernel (K10: v2, v3, v4, v41) is
 held to its plain version and to K2, at gap 2 and at a gap past JAX's int8
 fold.  The CLI on a FASTA file runs on the card through the native host
 runtime, and the streamed paths on natively packed buckets equal the
-resident ones.
+resident ones.  The lane-sharded and query-sharded engines on meshes that
+name the card n times (and on distinct cards where there are several) equal
+the single-device engine, and leave the thread's current device where it was.
 """
 
 from pathlib import Path
@@ -517,3 +519,96 @@ def test_cli_and_native_packed_streaming_on_card(cuda, tmp_path):
     k3 = SearchEngine(SWConfig(use_wave=False, device_resident=False), device=cuda)
     assert np.array_equal(k3.search(query, db).scores, want)
     assert bucket_sw.sw_score_bucket.launches - before == len(k3.plan(db).batches)
+
+
+def _mesh_data():
+    db = synth.synth_database(3000, seed=5)
+    queries = [parse_query(DATA / "queries" / f"{q}.fasta") for q in ("P02232", "P01008", "P05013")]
+    return queries, db
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_lane_sharded_engine_on_card_matches_single(cuda, n):
+    """cuda:0 x n: every shard's launches, the lane split and the merged
+    top-K on the card equal one device: search, top-K with E-values,
+    search_many, search_queued, composed, streamed and affine."""
+    queries, db = _mesh_data()
+    mesh = [cuda] * n
+    for extra in ({}, dict(gap_open=10, gap_extend=2)):
+        single = SearchEngine(SWConfig(**extra), device=cuda)
+        want = [single.search(q, db).scores for q in queries]
+        eng = SearchEngine(SWConfig(mesh_shape=(n,), **extra), device=mesh)
+        before = wave_sw.sw_wave.launches
+        assert np.array_equal(eng.search(queries[1], db).scores, want[1])
+        assert wave_sw.sw_wave.launches - before == n * len(eng._resident_packed(db).wave_groups)
+        for results in (eng.search_many(queries, db), eng.search_queued(queries, db)):
+            assert all(np.array_equal(r.scores, w) for r, w in zip(results, want))
+        composed = SearchEngine(SWConfig(mesh_shape=(n,), wave_compose=True, **extra), device=mesh)
+        streamed = SearchEngine(SWConfig(mesh_shape=(n,), device_resident=False, **extra), device=mesh)
+        assert np.array_equal(composed.search(queries[0], db).scores, want[0])
+        assert np.array_equal(streamed.search(queries[2], db).scores, want[2])
+        ref = SearchEngine(SWConfig(top_k=10, evalue=True, **extra), device=cuda)
+        topk = SearchEngine(SWConfig(mesh_shape=(n,), top_k=10, evalue=True, **extra), device=mesh)
+        for got, r in zip(topk.search_many(queries, db), ref.search_many(queries, db)):
+            assert got.hits == r.hits and got.top_k_stats(10) == r.top_k_stats(10)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_step_k3_on_card_matches_one_launch(cuda, n):
+    """make_sharded_step(use_pallas=True) on cuda:0 x n: one K3 launch a
+    shard, whose scores, top ids and top scores (a tie across shards
+    included) equal one K3 launch over the whole batch and the int32 plain
+    scorer, in (score desc, id asc) order."""
+    from swtpu_torch.parallel import make_mesh, make_sharded_step
+
+    rng = np.random.default_rng(40 + n)
+    B, L, k = 64 * n, 256, 8
+    subj = np.full((B, L), PAD_SUBJECT, np.int8)
+    for i in range(B):
+        m = int(rng.integers(5, L))
+        subj[i, :m] = rng.integers(0, 25, m)
+    subj[5] = subj[B - 3]  # the same subject in the first shard and the last
+    prof = torch.from_numpy(make_profile(rng.integers(0, 25, 90).astype(np.int8), blosum50_ref(), pad_rows_to=32)).to(cuda)
+    subj_d = torch.from_numpy(subj).to(cuda)
+    step = make_sharded_step(make_mesh(devices=[cuda] * n), gap=2, strip=32, top_k=k, use_pallas=True)
+    before = bucket_sw.sw_score_bucket.launches
+    scores, top_ids, top_scores = step(prof, subj_d)
+    assert bucket_sw.sw_score_bucket.launches - before == n
+    whole = bucket_sw.sw_score_bucket(prof, subj_d, gap=2, strip=32).cpu().numpy()
+    plain = row_sw.sw_score_bucket(prof.cpu(), torch.from_numpy(subj), gap=2, strip=32).numpy()
+    assert np.array_equal(whole, plain) and np.array_equal(scores.cpu().numpy(), whole)
+    order = sorted(range(B), key=lambda i: (-int(whole[i]), i))[:k]
+    assert top_ids.cpu().tolist() == order and top_scores.cpu().tolist() == whole[order].tolist()
+    assert whole[5] == whole[B - 3]
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+def test_query_sharded_engine_on_card_matches_single(cuda, gaps):
+    """cuda:0 x 4: the band pipeline's hand-off launches on the card give
+    the single-device scores."""
+    queries, db = _mesh_data()
+    extra = {} if gaps is None else dict(gap_open=gaps[0], gap_extend=gaps[1])
+    single = SearchEngine(SWConfig(**extra), device=cuda)
+    eng = SearchEngine(SWConfig(mesh_shape=(4,), query_shard=True, **extra), device=[cuda] * 4)
+    before = wave_sw.sw_wave.carry_launches
+    for q in queries:
+        assert np.array_equal(eng.search(q, db).scores, single.search(q, db).scores)
+    assert wave_sw.sw_wave.carry_launches > before
+
+
+def test_mesh_of_distinct_cards_matches_single(cuda):
+    """Where the machine has several cards: a mesh of all of them, lane and
+    query sharded, equals one card, and the thread's current device is the
+    one it was (every kernel entry point sets the device itself)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    n = torch.cuda.device_count()
+    queries, db = _mesh_data()
+    single = SearchEngine(SWConfig(top_k=10, evalue=True), device="cuda:0")
+    current = torch.cuda.current_device()
+    for extra in ({}, dict(query_shard=True)):
+        eng = SearchEngine(SWConfig(mesh_shape=(n,), top_k=10, evalue=True, **extra))
+        assert eng.mesh.distinct == tuple(torch.device("cuda", i) for i in range(n))
+        for got, want in zip(eng.search_queued(queries, db), single.search_queued(queries, db)):
+            assert got.top_k(10) == want.hits
+        assert torch.cuda.current_device() == current

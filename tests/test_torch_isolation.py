@@ -2,14 +2,16 @@
 
 * importing swtpu_torch (its stats copy, the prefilter, the int8, chain,
   wavefront-lab, row-lab and int16 kernels' wrappers, the native host
-  runtime and the roofline and lab tools included) and running a search, a
-  row-path search, a batched top-K with E-values and a prefiltered search
-  (through the native parse, packers and signatures) loads neither JAX nor
-  swtpu (a subprocess: every pytest process here has imported JAX already);
+  runtime, the parallel package and the roofline and lab tools included)
+  and running a search, a row-path search, a batched top-K with E-values, a
+  prefiltered search (through the native parse, packers and signatures),
+  and lane-sharded and query-sharded searches on a CPU mesh loads neither
+  JAX nor swtpu (a subprocess: every pytest process here has imported JAX
+  already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
-* every knob of a later slice raises instead of being ignored, and the
-  serving, affine-gap, row-path, composed-dispatch and prefilter knobs are
-  accepted.
+* every combination of a later slice raises instead of being ignored or
+  falling back to one device, and the serving, affine-gap, row-path,
+  composed-dispatch, prefilter and mesh knobs are accepted.
 """
 
 import subprocess
@@ -35,6 +37,7 @@ import swtpu_torch.ops.prefilter, swtpu_torch.ops.int8_mma, swtpu_torch.ops.vpu_
 import swtpu_torch.ops.wave_lab, swtpu_torch.ops.i16_probe, swtpu_torch.tools.buckets
 import swtpu_torch.tools.probe_i16, swtpu_torch.tools.probe_breakdown, swtpu_torch.tools.wave_lab
 import swtpu_torch.ops.rows_lab, swtpu_torch.tools.pallas_lab, swtpu_torch.native
+import swtpu_torch.parallel, swtpu_torch.parallel.mesh, swtpu_torch.parallel.search, swtpu_torch.parallel.query_shard
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
@@ -49,6 +52,10 @@ alns = swtpu_torch.models.align.align_top_k(q, db, k=2, config=SWConfig(gap_open
 assert len(alns) == 2
 pre = SearchEngine(SWConfig(prefilter=0.3, top_k=3, prefilter_min_candidates=1), device="cpu").search(q, db)
 assert pre.scores is None and len(pre.hits) == 3 and all(res.scores[i] == s for i, s in pre.hits)
+lanes = SearchEngine(SWConfig(mesh_shape=(2,), top_k=3), device="cpu").search(q, db)
+assert lanes.hits == res.top_k(3)
+bands = SearchEngine(SWConfig(mesh_shape=(2,), query_shard=True), device="cpu").search(q, db)
+assert (bands.scores == res.scores).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "swtpu" or m.startswith("swtpu."))
 print("LOADED", bad)
 """
@@ -80,14 +87,18 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
 @pytest.mark.parametrize(
     "knob,value",
     [
-        ("mesh_axes", ("model",)),
-        ("mesh_shape", (2,)),
-        ("query_shard", True),
+        ("use_wave", False),
+        ("score_dtype", "int16"),
+        ("prefilter", 0.1),
+        ("device_resident", False),
     ],
 )
 def test_unported_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match="slice A"):
-        SWConfig(**{knob: value})
+    """The combinations of a mesh that slice A14b brings: the row path, the
+    prefilter, and a streamed database under query_shard."""
+    extra = {"prefilter": {"top_k": 5}, "device_resident": {"query_shard": True}}.get(knob, {})
+    with pytest.raises(NotImplementedError, match="slice A14b"):
+        SWConfig(**{knob: value}, mesh_shape=(2,), **extra)
 
 
 @pytest.mark.parametrize(
@@ -96,6 +107,7 @@ def test_unported_knobs_raise(knob, value):
         ("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True), ("gap_open", 11),
         ("score_dtype", "int16"), ("use_pallas", True), ("use_wave", False), ("segment_packing", False),
         ("wave_compose", True), ("prefilter", 0.1), ("prefilter_min_candidates", 7),
+        ("mesh_shape", (2,)), ("mesh_axes", ("model",)), ("query_shard", True),
     ],
 )
 def test_serving_knobs_accepted(knob, value):

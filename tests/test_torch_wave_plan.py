@@ -156,7 +156,8 @@ def test_piece_scratch_split_follows_the_passes(monkeypatch, shape, split):
     rng = np.random.default_rng(5)
     prof = torch.from_numpy(np.stack([_bucket(rng, 60, 96, 40, 1, 8)[0] for _ in range(3)]))
     _, stack = _bucket(rng, 60, 96, 40, 2, 8)
-    group = type("G", (), dict(stack=torch.from_numpy(stack), n_segs=2, seg_cols=40, lanes=8))()
+    stack = torch.from_numpy(stack)
+    group = type("G", (), dict(parts=(stack,), stack=stack, n_segs=2, seg_cols=40, lanes=8))()
     calls = []
     real = wave_sw.sw_wave
 
