@@ -170,8 +170,29 @@ Phases (one line each; any failure exits non-zero with no result line):
               10/2, bit-equal to one device (counts zeroed just before, read
               just after: a hand-off launch a device a lane tile); the CLI
               with --mesh 1 and --mesh 1 --query-shard against the subset
-              golden, and --mesh 2 (exit 2 on one card)
- 15. kernels  one JSON line per kernel and mode: launches on its path, error,
+              golden, and --mesh 2 (exit 2 on one card).
+              mesh.rows: the row path on 4 and 3 shards (every ladder and
+              segment group split into row shards): P01008 through K2 on
+              every shard with PyTorch seg16 (counts zeroed just before the
+              first search, read just after: groups x n K2 launches), the
+              int16 mode and the streamed K3 route on the primary, each
+              bit-equal to the wavefront scores; each shard's K2 ms; at 4
+              shards every shard's K2 launch against its plain version.
+              mesh.prefilter: P01008 at 0.05/top-10 with E-values on 4
+              shards, one coarse launch, hits and E-values equal to one
+              device's.  mesh.query_shard.streamed: mesh.query_shard's
+              database under a residency budget that forces streaming (the
+              row ladder, K3 a batch, on the primary), bit-equal to one device
+ 15. dist.fleet two processes of the multi-process fleet (gloo on 127.0.0.1,
+              both on the one card) on native.parse's FASTA file: python -m
+              swtpu_torch.parallel.launch --json (both print the one-device
+              top-10 of P01008), then DistributedSearchEngine.search_many
+              over the suite with E-values in two workers (hits equal to one
+              device, E-values within log-E 5% and bits 1% of the one-device
+              pooled fit; K1 on each shard against its plain version); each
+              process's wall, parse, pack, search and collective seconds and
+              route; the file is deleted; every process has a timeout
+ 16. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time, the card's lower bound for the same work and
               the library call's time, where one computes the same function
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
@@ -704,16 +725,15 @@ def phase_scale():
     return entry, db, engine, [row[-1] for row in per_bucket]
 
 
-def phase_native_parse_and_cli(db, engine):
+def phase_native_parse_and_cli(db, engine, tmp):
     """native.parse: the SwissProt-shaped database written as a FASTA file
-    (60 columns, headers seq<i>) into a temporary directory, parsed by the
-    native parse and by its plain version, each bit-equal to the other and
-    to the database in memory.  cli.search: ``python -m swtpu_torch`` on that
-    file and P01008 as a subprocess on the card, its id:score dump equal line
-    for line to the engine's scores of the database in memory.  The file is
-    deleted afterwards."""
-    import tempfile
-
+    (60 columns, headers seq<i>) into the temporary directory ``tmp``,
+    parsed by the native parse and by its plain version, each bit-equal to
+    the other and to the database in memory.  cli.search: ``python -m
+    swtpu_torch`` on that file and P01008 as a subprocess on the card, its
+    id:score dump equal line for line to the engine's scores of the database
+    in memory.  Returns the file's path: dist.fleet reads it, then deletes
+    it."""
     import numpy as np
 
     from swtpu_torch.alphabet import decode
@@ -721,33 +741,32 @@ def phase_native_parse_and_cli(db, engine):
 
     qpath = ROOT / "tests" / "data" / "queries" / f"{MAIN_QUERY}.fasta"
     want = engine.search(parse_query(qpath), db).scores  # phase_scale's resident engine: in-memory scores
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = Path(tmp) / "swissprot_shaped.fasta"
-        t0 = time.perf_counter()
-        text, off = decode(db.residues), db.offsets.tolist()
-        write_fasta(path, [text[off[i] : off[i + 1]] for i in range(db.n)], width=60)
-        del text
-        write_s = time.perf_counter() - t0
-        nbytes = path.stat().st_size
-        t0 = time.perf_counter()
-        parsed = parse_database(path)
-        native_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        plain = parse_database_plain(path)
-        plain_s = time.perf_counter() - t0
-        for name, got in (("native", parsed), ("plain", plain)):
-            if not (np.array_equal(got.offsets, db.offsets) and np.array_equal(got.residues, db.residues)):
-                raise AssertionError(f"the {name} parse of the written file differs from the database in memory")
-        del plain
-        say("native.parse", bytes=nbytes, sequences=parsed.n, residues=parsed.length_sum, write_seconds=write_s,
-            native_seconds=native_s, plain_seconds=plain_s, native_mb_per_s=1e-6 * nbytes / native_s,
-            plain_mb_per_s=1e-6 * nbytes / plain_s, bit_equal=True)
-        del parsed
+    path = Path(tmp) / "swissprot_shaped.fasta"
+    t0 = time.perf_counter()
+    text, off = decode(db.residues), db.offsets.tolist()
+    write_fasta(path, [text[off[i] : off[i + 1]] for i in range(db.n)], width=60)
+    del text
+    write_s = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    t0 = time.perf_counter()
+    parsed = parse_database(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = parse_database_plain(path)
+    plain_s = time.perf_counter() - t0
+    for name, got in (("native", parsed), ("plain", plain)):
+        if not (np.array_equal(got.offsets, db.offsets) and np.array_equal(got.residues, db.residues)):
+            raise AssertionError(f"the {name} parse of the written file differs from the database in memory")
+    del plain
+    say("native.parse", bytes=nbytes, sequences=parsed.n, residues=parsed.length_sum, write_seconds=write_s,
+        native_seconds=native_s, plain_seconds=plain_s, native_mb_per_s=1e-6 * nbytes / native_s,
+        plain_mb_per_s=1e-6 * nbytes / plain_s, bit_equal=True)
+    del parsed
 
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "swtpu_torch", "--query", str(qpath), "--db", str(path)],
-                             cwd=ROOT, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "swtpu_torch", "--query", str(qpath), "--db", str(path)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
     if out.returncode != 0:
         raise AssertionError(f"the CLI exited {out.returncode}:\n{out.stderr[-4000:]}")
     lines = out.stdout.splitlines()
@@ -760,6 +779,7 @@ def phase_native_parse_and_cli(db, engine):
         metrics[key] = float(rest.split()[0])
     say("cli.search", query=MAIN_QUERY, command="python -m swtpu_torch --query Q --db D", wall_seconds=wall,
         lines=len(dump), metrics=metrics, equal_to_in_memory_scores=True)
+    return path
 
 
 def bound(groups, pieces, ops_per_cell=OPS_PER_CELL):
@@ -2617,6 +2637,356 @@ def phase_mesh_query_shard(db):
     return entry
 
 
+def phase_mesh_rows(db, first_scores):
+    """mesh.rows: the row path on meshes of 4 and 3 (the card named n
+    times): P01008 through K2 on every row shard with PyTorch seg16 (int32;
+    K2's counts zeroed just before the first search, read just after:
+    groups x n launches), the int16 mode and the streamed K3 route (on the
+    primary), each bit-equal to the one-device wavefront scores; each
+    shard's K2 ms and device_seconds; at the 4-shard split every shard's K2
+    launch against its plain version (the per-shard shapes cross
+    bucket_sw.BAND_ROWS at other groups than one device's)."""
+    import numpy as np
+    import torch
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import bucket_sw, row_sw
+    from swtpu_torch.parallel.mesh import on_device
+
+    t_phase = time.perf_counter()
+    query = parse_query(ROOT / "tests" / "data" / "queries" / f"{MAIN_QUERY}.fasta")
+    entry = None
+
+    def same(name, got):
+        if not np.array_equal(got, first_scores):
+            raise AssertionError(f"mesh.rows {name}: {int((got != first_scores).sum())} scores differ from one device's")
+
+    for n in MESH_SIZES:
+        for label, devices in mesh_devices(n):
+            t_mesh = time.perf_counter()
+            eng = SearchEngine(SWConfig(mesh_shape=(n,), use_wave=False), device=devices)
+            # --- this phase's main path: counts zeroed just before, read just after
+            bucket_sw.sw_score_bucket_fused.launches = bucket_sw.sw_score_bucket.launches = 0
+            t0 = time.perf_counter()
+            res = eng.search(query, db)  # packs on the host, places the row shards, then scores
+            first_wall = time.perf_counter() - t0
+            launches, k3_stray = bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches
+            packed = eng._resident_packed(db)
+            profile = eng._profile(query)
+            profiles = eng._replicas(profile)
+            steps = [[eng._fused_step(profiles[k], part) for k, part in enumerate(g.parts)] for g in packed.groups]
+            expect = sum(-(-g.chunks // step) for g, st in zip(packed.groups, steps) for step in st)
+            if launches != expect or launches < n * len(packed.groups) or k3_stray:
+                raise AssertionError(f"mesh.rows {label}: K2 {launches} launches (K3 {k3_stray}) for {len(packed.groups)} "
+                                     f"groups x {n} shards in {expect}")
+            same(f"{label} K2 + seg16", res.scores)
+            timed = eng.search(query, db).metrics
+            shard_ms = []
+            for k in range(n):
+                dev = packed.groups[0].parts[k].device
+                fn = lambda k=k: [eng._fused_stack(profiles[k], g.parts[k]) for g in packed.groups]  # noqa: E731
+                with on_device(dev):
+                    events_ms(fn)  # warm
+                    shard_ms.append(events_ms(fn, reps=3)[0])
+            i16 = SearchEngine(SWConfig(mesh_shape=(n,), score_dtype="int16"), device=devices)
+            before = bucket_sw.sw_score_bucket_fused.launches
+            i16_res = i16.search(query, db)
+            same(f"{label} int16", i16_res.scores)
+            i16_launches = bucket_sw.sw_score_bucket_fused.launches - before
+            if i16_launches < n:
+                raise AssertionError(f"mesh.rows {label}: the int16 mode launched K2 {i16_launches} times on {n} shards")
+            del i16
+            streamed = SearchEngine(SWConfig(mesh_shape=(n,), use_wave=False, device_resident=False), device=devices)
+            before = bucket_sw.sw_score_bucket.launches
+            st_res = streamed.search(query, db)
+            k3_launches = bucket_sw.sw_score_bucket.launches - before
+            batches = len(streamed.plan(db).batches)
+            if k3_launches != batches:
+                raise AssertionError(f"mesh.rows {label}: streamed K3 {k3_launches} launches for {batches} batches")
+            same(f"{label} streamed K3", st_res.scores)
+            shapes = {}
+            n_bands = -(-profile.shape[0] // bucket_sw.W)
+            for g, st in zip(packed.groups, steps):
+                for part, step in zip(g.parts, st):
+                    key = "G{}H{}".format(*bucket_sw.rows_shape(n_bands, min(g.chunks, step) * part.shape[1]))
+                    shapes[key] = shapes.get(key, 0) + 1
+            say("mesh.rows", mesh=label, shards=n, ladder_groups=len(packed.groups), seg_groups=len(packed.seg_groups),
+                k2_launches_first_search=launches, k2_shapes=shapes, first_search_wall_s=first_wall,
+                device_seconds=timed.device_seconds, wall_seconds=timed.wall_seconds, shard_k2_ms=shard_ms,
+                rescored_rows=eng.rescored_rows, int16_k2_launches=i16_launches,
+                int16_device_seconds=i16_res.metrics.device_seconds, streamed_k3_launches=k3_launches,
+                streamed_device_seconds=st_res.metrics.device_seconds, streamed_wall_seconds=st_res.metrics.wall_seconds,
+                bit_equal_to_single=True, seconds=round(time.perf_counter() - t_mesh, 3))
+            if entry is None:  # n = 4 on the one card: every shard's K2 launches against the plain version
+                gap = eng.config.gap_penalty
+                plain_ms, plain = events_ms(lambda: [row_sw.sw_score_stack(profiles[k], part, gap=gap, strip=32)
+                                                     for g in packed.groups for k, part in enumerate(g.parts)])
+                got = [eng._fused_stack(profiles[k], part) for g in packed.groups for k, part in enumerate(g.parts)]
+                err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, plain))
+                if err or not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                    raise AssertionError(f"mesh.rows: a row shard's K2 differs from its plain version by {err}")
+                qpad = profile.shape[0]
+                cells = sum(qpad * g.chunks * g.rows * g.width for g in packed.groups)
+                nbytes = sum(part.numel() + qpad * 32 + 4 * part.shape[0] * part.shape[1]
+                             for g in packed.groups for part in g.parts)
+                b_ms, b_by = row_bound(cells, nbytes)
+                entry = {
+                    "name": f"sw_rows_fused (K2, row-sharded mesh, {label})", "route": "cuda",
+                    "source": "swtpu_torch/csrc/sw_rows.cu", "replaces": "swtpu/ops/pallas_sw.py:200",
+                    "launches": launches, "max_abs_err": err, "ms": sum(shard_ms), "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                }
+                del got, plain
+            del eng, streamed, packed, profiles
+            torch.cuda.empty_cache()
+    say("mesh.rows.done", seconds=round(time.perf_counter() - t_phase, 3))
+    return entry
+
+
+def phase_mesh_prefilter(db):
+    """mesh.prefilter: P01008 at prefilter 0.05, top-10, with E-values on 4
+    shards (the card named four times; the coarse pass and the gathered
+    exact phase on the primary, as swtpu's): hits and E-values equal to the
+    one-device prefilter's, one coarse launch (counts zeroed just before,
+    read just after)."""
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import int8_mma
+
+    t_phase = time.perf_counter()
+    query = parse_query(ROOT / "tests" / "data" / "queries" / f"{MAIN_QUERY}.fasta")
+    one = SearchEngine(SWConfig(evalue=True, **PREFILTER), device="cuda").search(query, db)
+    for label, devices in mesh_devices(4):
+        eng = SearchEngine(SWConfig(mesh_shape=(4,), evalue=True, **PREFILTER), device=devices)
+        int8_mma.coarse_counts.launches = 0
+        t0 = time.perf_counter()
+        res = eng.search(query, db)
+        wall = time.perf_counter() - t0
+        coarse = int8_mma.coarse_counts.launches
+        if coarse != 1 or res.hits != one.hits or res.top_k_stats(10) != one.top_k_stats(10):
+            raise AssertionError(f"mesh.prefilter {label}: {coarse} coarse launches; hits or E-values differ from one device's")
+        timed = eng.search(query, db).metrics
+        say("mesh.prefilter", mesh=label, query=MAIN_QUERY, coarse_launches=coarse, kernel_launches=res.metrics.kernel_launches,
+            first_search_wall_s=wall, device_seconds=timed.device_seconds, wall_seconds=timed.wall_seconds,
+            hits_and_evalues_equal_single=True, seconds=round(time.perf_counter() - t_phase, 3))
+        del eng
+
+
+def phase_mesh_query_shard_streamed(db):
+    """mesh.query_shard.streamed: mesh.query_shard's 20,000-sequence
+    database and P08519 at n = 4 under a residency budget that forces
+    streaming: swtpu's route, the row ladder batch by batch on the primary
+    (K3, one launch a batch: counts zeroed just before, read just after),
+    bit-equal to one device."""
+    import numpy as np
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import bucket_sw, wave_sw
+
+    t_phase = time.perf_counter()
+    query = parse_query(ROOT / "tests" / "data" / "queries" / f"{MESH_QUERY_SHARD_QUERY}.fasta")
+    sub = db.take(np.arange(MESH_QUERY_SHARD_SEQS))
+    want = SearchEngine(SWConfig(), device="cuda").search(query, sub).scores
+    for label, devices in mesh_devices(4):
+        # a budget of a quarter of its residues: no plan of it fits
+        eng = SearchEngine(SWConfig(mesh_shape=(4,), query_shard=True, device_resident_cells=sub.length_sum // 4), device=devices)
+        bucket_sw.sw_score_bucket.launches = wave_sw.sw_wave.launches = 0
+        res = eng.search(query, sub)
+        k3, k1 = bucket_sw.sw_score_bucket.launches, wave_sw.sw_wave.launches
+        batches = len(eng.plan(sub).batches)
+        if eng._resident is not None or k3 != batches or k1:
+            raise AssertionError(f"mesh.query_shard.streamed {label}: K3 {k3} launches for {batches} batches, K1 {k1}")
+        err = int(np.abs(res.scores.astype(np.int64) - want.astype(np.int64)).max())
+        if err:
+            raise AssertionError(f"mesh.query_shard.streamed {label}: scores differ from one device's by {err}")
+        say("mesh.query_shard.streamed", mesh=label, query=MESH_QUERY_SHARD_QUERY, sequences=sub.n, k3_launches=k3,
+            batches=batches, device_seconds=res.metrics.device_seconds, wall_seconds=res.metrics.wall_seconds,
+            pack_seconds=res.metrics.phases.get("pack_and_put"), bit_equal_to_single=True,
+            seconds=round(time.perf_counter() - t_phase, 3))
+
+
+FLEET_DEVICE = "cuda"  # every process of dist.fleet: cuda:<process id mod the cards>, the one card twice here
+FLEET_TIMEOUT = 600  # seconds a dist.fleet process may take before it is killed
+
+FLEET_WORKER = r'''
+import json, sys, time
+import torch
+import torch.distributed as dist
+from chip_smoke import MAIN_QUERY, ROOT, SUITE
+from swtpu_torch.config import SWConfig
+from swtpu_torch.io.fasta import parse_database, parse_query
+from swtpu_torch.ops import wave_sw
+from swtpu_torch.parallel import distributed as D
+
+pid, port, path, device = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+t0 = time.perf_counter()
+D.initialize(f"127.0.0.1:{port}", 2, pid, timeout=300)
+t = time.perf_counter()
+db = parse_database(path)
+queries = [parse_query(ROOT / "tests" / "data" / "queries" / f"{name}.fasta") for name in SUITE]
+parse_s = time.perf_counter() - t
+eng = D.DistributedSearchEngine(SWConfig(evalue=True), device=device)
+shard, base = eng.shard_of(db)
+t = time.perf_counter()
+resident = eng.pack(shard, 10)
+pack_s = time.perf_counter() - t
+# --- this phase's main path: counts zeroed just before, read just after
+wave_sw.sw_wave.launches = 0
+t = time.perf_counter()
+res = eng.search_many(queries, shard, base, top_k=10)
+search_s = time.perf_counter() - t
+launches = wave_sw.sw_wave.launches
+
+
+def timed(fn, reps):
+    """(mean milliseconds of fn() over reps, its last result): CUDA events on
+    the card, the host clock on the CPU."""
+    if device == "cpu":
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return 1e3 * (time.perf_counter() - t) / reps, out
+    from chip_smoke import events_ms
+    return events_ms(fn, reps)
+
+
+# K1 on this shard's buckets for P01008 against its plain version, one
+# process at a time so that the two do not share the card while timed
+local = eng._engine(10)
+packed = local._resident_packed(shard)
+profile = local._profile(queries[SUITE.index(MAIN_QUERY)])
+kernel = {}
+for turn in range(2):
+    if turn == pid and packed is not None and packed.wave_groups:
+        groups = packed.wave_groups
+        run = lambda f: [f(profile, g.stack, **local._gaps, n_segs=g.n_segs) for g in groups]  # noqa: E731
+        timed(lambda: run(wave_sw.sw_wave), 1)  # warm
+        ms, got = timed(lambda: run(wave_sw.sw_wave), 3)
+        plain_ms, plain = timed(lambda: run(wave_sw.sw_wave_plain), 1)
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, plain))
+        kernel = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                      cells=sum(profile.shape[0] * g.n_segs * g.seg_cols * g.lanes for g in groups),
+                      bytes=sum(g.stack.numel() + profile.shape[0] * 32 + 4 * g.rows for g in groups), buckets=len(groups))
+    dist.barrier()
+dist.destroy_process_group()
+print("FLEET " + json.dumps({
+    "process": pid, "device": str(eng.device), "route": "resident" if resident else "streamed", "n_local": shard.n,
+    "shard_base": base, "hits": [r.hits for r in res], "stats": [[[h.evalue, h.bits] for h in r.hit_stats()] for r in res],
+    "collective_seconds": res[0].collective_seconds, "k1_launches": launches, "parse_seconds": parse_s,
+    "pack_seconds": pack_s, "search_seconds": search_s, "wall_seconds": time.perf_counter() - t0, "kernel": kernel,
+}), flush=True)
+'''
+
+
+def fleet_run(commands):
+    """Start every command at once (cwd the repository), wait for each with
+    a timeout, kill all on any failure or expiry; their stdout texts."""
+    procs = [subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in commands]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=FLEET_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"dist.fleet: a process exited {p.returncode}:\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist_fleet(path, db, suite_scores):
+    """dist.fleet: two processes of the multi-process fleet with gloo on
+    127.0.0.1, both on the one card, on the SwissProt-shaped FASTA file of
+    native.parse.  First ``python -m swtpu_torch.parallel.launch --json``:
+    both print the same hits, the one-device top-10 of P01008.  Then
+    DistributedSearchEngine.search_many over the 17-query suite with
+    E-values in two worker processes (K1's counts zeroed just before, read
+    just after, in each): hits equal to the one-device engine's, E-values
+    within swtpu's battery tolerance (log-E 5%, bits 1%) of the one-device
+    null under the pooled law the fleet uses (length bins are shard-local);
+    and K1 on each shard's buckets against its plain version, one process at
+    a time.  Each process's wall, parse, pack and search seconds, the
+    collective's, and its route (resident or streamed).  The file is
+    deleted afterwards."""
+    import numpy as np
+
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.models.search import SearchEngine, SearchResult
+    from swtpu_torch.stats import hit_significance
+
+    t_phase = time.perf_counter()
+    qdir = ROOT / "tests" / "data" / "queries"
+    want10 = SearchResult(scores=suite_scores[SUITE.index(MAIN_QUERY)], metrics=None).top_k(10)
+    port = free_port()
+    cmd = [sys.executable, "-m", "swtpu_torch.parallel.launch", "--query", str(qdir / f"{MAIN_QUERY}.fasta"),
+           "--db", str(path), "--json", "--device", FLEET_DEVICE, "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    t0 = time.perf_counter()
+    outs = fleet_run([cmd + ["--process-id", str(p)] for p in range(2)])
+    launch_wall = time.perf_counter() - t0
+    launch = [json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1]) for out in outs]
+    if not launch[0]["hits"] == launch[1]["hits"] == [list(h) for h in want10]:
+        raise AssertionError(f"dist.fleet launch: the processes' hits {launch[0]['hits']} / {launch[1]['hits']} "
+                             f"are not the one-device top-10 {want10}")
+    say("dist.fleet.launch", query=MAIN_QUERY, processes=launch, both_wall_s=launch_wall, hits_equal_single_top10=True)
+
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = fleet_run([[sys.executable, "-c", FLEET_WORKER, str(p), str(port), str(path), FLEET_DEVICE] for p in range(2)])
+    fleet_wall = time.perf_counter() - t0
+    path.unlink()
+    ranks = [json.loads([ln for ln in out.splitlines() if ln.startswith("FLEET ")][-1][len("FLEET "):]) for out in outs]
+    queries = [parse_query(qdir / f"{name}.fasta") for name in SUITE]
+    one = SearchEngine(SWConfig(top_k=10, evalue=True), device="cuda").search_many(queries, db)
+    worst_loge = worst_bits = 0.0
+    for qi, r in enumerate(one):
+        if not ranks[0]["hits"][qi] == ranks[1]["hits"][qi] == [list(h) for h in r.hits]:
+            raise AssertionError(f"dist.fleet: {SUITE[qi]}'s hits differ from the one-device engine's")
+        if ranks[0]["stats"][qi] != ranks[1]["stats"][qi]:
+            raise AssertionError(f"dist.fleet: {SUITE[qi]}'s E-values differ between the processes")
+        for (ev, bits), h in zip(ranks[0]["stats"][qi], hit_significance(r.null_stats, r.hits, length_correct=False)):
+            worst_loge = max(worst_loge, abs(np.log(max(ev, 1e-300)) - np.log(max(h.evalue, 1e-300))))
+            worst_bits = max(worst_bits, abs(bits - h.bits) / abs(h.bits))
+    if worst_loge > 0.05 or worst_bits > 0.01:
+        raise AssertionError(f"dist.fleet: E-values off the one-device pooled fit by log-E {worst_loge}, bits {worst_bits}")
+    if any(r["k1_launches"] == 0 for r in ranks):
+        raise AssertionError(f"dist.fleet: a process launched no K1: {[r['k1_launches'] for r in ranks]}")
+    kernels = [r.pop("kernel") for r in ranks]
+    for r in ranks:
+        r.pop("hits"), r.pop("stats")
+    err = max(k["max_abs_err"] for k in kernels)
+    if err:
+        raise AssertionError(f"dist.fleet: K1 on a shard differs from its plain version by {err}")
+    b_ms, b_by = row_bound(sum(k["cells"] for k in kernels), sum(k["bytes"] for k in kernels))
+    say("dist.fleet", queries=len(SUITE), processes=ranks, both_wall_s=fleet_wall, hits_equal_single=True,
+        max_abs_log_evalue_diff=worst_loge, max_rel_bits_diff=worst_bits, shard_kernel_ms=[k["ms"] for k in kernels],
+        seconds=round(time.perf_counter() - t_phase, 3))
+    return {
+        "name": "sw_wave (K1 in a 2-process gloo fleet, one shard a process, cuda:0 twice)", "route": "cuda",
+        "source": "swtpu_torch/csrc/sw_wave.cu", "replaces": "swtpu/ops/wave_sw.py:815",
+        "launches": sum(r["k1_launches"] for r in ranks), "max_abs_err": err,
+        "ms": sum(k["ms"] for k in kernels), "plain_ms": sum(k["plain_ms"] for k in kernels),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "per_search": "ms, plain_ms and bound: one P01008 search over both shards' buckets; launches: the suite's",
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -2632,7 +3002,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: swtpu_torch not found beside this script: {e}", file=sys.stderr)
         return 1
+    import tempfile
+
     t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")  # the FASTA file of native.parse and dist.fleet
     try:
         smi = phase_card()
         built = phase_build()
@@ -2652,7 +3025,7 @@ def main() -> int:
         phase_goldens()
         phase_goldens_affine()
         entry, db, engine, q1_bucket_ms = phase_scale()
-        phase_native_parse_and_cli(db, engine)
+        fasta = phase_native_parse_and_cli(db, engine, tmp.name)
         multi, suite_scores = phase_serving(db, engine, q1_bucket_ms)
         affine, affine_engine = phase_affine(db, q1_bucket_ms)
         phase_align(db, engine, affine_engine)
@@ -2661,6 +3034,10 @@ def main() -> int:
         carry = phase_compose(db, engine, affine_engine, suite_scores)
         mesh_lanes = phase_mesh_search(db, suite_scores[SUITE.index(MAIN_QUERY)], suite_scores, affine_engine)
         mesh_bands = phase_mesh_query_shard(db)
+        mesh_rows = phase_mesh_rows(db, suite_scores[SUITE.index(MAIN_QUERY)])
+        phase_mesh_prefilter(db)
+        phase_mesh_query_shard_streamed(db)
+        dist_fleet = phase_dist_fleet(fasta, db, suite_scores)
         coarse = phase_prefilter(db, engine)
         labs = phase_lab(db, engine)
         k10 = phase_lab_rows(db, engine, row_engine)
@@ -2668,10 +3045,12 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        tmp.cleanup()
     entry["max_abs_err"] = max(entry["max_abs_err"], kernel_err)
     multi["max_abs_err"] = max(multi["max_abs_err"], multi_err)
     affine["max_abs_err"] = max(affine["max_abs_err"], affine_err)
-    for k in (k2, k3):
+    for k in (k2, k3, mesh_rows):
         k["max_abs_err"] = max(k["max_abs_err"], rows_err)
     carry["max_abs_err"] = max(carry["max_abs_err"], carry_err)
     mesh_bands["max_abs_err"] = max(mesh_bands["max_abs_err"], mesh_kernel_err)
@@ -2684,8 +3063,8 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], rows_lab_err)
     for k in k9:
         k["max_abs_err"] = max(k["max_abs_err"], i16_err)
-    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, mesh_lanes, mesh_bands, coarse, probe, chain,
-                                  *labs, *k9, *k10]}))
+    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, mesh_lanes, mesh_bands, mesh_rows, dist_fleet, coarse,
+                                  probe, chain, *labs, *k9, *k10]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,12 @@ for the CUDA kernels K2 and K3, ``--score-dtype int16`` for the narrow-type
 parity mode, ``--batch-rows``/``--length-quantum`` for its ladder);
 ``--compose`` for composed band-group dispatch; ``--prefilter FRAC`` for the
 heuristic two-phase search (k-mer coarse pass, exact rescore of the top
-candidates; requires ``--top-k``); ``--mesh N`` to shard the database's
-lanes over N cards (N CPU shards with ``--device cpu``), with
-``--query-shard`` to shard the query's bands instead.  Runs on the card
-unless ``--device cpu``.  Flags of features not ported yet are not
-accepted, and a combination that a later slice brings exits 2.
+candidates; requires ``--top-k``); ``--mesh N`` to shard the database
+over N cards (N CPU shards with ``--device cpu``) on every one of those
+paths, with ``--query-shard`` to shard the query's bands instead.  Runs on
+the card unless ``--device cpu``.  A refused combination exits 2.  The
+multi-process fleet has its own entry point, ``python -m
+swtpu_torch.parallel.launch``.
 
 Usage::
 
@@ -150,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             mesh_shape=(args.mesh,),
             query_shard=args.query_shard,
         )
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         print(f"swtpu_torch: error: {e}", file=sys.stderr)
         return 2
 

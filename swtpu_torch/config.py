@@ -8,12 +8,10 @@ ladder and segment packing, the int32, fast16, seg16 and int16-parity
 scorers with their exact rescore, and the CUDA kernels K2 and K3 behind
 ``use_pallas``; composed band-group dispatch (``wave_compose``); the
 k-mer prefilter (``prefilter``), whose coarse pass is the CUDA kernel of
-``ops.int8_mma``; and single-host multi-device search (``mesh_shape``,
-``query_shard``: swtpu_torch.parallel) on the wavefront path.  A
-combination that a later slice of the port brings (``ROADMAP.md`` Queue A)
-raises ``NotImplementedError`` naming that slice, so no setting is silently
-ignored.  The TPU-only ``interpret`` and ``wave_unroll_block`` have no
-counterpart.
+``ops.int8_mma``; and multi-device search (``mesh_shape``, ``query_shard``:
+swtpu_torch.parallel) on every one of those paths, and across processes
+(``parallel.distributed``).  The TPU-only ``interpret`` and
+``wave_unroll_block`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -99,10 +97,11 @@ class SWConfig:
     prefilter: Optional[float] = None
     prefilter_min_candidates: int = 256
 
-    # --- parallelism (implemented on the wavefront path) ------------------------
-    # Device mesh axis sizes: the database's lanes shard over prod(mesh_shape)
+    # --- parallelism (implemented) -------------------------------------------------
+    # Device mesh axis sizes: the database shards over prod(mesh_shape)
     # devices (swtpu_torch.parallel.mesh), one contiguous lane shard of every
-    # bucket a device, and the results merge on the first.
+    # wave bucket (on the row path, row shard of every group) a device, and
+    # the results merge on the first.
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("db",)
     # Query-band sharding: with a mesh, split the query's bands across the
@@ -159,22 +158,6 @@ class SWConfig:
                     "query_shard requires the wavefront path: leave use_wave at None or True "
                     "and score_dtype at 'int32'"
                 )
-            later = self._later_slice()
-            if later is not None:
-                raise NotImplementedError(f"{later} is not ported yet: it arrives with slice A14b (ROADMAP.md Queue A)")
-
-    def _later_slice(self) -> Optional[str]:
-        """The multi-device combination that slice A14b of the port brings,
-        if this config asks for one; none falls back to one device."""
-        if self.n_devices == 1:
-            return None
-        if self.score_dtype == "int16" or self.use_wave is False:
-            return "the row path (use_wave=False or score_dtype='int16') under a mesh"
-        if self.prefilter is not None:
-            return "the prefilter under a mesh"
-        if self.query_shard and not self.device_resident:
-            return "a streamed (non-resident) database under query_shard"
-        return None
 
     @property
     def n_devices(self) -> int:

@@ -1,1 +1,1 @@
-"""FASTA ingestion."""
+"""Ingestion and persistence: FASTA, shard manifests."""

@@ -32,14 +32,19 @@ Serving paths beside the single search:
   through those chains until ``warmup_many_background`` has run its fused
   shape; ``warmup`` and ``warmup_background`` run each shape a batch needs
   once, ahead of it;
-* with ``SWConfig.mesh_shape = (n,)`` the wavefront path runs on a mesh of
-  n devices (swtpu_torch.parallel): every bucket's lanes shard
+* with ``SWConfig.mesh_shape = (n,)`` the engine runs on a mesh of n
+  devices (swtpu_torch.parallel): every wave bucket's lanes shard
   contiguously over the devices, each shard's launches run on its own
   device (``_score_shards``), and the results merge on the primary: flat
   scores concatenated in mesh order, or each shard's top-K keys and null
   moments reduced to one top-K and one moment vector; with
   ``SWConfig.query_shard`` the query's bands shard instead, through the
-  systolic pipeline of ``parallel.query_shard``.
+  systolic pipeline of ``parallel.query_shard``.  On the row path every
+  ladder and segment group's rows shard the same way (``_row_shards``).
+  As in swtpu, what a mesh does not shard runs on the primary: a streamed
+  row ladder (the row path's, and a database that cannot be resident under
+  ``query_shard``), and the prefilter's coarse pass and gathered exact
+  phase; the prefilter's exhaustive fallback searches on the mesh.
 
 The engine runs on the card unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request it raises rather than fall back.
@@ -52,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -81,7 +87,7 @@ from ..utils.bucketing import (
     scatter_scores,
     wave_width_edges,
 )
-from ..utils.memory import resident_cell_budget, scratch_budget_bytes
+from ..utils.memory import reraise_oom, resident_cell_budget, scratch_budget_bytes
 from ..utils.metrics import PhaseTimer, SearchMetrics
 
 
@@ -193,10 +199,6 @@ def _null_moments(flat: torch.Tensor, bins: torch.Tensor, nb: int) -> torch.Tens
     return torch.cat([head, per_bin(nz), per_bin(f), per_bin(sq)], dim=-1)
 
 
-# Ladder and segment batch rows are a multiple of this (swtpu's sublane tile
-# on a one-device mesh).
-_ROW_MULTIPLE = 8
-
 # A device top-K key packs a score and its file id into one int64, score in
 # the high 32 bits and _ID_MASK - id in the low 32 (0 on pad slots), so one
 # descending torch.topk orders by (score desc, id asc) with no ties at all.
@@ -233,8 +235,9 @@ class SearchEngine:
         self.device = self.mesh.primary if self.mesh is not None else resolve_device(device)
         self._devices = self.mesh.distinct if self.mesh is not None else (self.device,)
         self._qshard = config.query_shard and self.mesh is not None
-        # The devices a bucket's lanes split over, one part each: the mesh
-        # when it is lane-sharded, else the one device.
+        # The devices a wave bucket's lanes (or a row group's rows) split
+        # over, one part each: the mesh when it is lane-sharded, else the one
+        # device.
         self._lanes = self.mesh if self.mesh is not None and not self._qshard else Mesh((self.device,))
         self.matrix = get_matrix(config.matrix)
         # Subject chaining: on unless asked off, and off under query_shard
@@ -279,6 +282,13 @@ class SearchEngine:
         self._prefilter_edge_cache = None
         self._evalue_sample_cache = None
         self._exact: Optional["SearchEngine"] = None
+        # The fraction of a query's scores whose top values the null
+        # statistics keep: the fit's default trim; a fleet process keeps
+        # more, to ship its share of the global trim whatever the skew
+        # (parallel.distributed).
+        from ..stats import DEFAULT_TRIM
+
+        self._top_trim = DEFAULT_TRIM
 
     # --- device plumbing -------------------------------------------------------
 
@@ -329,6 +339,18 @@ class SearchEngine:
         if self._qshard:
             return dataclasses.replace(group, parts=replicate_tiles(group.stack, group.bt, self.mesh))
         return dataclasses.replace(group, parts=shard_lanes(group.stack, self._lanes))
+
+    def _place_rows(self, group):
+        """A ladder or segment group packed on the host, as row shards of
+        every (C, rows, ...) array, shard k on device k: swtpu's ``P(None,
+        axis)`` on its stacks, and for a segment group also on its rebases
+        and ends, so that each device keeps its own rows' segment metadata."""
+        if isinstance(group, segpack.PackedSegGroup):
+            stack, rebases, ends = group.parts[0]
+            parts = tuple(zip(*(shard_lanes(t, self._lanes) for t in (stack, rebases, ends))))
+        else:
+            parts = shard_lanes(group.stack, self._lanes)
+        return dataclasses.replace(group, parts=parts)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, without a host sync on the
@@ -382,14 +404,12 @@ class SearchEngine:
 
     @contextlib.contextmanager
     def _oom_hint(self, what: str):
+        """Re-raise a device memory exhaustion inside as an actionable error
+        (``utils.memory.reraise_oom``); any other error passes unchanged."""
         try:
             yield
-        except torch.cuda.OutOfMemoryError as e:
-            raise RuntimeError(
-                f"device out of memory while {what}; lower "
-                "SWConfig.device_resident_cells (or set device_resident=False "
-                "to stream the database)"
-            ) from e
+        except Exception as e:
+            reraise_oom(e, what)
 
     @staticmethod
     def _metrics(q: Query, db: Database, packed_cells: int, wall: float, device_seconds: float, **kw) -> SearchMetrics:
@@ -477,6 +497,14 @@ class SearchEngine:
             + int8_mma.coarse_counts.launches
         )
 
+    @property
+    def _row_multiple(self) -> int:
+        """Ladder and segment batch rows divide both swtpu's 8-row sublane
+        tile and the mesh size (swtpu's ``_row_multiple``), so that every
+        group splits into equal row shards."""
+        n = self.config.n_devices
+        return 8 * n // math.gcd(8, n)
+
     def plan(self, db: Database) -> BatchPlan:
         """The row path's ladder plan of ``db``."""
         return self._ladder_plan(db.lengths)
@@ -489,7 +517,7 @@ class SearchEngine:
             length_quantum=cfg.length_quantum,
             max_batch_cells=min(cfg.chunk_budget_residues, cfg.max_batch_cells),
             min_width=min_width,
-            min_rows=_ROW_MULTIPLE,
+            min_rows=self._row_multiple,
         )
 
     def pack_to_device(self, db: Database, plan=None) -> PackedDatabase:
@@ -498,12 +526,25 @@ class SearchEngine:
         then placed on the mesh (``_place``), else
         into ladder groups (``plan``: a BatchPlan) and, with segment packing,
         segment-packed groups for every sequence shorter than
-        max(seg_widths)."""
+        max(seg_widths); on a mesh those are packed on the host and their
+        row shards placed on the devices (``_place_rows``)."""
         if self._wave_enabled:
             if plan is None:
                 plan = self._wave_plan(db)
             packed = pack_database_wave(db, device=self.device, plan=plan)
             return dataclasses.replace(packed, wave_groups=tuple(self._place(g) for g in packed.wave_groups))
+        if self._lanes.size > 1:
+            packed = self._pack_rows(db, plan, "cpu")
+            return dataclasses.replace(
+                packed,
+                groups=tuple(self._place_rows(g) for g in packed.groups),
+                seg_groups=tuple(self._place_rows(g) for g in packed.seg_groups),
+            )
+        return self._pack_rows(db, plan, self.device)
+
+    def _pack_rows(self, db: Database, plan: Optional[BatchPlan], device) -> PackedDatabase:
+        """The row path's ladder and segment groups of ``db``, uploaded to
+        ``device`` (``pack_to_device``)."""
         cfg = self.config
         # Segment packing needs a usable saturation ceiling; large gap
         # penalties (or int16 mode) pack plain ladder batches.
@@ -514,7 +555,7 @@ class SearchEngine:
             and segpack.seg16_sat(cfg.gap_penalty, cfg.seg_widths[0], cfg.seg_s_max) >= 1024
         )
         if not seg_ok:
-            return pack_database(db, plan if plan is not None else self.plan(db), device=self.device)
+            return pack_database(db, plan if plan is not None else self.plan(db), device=device)
         lengths = db.lengths
         s_max_for = lambda w: max(2, min(cfg.seg_s_max, cfg.seg_widths[0] * cfg.seg_s_max // w))  # noqa: E731
         rows_for = lambda w: min(cfg.batch_rows, max(256, cfg.max_batch_cells // w))  # noqa: E731
@@ -525,8 +566,8 @@ class SearchEngine:
         for width, batches in segpack.plan_multiclass(lengths[short_idx], short_idx, cfg.seg_widths, s_max_for, rows_for):
             seg_groups.extend(
                 segpack.pack_batches_to_groups(
-                    db, batches, gap=cfg.gap_penalty, width=width, s_max=s_max_for(width), device=self.device,
-                    row_multiple=_ROW_MULTIPLE,
+                    db, batches, gap=cfg.gap_penalty, width=width, s_max=s_max_for(width), device=device,
+                    row_multiple=self._row_multiple,
                 )
             )
         long_idx = np.nonzero(~short)[0]
@@ -538,7 +579,7 @@ class SearchEngine:
                 long_plan,
                 batches=tuple(dataclasses.replace(b, ids=long_idx[b.ids].astype(np.int64)) for b in long_plan.batches),
             )
-            groups = pack_database(db, remapped, device=self.device).groups
+            groups = pack_database(db, remapped, device=device).groups
         return PackedDatabase(groups=groups, n_sequences=db.n, seg_groups=tuple(seg_groups))
 
     def _resident_packed(self, db: Database, plan: Optional[BatchPlan] = None) -> Optional[PackedDatabase]:
@@ -643,7 +684,7 @@ class SearchEngine:
         A launch whose bands fit in one pass of the kernel needs no carry."""
         C, B, L = stack.shape
         need = bucket_sw.carry_bytes(-(-profile.shape[0] // bucket_sw.W), C, B, L)
-        budget = scratch_budget_bytes(self.device)
+        budget = scratch_budget_bytes(stack.device)
         if budget is None or need <= budget:
             return max(C, 1)
         return max(1, budget // (need // C))
@@ -661,33 +702,57 @@ class SearchEngine:
 
     def _row_step(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
         """Score every ladder and segment group of a row-path pack for one
-        (qpad, 32) profile; flat (total,) scores on the device, ladder groups
-        first.  Ladder groups run K2 with ``use_pallas``, else fast16 where
-        its ceiling is high enough, else exact int32; segment groups seg16."""
+        (qpad, 32) profile; flat (total,) scores on the primary device,
+        ladder groups first.  Ladder groups run K2 with ``use_pallas``, else
+        fast16 where its ceiling is high enough, else exact int32; segment
+        groups seg16.  On a mesh each row shard runs them on its device
+        (``_row_shards``)."""
         cfg = self.config
         gap, strip = cfg.gap_penalty, cfg.query_strip
-        outs = []
-        for g in packed.groups:
+        profiles = self._replicas(profile)
+
+        def ladder(k, g, stack):
             sat = self._fast16_sat(g.width)
             if self._use_pallas:
-                outs.append(self._fused_stack(profile, g.stack))
-            elif sat is not None:
-                outs.append(row_sw.sw_score_stack_fast16(
-                    profile, g.stack, gap=gap, strip=strip, sat=sat, stage_int8=self._stage_int8))
-            else:
-                outs.append(row_sw.sw_score_stack(profile, g.stack, gap=gap, strip=strip))
-        for g in packed.seg_groups:
-            outs.append(row_sw.sw_score_stack_seg16(
-                profile, g.stack, g.rebases, g.ends, gap=gap, strip=strip, sat=g.sat, stage_int8=self._stage_int8))
+                return self._fused_stack(profiles[k], stack)
+            if sat is not None:
+                return row_sw.sw_score_stack_fast16(
+                    profiles[k], stack, gap=gap, strip=strip, sat=sat, stage_int8=self._stage_int8)
+            return row_sw.sw_score_stack(profiles[k], stack, gap=gap, strip=strip)
+
+        def seg(k, g, part):
+            stack, rebases, ends = part
+            return row_sw.sw_score_stack_seg16(
+                profiles[k], stack, rebases, ends, gap=gap, strip=strip, sat=g.sat, stage_int8=self._stage_int8)
+
+        outs = self._row_shards(packed.groups, ladder) + self._row_shards(packed.seg_groups, seg)
         if not outs:
             return torch.zeros(0, dtype=torch.int32, device=self.device)
         return torch.cat([o.reshape(-1) for o in outs])
+
+    def _row_shards(self, groups, launch) -> List[torch.Tensor]:
+        """Every row group's scores: ``launch(k, group, part)`` for each of
+        its row shards, on shard k's device (in its device's context), then
+        the shards gathered on the primary in mesh order along the rows:
+        (C, rows) a ladder group, (C, rows, s_max) a segment group."""
+        out = []
+        for g in groups:
+            shards = []
+            for k, part in enumerate(g.parts):
+                with on_device((part[0] if isinstance(part, tuple) else part).device):
+                    shards.append(launch(k, g, part))
+            if len(shards) == 1:
+                out.append(shards[0])
+            else:
+                out.append(torch.cat([x.to(self.device, non_blocking=True) for x in shards], dim=1))
+        return out
 
     def _scored(self, profile: torch.Tensor, packed: PackedDatabase, compose: bool = False) -> List[List[torch.Tensor]]:
         """One query's scores against a resident pack, per shard
         (``_score_shards``): through the composed chain with ``compose``,
         through the query-band pipeline under query_shard, else one launch
-        per bucket (or the row path's scorers, on one device)."""
+        per bucket, or on the row path its scorers, gathered on the primary
+        (one shard)."""
         if compose:
             return self._composed_outs(profile, packed)
         if self._qshard:
@@ -784,9 +849,7 @@ class SearchEngine:
         enough to cover the null fit's trim when collecting statistics."""
         kk = min(total, max(4 * k + 64, k))
         if self.config.evalue:
-            from ..stats import DEFAULT_TRIM
-
-            kk = min(total, max(kk, int(np.ceil(DEFAULT_TRIM * total))))
+            kk = min(total, max(kk, int(np.ceil(self._top_trim * total))))
         return kk
 
     def _evalue_bins(self, db: Database, ids_flat: np.ndarray):
@@ -917,6 +980,7 @@ class SearchEngine:
             query_length=q.length,
             mean_subject_length=db.length_sum / max(db.n, 1),
             lengths=db.lengths,
+            trim=self._top_trim,
         )
         return result
 
@@ -1032,13 +1096,16 @@ class SearchEngine:
         packed = self._resident_packed(db, plan)
         if packed is not None:
             return self.search_packed(query, db, packed)
-        if self._qshard:
-            raise NotImplementedError(
-                "a database that cannot be resident under query_shard streams through swtpu's row "
-                "ladder, which arrives with slice A14b (ROADMAP.md Queue A); raise "
-                "device_resident_cells or search it without query_shard"
-            )
-        if not self._wave_enabled:
+        if not self._wave_enabled or self._qshard:
+            # The row ladder, batch by batch on the primary device: the row
+            # path's stream, and swtpu's route for a database that cannot be
+            # resident under query_shard (its batches unsharded, on the
+            # default device).
+            if self._affine:
+                raise ValueError(
+                    "affine gaps under query_shard need a resident database: one that streams "
+                    "runs swtpu's row ladder, which scores linear gaps only; raise device_resident_cells"
+                )
             return self._attach_null(self._search_rows_streaming(query, db, plan), query, db)
         return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
 
@@ -1141,6 +1208,8 @@ class SearchEngine:
         if packed is None:
             packed = self._resident_packed(db)
             if packed is None:
+                if self._qshard:  # the row ladder (search), a search a query, as swtpu
+                    return [self.search(q, db) for q in queries]
                 return [
                     self._attach_null(r, q, db)
                     for q, r in zip(queries, self._search_many_wave_streaming(queries, db))
@@ -1438,10 +1507,12 @@ class SearchEngine:
         """Lazy exhaustive engine for the exact phase off the wavefront
         path: the same config without the heuristic knobs, unchained (as
         swtpu's), and without E-values (the caller fits its null from the
-        calibration sample, not from the candidates' biased scores)."""
+        calibration sample, not from the candidates' biased scores), on the
+        same devices: a mesh keeps its shards, as swtpu's does."""
         if self._exact is None:
             self._exact = SearchEngine(
-                self.config.replace(prefilter=None, top_k=None, wave_chain=False, evalue=False), device=self.device
+                self.config.replace(prefilter=None, top_k=None, wave_chain=False, evalue=False),
+                device=self.mesh if self.mesh is not None else self.device,
             )
         return self._exact
 
@@ -1695,6 +1766,7 @@ class SearchEngine:
             mean_subject_length=db.length_sum / max(db.n, 1),
             lengths=db.lengths[sample],
             population_lengths=db.lengths,
+            trim=self._top_trim,
         )
 
     # --- streaming ----------------------------------------------------------------------
@@ -1807,7 +1879,10 @@ class SearchEngine:
         each, score it with the streamed scorer (K3 with ``use_pallas``),
         scatter the scores to file order, and rescore saturated rows exactly.
         Device time is the sum of the scorer's own spans (CUDA events),
-        without the host packing."""
+        without the host packing.  On a mesh every batch goes unsharded to
+        the primary device, as swtpu's streamed ladder puts each batch on its
+        default device: swtpu's semantics, with the plan's rows on the mesh's
+        row multiple, not a fallback."""
         timer = PhaseTimer()
         t_start = time.perf_counter()
         with timer.phase("plan"):

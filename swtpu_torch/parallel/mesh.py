@@ -92,8 +92,9 @@ def lane_bounds(lanes: int, n: int) -> List[Tuple[int, int]]:
 
 
 def shard_lanes(stack: torch.Tensor, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
-    """A ``(L2, B)`` stack as n contiguous lane shards, shard k on device k
-    (swtpu's ``P(None, axis)`` sharding)."""
+    """A stack as n contiguous shards of its dimension 1, shard k on device
+    k (swtpu's ``P(None, axis)`` sharding): a ``(L2, B)`` wave bucket's
+    lanes, or a ``(C, rows, ...)`` row group's rows."""
     return tuple(
         stack[:, lo:hi].contiguous().to(dev, non_blocking=True)
         for (lo, hi), dev in zip(lane_bounds(stack.shape[1], mesh.size), mesh.devices)
@@ -107,11 +108,6 @@ def replicate(t, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
         t = torch.from_numpy(np.ascontiguousarray(t))
     copies = {dev: t.to(dev, non_blocking=True) for dev in mesh.distinct}
     return tuple(copies[dev] for dev in mesh.devices)
-
-
-def initialize_distributed(*_args, **_kwargs) -> None:
-    """Multi-host bring-up is slice A15 of the port."""
-    raise NotImplementedError("multi-host search (parallel.distributed) arrives with slice A15 (ROADMAP.md Queue A)")
 
 
 def replicate_tiles(stack: torch.Tensor, bt: int, mesh: Mesh) -> Tuple[torch.Tensor, ...]:

@@ -103,14 +103,22 @@ class WaveGroup:
 class PackedGroup:
     """All of a plan's batches that share one (rows, width) shape, stacked.
 
-    ``stack`` is a (C, rows, width) int8 tensor on the engine's device;
+    ``parts`` holds the (C, rows, width) int8 stack, one part a device:
+    ``(stack,)`` as packed here; an engine on a mesh splits the rows into
+    one contiguous shard a device (see ``SearchEngine._place_rows``).
     ``ids`` is (C, rows) int64 with -1 marking pad rows.
     """
 
     rows: int
     width: int
-    stack: torch.Tensor  # (C, rows, width) int8
+    parts: Tuple[torch.Tensor, ...]  # ((C, rows, width) int8,) as packed
     ids: np.ndarray  # (C, rows) int64, -1 = pad slot
+
+    @property
+    def stack(self) -> torch.Tensor:
+        """The (C, rows, width) int8 stack of a group in one part."""
+        (stack,) = self.parts
+        return stack
 
     @property
     def chunks(self) -> int:
@@ -480,7 +488,7 @@ def pack_database(db: Database, plan: BatchPlan, device="cpu") -> PackedDatabase
         for c, b in enumerate(batches):
             pack_batch(db, b, out=stack[c])
             ids[c, : b.n_valid] = b.ids
-        groups.append(PackedGroup(rows=rows, width=width, stack=torch.from_numpy(stack).to(device), ids=ids))
+        groups.append(PackedGroup(rows=rows, width=width, parts=(torch.from_numpy(stack).to(device),), ids=ids))
     return PackedDatabase(groups=tuple(groups), n_sequences=plan.n_sequences)
 
 

@@ -1,10 +1,13 @@
-"""Device-memory probing for the residency budget and launch scratch.
+"""Device-memory probing for the residency budget and launch scratch, and
+out-of-memory classification.
 
 The budgets honour the card's actual free memory, as reported by
 ``torch.cuda.mem_get_info``; on the CPU the configured budget stands and
 scratch is not capped.  Over a mesh the residency budget counts each
 distinct device once: a mesh that names one card four times plans one
-card's worth of residency, not four.
+card's worth of residency, not four.  ``is_oom`` tells an exhausted device
+(the one failure worth retrying with a smaller footprint) from every other
+error, and ``reraise_oom`` turns it into an actionable message.
 """
 
 from __future__ import annotations
@@ -55,3 +58,24 @@ def scratch_budget_bytes(device: torch.device, safety: float = SAFETY) -> Option
     on the CPU.  Under a mesh each shard's launch asks of its own device."""
     free = device_free_bytes(device)
     return None if free is None else int(free * safety)
+
+
+def is_oom(exc: BaseException) -> bool:
+    """True when ``exc`` is a device memory exhaustion: torch's
+    ``torch.cuda.OutOfMemoryError``, a kernel entry point's
+    ``cudaErrorMemoryAllocation`` (``ops._build.check`` raises "<what>
+    failed: out of memory (2)"), or :func:`reraise_oom`'s own message.
+    Every other error, CUDA's included, is not: a deterministic fault must
+    not be retried."""
+    return isinstance(exc, torch.cuda.OutOfMemoryError) or "out of memory" in str(exc).lower()
+
+
+def reraise_oom(exc: BaseException, what: str) -> None:
+    """Re-raise a device memory exhaustion as an actionable error naming
+    ``what`` the caller was doing, and any other exception as it is."""
+    if is_oom(exc):
+        raise RuntimeError(
+            f"device out of memory while {what}; lower SWConfig.device_resident_cells "
+            "(or set device_resident=False to stream the database), or reduce max_batch_cells"
+        ) from exc
+    raise exc

@@ -232,18 +232,37 @@ def extract_scores(batch: SegBatch, z_gathered: np.ndarray, sat: int) -> Tuple[n
 class PackedSegGroup:
     """Stack of same-shape segment-packed batches on the engine's device.
 
-    stack/rebases/ends are (C, rows, ...) tensors; batches holds the host
-    metadata for score extraction.
+    ``parts`` holds the (stack, rebases, ends) triple of (C, rows, ...)
+    tensors, one part a device: one triple as packed here; an engine on a
+    mesh splits all three into one contiguous row shard a device, so each
+    device keeps the segment metadata of its own rows.  ``batches`` holds
+    the host metadata for score extraction, over all the rows.
     """
 
     rows: int
     width: int
     s_max: int
     sat: int
-    stack: torch.Tensor  # (C, rows, width) int8
-    rebases: torch.Tensor  # (C, rows, width) int16
-    ends: torch.Tensor  # (C, rows, s_max) int32
+    # ((C, rows, width) int8 stack, (C, rows, width) int16 rebases,
+    # (C, rows, s_max) int32 ends) a part
+    parts: Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]
     batches: Tuple[SegBatch, ...]
+
+    @property
+    def stack(self) -> torch.Tensor:
+        """The (C, rows, width) int8 stack of a group in one part."""
+        ((stack, _, _),) = self.parts
+        return stack
+
+    @property
+    def rebases(self) -> torch.Tensor:
+        ((_, rebases, _),) = self.parts
+        return rebases
+
+    @property
+    def ends(self) -> torch.Tensor:
+        ((_, _, ends),) = self.parts
+        return ends
 
     @property
     def chunks(self) -> int:
@@ -330,9 +349,8 @@ def pack_batches_to_groups(
                 width=width,
                 s_max=s_max,
                 sat=sat,
-                stack=torch.from_numpy(stack).to(device),
-                rebases=torch.from_numpy(rebases).to(device),
-                ends=torch.from_numpy(ends).to(device),
+                parts=((torch.from_numpy(stack).to(device), torch.from_numpy(rebases).to(device),
+                        torch.from_numpy(ends).to(device)),),
                 batches=tuple(bs),
             )
         )

@@ -23,7 +23,11 @@ fold.  The CLI on a FASTA file runs on the card through the native host
 runtime, and the streamed paths on natively packed buckets equal the
 resident ones.  The lane-sharded and query-sharded engines on meshes that
 name the card n times (and on distinct cards where there are several) equal
-the single-device engine, and leave the thread's current device where it was.
+the single-device engine, and leave the thread's current device where it was;
+so do the row path, the int16 mode, the prefilter and a streamed query-shard
+database on such meshes, with K2 held to its plain version at the row-shard
+shapes of a 3- and 4-way split; and a 2-process gloo fleet of the launcher,
+both processes on the one card, prints the single-device top-K.
 """
 
 from pathlib import Path
@@ -612,3 +616,94 @@ def test_mesh_of_distinct_cards_matches_single(cuda):
         for got, want in zip(eng.search_queued(queries, db), single.search_queued(queries, db)):
             assert got.top_k(10) == want.hits
         assert torch.cuda.current_device() == current
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_k2_row_shards_match_plain(cuda, n):
+    """K2 at the row-shard shapes of an n-way split of a 32,768-row stack
+    (2 chunks of 16,384 rows, rounded up to lcm(8, n) as the mesh's plan
+    rounds them): the whole stack runs the band sweep (rows x C >=
+    BAND_ROWS), each shard the warp wavefront.  Every shard's launch equals
+    its plain version, and the shards gathered in mesh order the launch
+    over the whole stack."""
+    from math import gcd
+
+    from swtpu_torch.parallel.mesh import make_mesh, shard_lanes
+
+    mult = 8 * n // gcd(8, n)
+    B = -(-16_384 // mult) * mult
+    prof, stack = _row_stack(np.random.default_rng(n), 300, 2, B, 48)
+    prof, stack = prof.to(cuda), stack.to(cuda)
+    n_bands = prof.shape[0] // bucket_sw.W
+    shards = shard_lanes(stack, make_mesh(devices=[cuda] * n))
+    assert bucket_sw.rows_shape(n_bands, 2 * B)[0] == 1
+    assert all(s.shape[1] == B // n and bucket_sw.rows_shape(n_bands, 2 * s.shape[1])[0] > 1 for s in shards)
+    before = bucket_sw.sw_score_bucket_fused.launches
+    got = [bucket_sw.sw_score_bucket_fused(prof, s, gap=2) for s in shards]
+    whole = bucket_sw.sw_score_bucket_fused(prof, stack, gap=2)
+    torch.cuda.synchronize()
+    assert bucket_sw.sw_score_bucket_fused.launches - before == n + 1
+    for s, g in zip(shards, got):
+        assert torch.equal(g, row_sw.sw_score_stack(prof, s, gap=2, strip=32))
+    assert torch.equal(torch.cat(got, dim=1), whole)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_row_path_mesh_on_card_matches_single(cuda, n):
+    """cuda:0 x n on the row path: K2 on every row shard (groups x n
+    launches) with PyTorch seg16, the int16 mode, the streamed K3 route on
+    the primary, the prefilter (its exact engine on the mesh) and a streamed
+    database under query_shard, each equal to one device."""
+    queries, db = _mesh_data()
+    mesh = [cuda] * n
+    want = [SearchEngine(SWConfig(), device=cuda).search(q, db).scores for q in queries]
+    eng = SearchEngine(SWConfig(mesh_shape=(n,), use_wave=False), device=mesh)
+    packed = eng._resident_packed(db)
+    before = bucket_sw.sw_score_bucket_fused.launches
+    assert np.array_equal(eng.search(queries[1], db).scores, want[1])
+    assert bucket_sw.sw_score_bucket_fused.launches - before == n * len(packed.groups) > 0
+    for kw in (dict(score_dtype="int16"), dict(use_wave=False, device_resident=False),
+               dict(query_shard=True, device_resident=False)):
+        other = SearchEngine(SWConfig(mesh_shape=(n,), **kw), device=mesh)
+        assert all(np.array_equal(r.scores, w) for r, w in zip(other.search_queued(queries, db), want))
+    for wave in (None, False):
+        pre = dict(prefilter=0.05, top_k=10, use_wave=wave)
+        one = SearchEngine(SWConfig(**pre), device=cuda)
+        got = SearchEngine(SWConfig(mesh_shape=(n,), **pre), device=mesh)
+        assert [r.hits for r in got.search_many(queries, db)] == [r.hits for r in one.search_many(queries, db)]
+
+
+def test_two_rank_gloo_fleet_on_one_card(cuda, tmp_path):
+    """Two processes of the launcher with gloo on 127.0.0.1, both on cuda:0,
+    print the same hits: the single-device engine's top-10."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from swtpu_torch.alphabet import decode
+    from swtpu_torch.io.fasta import write_fasta
+
+    _, db = _mesh_data()
+    path = tmp_path / "db.fasta"
+    write_fasta(path, [decode(db.sequence(i)) for i in range(db.n)])
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = Path(__file__).resolve().parent.parent
+    cmd = [sys.executable, "-m", "swtpu_torch.parallel.launch", "--query", str(DATA / "queries" / "P01008.fasta"),
+           "--db", str(path), "--json", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    procs = [subprocess.Popen(cmd + ["--process-id", str(p)], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for p in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), [err[-2000:] for _, err in outs]
+    got = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    query = parse_query(DATA / "queries" / "P01008.fasta")
+    want = SearchEngine(SWConfig(top_k=10), device=cuda).search(query, parse_database(path))
+    assert got[0]["hits"] == got[1]["hits"] == [list(h) for h in want.hits]
+    assert [g["device"] for g in got] == ["cuda:0", "cuda:0"]

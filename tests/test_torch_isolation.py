@@ -2,18 +2,20 @@
 
 * importing swtpu_torch (its stats copy, the prefilter, the int8, chain,
   wavefront-lab, row-lab and int16 kernels' wrappers, the native host
-  runtime, the parallel package and the roofline and lab tools included)
+  runtime, the parallel package with the multi-process engine and its
+  launcher, the shard manifest, and the roofline and lab tools included)
   and running a search, a row-path search, a batched top-K with E-values, a
   prefiltered search (through the native parse, packers and signatures),
-  and lane-sharded and query-sharded searches on a CPU mesh loads neither
-  JAX nor swtpu (a subprocess: every pytest process here has imported JAX
-  already);
+  lane-sharded, query-sharded and row-path searches on a CPU mesh, and a
+  2-process gloo search loads neither JAX nor swtpu (a subprocess: every
+  pytest process here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
-* every combination of a later slice raises instead of being ignored or
-  falling back to one device, and the serving, affine-gap, row-path,
-  composed-dispatch, prefilter and mesh knobs are accepted.
+* the combinations a mesh refused until slice A14b run, and the serving,
+  affine-gap, row-path, composed-dispatch, prefilter and mesh knobs are
+  accepted.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -22,9 +24,20 @@ import pytest
 import torch
 
 from swtpu_torch.config import SWConfig
+from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine, resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small searches: intra-op threads gain nothing here, and beside the
+    other test workers on the same cores they only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_port_imports_neither_jax_nor_swtpu():
@@ -38,6 +51,7 @@ import swtpu_torch.ops.wave_lab, swtpu_torch.ops.i16_probe, swtpu_torch.tools.bu
 import swtpu_torch.tools.probe_i16, swtpu_torch.tools.probe_breakdown, swtpu_torch.tools.wave_lab
 import swtpu_torch.ops.rows_lab, swtpu_torch.tools.pallas_lab, swtpu_torch.native
 import swtpu_torch.parallel, swtpu_torch.parallel.mesh, swtpu_torch.parallel.search, swtpu_torch.parallel.query_shard
+import swtpu_torch.io.manifest, swtpu_torch.parallel.distributed, swtpu_torch.parallel.launch
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
@@ -56,11 +70,30 @@ lanes = SearchEngine(SWConfig(mesh_shape=(2,), top_k=3), device="cpu").search(q,
 assert lanes.hits == res.top_k(3)
 bands = SearchEngine(SWConfig(mesh_shape=(2,), query_shard=True), device="cpu").search(q, db)
 assert (bands.scores == res.scores).all()
+mesh_rows = SearchEngine(SWConfig(mesh_shape=(2,), use_wave=False), device="cpu").search(q, db)
+assert (mesh_rows.scores == res.scores).all()
+import socket, subprocess
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]; s.close()
+cmd = [sys.executable, "-m", "swtpu_torch.parallel.launch", "--query", "tests/data/queries/P05013.fasta",
+       "--db", "tests/data/uniprot_subset.fasta", "--top-k", "3", "--device", "cpu", "--json",
+       "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+ranks = [subprocess.Popen(cmd + ["--process-id", str(p)], stdout=subprocess.PIPE, text=True) for p in range(2)]
+try:
+    outs = [r.communicate(timeout=120)[0] for r in ranks]
+finally:
+    for r in ranks:
+        r.kill()
+import json
+fleet = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+assert fleet[0]["hits"] == fleet[1]["hits"] == [list(h) for h in res.top_k(3)], fleet
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "swtpu" or m.startswith("swtpu."))
 print("LOADED", bad)
 """
+    # one intra-op thread in the subprocess and the fleet's processes it
+    # starts, as in this process (the module fixture)
     out = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
@@ -94,11 +127,18 @@ def test_cli_defaults_to_cuda(monkeypatch, capsys):
     ],
 )
 def test_unported_knobs_raise(knob, value):
-    """The combinations of a mesh that slice A14b brings: the row path, the
-    prefilter, and a streamed database under query_shard."""
+    """The combinations of a mesh that raised NotImplementedError until
+    slice A14b (the row path, the int16 mode, the prefilter, a streamed
+    database under query_shard) now run on a 2-shard CPU mesh, equal to one
+    device; nothing in the port names a slice still to come."""
     extra = {"prefilter": {"top_k": 5}, "device_resident": {"query_shard": True}}.get(knob, {})
-    with pytest.raises(NotImplementedError, match="slice A14b"):
-        SWConfig(**{knob: value}, mesh_shape=(2,), **extra)
+    q, db = parse_query(ROOT / "tests/data/queries/P05013.fasta"), parse_database(ROOT / "tests/data/uniprot_subset.fasta")
+    cfg = SWConfig(**{knob: value}, mesh_shape=(2,), **extra)
+    got = SearchEngine(cfg, device="cpu").search(q, db)
+    want = SearchEngine(cfg.replace(mesh_shape=(1,)), device="cpu").search(q, db)
+    assert got.hits == want.hits and (got.scores is None or (got.scores == want.scores).all())
+    for path in (ROOT / "swtpu_torch").rglob("*.py"):
+        assert "slice A1" not in path.read_text(), path
 
 
 @pytest.mark.parametrize(

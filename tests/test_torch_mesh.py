@@ -19,7 +19,10 @@ merge as on the card.  The cases:
 * the merged top-K when ties span shards;
 * ``make_sharded_step`` and ``ShardedSearchEngine`` against swtpu's;
 * the CLI's ``--mesh`` dumps against the single-device dump;
-* every refused combination.
+* every refused combination, and the four that slice A14b brought (the
+  row path, the int16 mode, the prefilter and a streamed database under
+  query_shard), which now run (tests/test_torch_mesh_rows.py holds them to
+  swtpu's mesh engine).
 
 Scores and hits are exactly equal; E-values are equal to the single-device
 engine's (the same integer moments and candidates).
@@ -379,10 +382,6 @@ def test_cli_mesh_dump_matches_single(capsys, extra):
 @pytest.mark.parametrize(
     "kw,err,match",
     [
-        (dict(use_wave=False), NotImplementedError, "slice A14b"),
-        (dict(score_dtype="int16"), NotImplementedError, "slice A14b"),
-        (dict(prefilter=0.1, top_k=3), NotImplementedError, "slice A14b"),
-        (dict(query_shard=True, device_resident=False), NotImplementedError, "slice A14b"),
         (dict(query_shard=True, wave_chain=True), ValueError, "wave_chain"),
         (dict(query_shard=True, use_wave=False), ValueError, "wavefront path"),
         (dict(query_shard=True, wave_compose=True), ValueError, "incompatible"),
@@ -396,17 +395,36 @@ def test_refused_combinations(kw, err, match):
         SWConfig(**kw)
 
 
-def test_refused_devices_and_multi_host(data):
+@pytest.mark.parametrize(
+    "kw",
+    [dict(use_wave=False), dict(score_dtype="int16"), dict(prefilter=0.1, top_k=3), dict(query_shard=True, device_resident=False)],
+    ids=["row_path", "int16", "prefilter", "streamed_query_shard"],
+)
+def test_a14b_combinations_run(data, single, kw):
+    """The four combinations that raised NotImplementedError until slice
+    A14b now run on a 2-shard mesh and equal the single-device engine."""
+    (queries, db), _ = data
+    got = _mesh_engine(2, **kw).search(queries[1], db)
+    if "prefilter" in kw:
+        assert got.hits == SearchEngine(SWConfig(**kw), device="cpu").search(queries[1], db).hits
+    else:
+        assert np.array_equal(got.scores, single["linear"][1][0])
+
+
+def test_refused_devices_and_multi_host(data, single):
     (queries, db), _ = data
     with pytest.raises(ValueError, match="sequence of 2 devices"):
         SearchEngine(SWConfig(mesh_shape=(2,)), device="cuda:1")
     with pytest.raises(ValueError, match="needs 2 devices, 3 given"):
         SearchEngine(SWConfig(mesh_shape=(2,)), device=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="slice A15"):
-        tmesh.initialize_distributed()
+    # multi-process bring-up is parallel.distributed's (slice A15): one
+    # process needs none, and the mesh module no longer stubs it
+    from swtpu_torch.parallel import distributed
+
+    distributed.initialize(num_processes=1)
+    assert not torch.distributed.is_initialized() and not hasattr(tmesh, "initialize_distributed")
     # the single-device engine of a one-device list is no mesh
     assert SearchEngine(SWConfig(), device=["cpu"]).mesh is None
-    # a query-sharded database over the residency budget does not stream
+    # a query-sharded database over the residency budget streams through the row ladder
     eng = SearchEngine(SWConfig(mesh_shape=(2,), query_shard=True, device_resident_cells=10), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice A14b"):
-        eng.search(queries[0], db)
+    assert np.array_equal(eng.search(queries[0], db).scores, single["linear"][0][0]) and eng._resident is None
