@@ -2750,7 +2750,8 @@ def phase_mesh_prefilter(db):
     shards (the card named four times; the coarse pass and the gathered
     exact phase on the primary, as swtpu's): hits and E-values equal to the
     one-device prefilter's, one coarse launch (counts zeroed just before,
-    read just after)."""
+    read just after); the host phases' seconds of a second search beside
+    one device's."""
     from swtpu_torch.config import SWConfig
     from swtpu_torch.io.fasta import parse_query
     from swtpu_torch.models.search import SearchEngine
@@ -2758,7 +2759,11 @@ def phase_mesh_prefilter(db):
 
     t_phase = time.perf_counter()
     query = parse_query(ROOT / "tests" / "data" / "queries" / f"{MAIN_QUERY}.fasta")
-    one = SearchEngine(SWConfig(evalue=True, **PREFILTER), device="cuda").search(query, db)
+    one_eng = SearchEngine(SWConfig(evalue=True, **PREFILTER), device="cuda")
+    one = one_eng.search(query, db)
+    one_timed = one_eng.search(query, db).metrics
+    say("mesh.prefilter.single", query=MAIN_QUERY, device_seconds=one_timed.device_seconds,
+        wall_seconds=one_timed.wall_seconds, phases=one_timed.phases)
     for label, devices in mesh_devices(4):
         eng = SearchEngine(SWConfig(mesh_shape=(4,), evalue=True, **PREFILTER), device=devices)
         int8_mma.coarse_counts.launches = 0
@@ -2771,7 +2776,7 @@ def phase_mesh_prefilter(db):
         timed = eng.search(query, db).metrics
         say("mesh.prefilter", mesh=label, query=MAIN_QUERY, coarse_launches=coarse, kernel_launches=res.metrics.kernel_launches,
             first_search_wall_s=wall, device_seconds=timed.device_seconds, wall_seconds=timed.wall_seconds,
-            hits_and_evalues_equal_single=True, seconds=round(time.perf_counter() - t_phase, 3))
+            phases=timed.phases, first_search_phases=res.metrics.phases, hits_and_evalues_equal_single=True, seconds=round(time.perf_counter() - t_phase, 3))
         del eng
 
 
@@ -2810,64 +2815,59 @@ def phase_mesh_query_shard_streamed(db):
             seconds=round(time.perf_counter() - t_phase, 3))
 
 
-FLEET_DEVICE = "cuda"  # every process of dist.fleet: cuda:<process id mod the cards>, the one card twice here
 FLEET_TIMEOUT = 600  # seconds a dist.fleet process may take before it is killed
 
-FLEET_WORKER = r'''
+FLEET_WORKER = r"""
 import json, sys, time
 import torch
 import torch.distributed as dist
-from chip_smoke import MAIN_QUERY, ROOT, SUITE
+from chip_smoke import MAIN_QUERY, ROOT, SUITE, events_ms
 from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.ops import wave_sw
 from swtpu_torch.parallel import distributed as D
+from swtpu_torch.utils.bucketing import pack_database_wave
 
-pid, port, path, device = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+pid, port, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 t0 = time.perf_counter()
 D.initialize(f"127.0.0.1:{port}", 2, pid, timeout=300)
 t = time.perf_counter()
 db = parse_database(path)
 queries = [parse_query(ROOT / "tests" / "data" / "queries" / f"{name}.fasta") for name in SUITE]
 parse_s = time.perf_counter() - t
-eng = D.DistributedSearchEngine(SWConfig(evalue=True), device=device)
+eng = D.DistributedSearchEngine(SWConfig(evalue=True), device="cuda")  # cuda:<process id mod the cards>
 shard, base = eng.shard_of(db)
 t = time.perf_counter()
 resident = eng.pack(shard, 10)
 pack_s = time.perf_counter() - t
-# --- this phase's main path: counts zeroed just before, read just after
+main = queries[SUITE.index(MAIN_QUERY)]
+# --- this phase's main path, P01008 then the suite: counts zeroed just
+# before each, read just after
+wave_sw.sw_wave.launches = 0
+one = eng.search(main, shard, base, top_k=10)
+main_launches = wave_sw.sw_wave.launches
 wave_sw.sw_wave.launches = 0
 t = time.perf_counter()
 res = eng.search_many(queries, shard, base, top_k=10)
 search_s = time.perf_counter() - t
-launches = wave_sw.sw_wave.launches
+suite_launches = wave_sw.sw_wave.launches
 
-
-def timed(fn, reps):
-    """(mean milliseconds of fn() over reps, its last result): CUDA events on
-    the card, the host clock on the CPU."""
-    if device == "cpu":
-        t = time.perf_counter()
-        for _ in range(reps):
-            out = fn()
-        return 1e3 * (time.perf_counter() - t) / reps, out
-    from chip_smoke import events_ms
-    return events_ms(fn, reps)
-
-
-# K1 on this shard's buckets for P01008 against its plain version, one
-# process at a time so that the two do not share the card while timed
+# K1 on this shard's buckets for P01008 (the launches of the P01008 search;
+# packed here when the shard streams) against its plain version, one process
+# at a time so that the two do not share the card while timed
 local = eng._engine(10)
 packed = local._resident_packed(shard)
-profile = local._profile(queries[SUITE.index(MAIN_QUERY)])
+if packed is None:
+    packed = pack_database_wave(shard, device=local.device, plan=local._wave_plan(shard))
+profile = local._profile(main)
 kernel = {}
 for turn in range(2):
-    if turn == pid and packed is not None and packed.wave_groups:
+    if turn == pid:
         groups = packed.wave_groups
         run = lambda f: [f(profile, g.stack, **local._gaps, n_segs=g.n_segs) for g in groups]  # noqa: E731
-        timed(lambda: run(wave_sw.sw_wave), 1)  # warm
-        ms, got = timed(lambda: run(wave_sw.sw_wave), 3)
-        plain_ms, plain = timed(lambda: run(wave_sw.sw_wave_plain), 1)
+        events_ms(lambda: run(wave_sw.sw_wave))  # warm
+        ms, got = events_ms(lambda: run(wave_sw.sw_wave), 3)
+        plain_ms, plain = events_ms(lambda: run(wave_sw.sw_wave_plain))
         err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, plain))
         kernel = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                       cells=sum(profile.shape[0] * g.n_segs * g.seg_cols * g.lanes for g in groups),
@@ -2876,11 +2876,13 @@ for turn in range(2):
 dist.destroy_process_group()
 print("FLEET " + json.dumps({
     "process": pid, "device": str(eng.device), "route": "resident" if resident else "streamed", "n_local": shard.n,
-    "shard_base": base, "hits": [r.hits for r in res], "stats": [[[h.evalue, h.bits] for h in r.hit_stats()] for r in res],
-    "collective_seconds": res[0].collective_seconds, "k1_launches": launches, "parse_seconds": parse_s,
-    "pack_seconds": pack_s, "search_seconds": search_s, "wall_seconds": time.perf_counter() - t0, "kernel": kernel,
+    "shard_base": base, "main_hits": one.hits, "hits": [r.hits for r in res],
+    "stats": [[[h.evalue, h.bits] for h in r.hit_stats()] for r in res],
+    "collective_seconds": res[0].collective_seconds, "k1_launches_main": main_launches,
+    "k1_launches_suite": suite_launches, "parse_seconds": parse_s, "pack_seconds": pack_s, "search_seconds": search_s,
+    "wall_seconds": time.perf_counter() - t0, "kernel": kernel,
 }), flush=True)
-'''
+"""
 
 
 def fleet_run(commands):
@@ -2936,11 +2938,13 @@ def phase_dist_fleet(path, db, suite_scores):
     want10 = SearchResult(scores=suite_scores[SUITE.index(MAIN_QUERY)], metrics=None).top_k(10)
     port = free_port()
     cmd = [sys.executable, "-m", "swtpu_torch.parallel.launch", "--query", str(qdir / f"{MAIN_QUERY}.fasta"),
-           "--db", str(path), "--json", "--device", FLEET_DEVICE, "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+           "--db", str(path), "--json", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
     t0 = time.perf_counter()
     outs = fleet_run([cmd + ["--process-id", str(p)] for p in range(2)])
     launch_wall = time.perf_counter() - t0
     launch = [json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1]) for out in outs]
+    if not all(p["device"].startswith("cuda") for p in launch):
+        raise AssertionError(f"dist.fleet launch: a process ran off the card: {[p['device'] for p in launch]}")
     if not launch[0]["hits"] == launch[1]["hits"] == [list(h) for h in want10]:
         raise AssertionError(f"dist.fleet launch: the processes' hits {launch[0]['hits']} / {launch[1]['hits']} "
                              f"are not the one-device top-10 {want10}")
@@ -2948,10 +2952,14 @@ def phase_dist_fleet(path, db, suite_scores):
 
     port = free_port()
     t0 = time.perf_counter()
-    outs = fleet_run([[sys.executable, "-c", FLEET_WORKER, str(p), str(port), str(path), FLEET_DEVICE] for p in range(2)])
+    outs = fleet_run([[sys.executable, "-c", FLEET_WORKER, str(p), str(port), str(path)] for p in range(2)])
     fleet_wall = time.perf_counter() - t0
     path.unlink()
     ranks = [json.loads([ln for ln in out.splitlines() if ln.startswith("FLEET ")][-1][len("FLEET "):]) for out in outs]
+    if not all(r["device"].startswith("cuda") for r in ranks):
+        raise AssertionError(f"dist.fleet: a process ran off the card: {[r['device'] for r in ranks]}")
+    if not ranks[0]["main_hits"] == ranks[1]["main_hits"] == [list(h) for h in want10]:
+        raise AssertionError(f"dist.fleet: the processes' {MAIN_QUERY} hits are not the one-device top-10 {want10}")
     queries = [parse_query(qdir / f"{name}.fasta") for name in SUITE]
     one = SearchEngine(SWConfig(top_k=10, evalue=True), device="cuda").search_many(queries, db)
     worst_loge = worst_bits = 0.0
@@ -2965,25 +2973,28 @@ def phase_dist_fleet(path, db, suite_scores):
             worst_bits = max(worst_bits, abs(bits - h.bits) / abs(h.bits))
     if worst_loge > 0.05 or worst_bits > 0.01:
         raise AssertionError(f"dist.fleet: E-values off the one-device pooled fit by log-E {worst_loge}, bits {worst_bits}")
-    if any(r["k1_launches"] == 0 for r in ranks):
-        raise AssertionError(f"dist.fleet: a process launched no K1: {[r['k1_launches'] for r in ranks]}")
+    if any(r["k1_launches_main"] == 0 or r["k1_launches_suite"] == 0 for r in ranks):
+        raise AssertionError(f"dist.fleet: a process launched no K1: {ranks}")
     kernels = [r.pop("kernel") for r in ranks]
     for r in ranks:
-        r.pop("hits"), r.pop("stats")
+        r.pop("main_hits"), r.pop("hits"), r.pop("stats")
+    if any(r["k1_launches_main"] != k["buckets"] for r, k in zip(ranks, kernels)):
+        raise AssertionError(f"dist.fleet: {MAIN_QUERY}'s K1 launches {[r['k1_launches_main'] for r in ranks]} "
+                             f"are not the shards' buckets {[k.get('buckets') for k in kernels]}")
     err = max(k["max_abs_err"] for k in kernels)
     if err:
         raise AssertionError(f"dist.fleet: K1 on a shard differs from its plain version by {err}")
     b_ms, b_by = row_bound(sum(k["cells"] for k in kernels), sum(k["bytes"] for k in kernels))
     say("dist.fleet", queries=len(SUITE), processes=ranks, both_wall_s=fleet_wall, hits_equal_single=True,
+        suite_k1_launches=sum(r["k1_launches_suite"] for r in ranks),
         max_abs_log_evalue_diff=worst_loge, max_rel_bits_diff=worst_bits, shard_kernel_ms=[k["ms"] for k in kernels],
         seconds=round(time.perf_counter() - t_phase, 3))
     return {
         "name": "sw_wave (K1 in a 2-process gloo fleet, one shard a process, cuda:0 twice)", "route": "cuda",
         "source": "swtpu_torch/csrc/sw_wave.cu", "replaces": "swtpu/ops/wave_sw.py:815",
-        "launches": sum(r["k1_launches"] for r in ranks), "max_abs_err": err,
+        "launches": sum(r["k1_launches_main"] for r in ranks), "max_abs_err": err,
         "ms": sum(k["ms"] for k in kernels), "plain_ms": sum(k["plain_ms"] for k in kernels),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "per_search": "ms, plain_ms and bound: one P01008 search over both shards' buckets; launches: the suite's",
     }
 
 

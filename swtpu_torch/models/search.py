@@ -74,6 +74,7 @@ from ..ops import prefilter as pf
 from ..ops.profile import PAD_SUBJECT, make_profile
 from ..parallel import query_shard
 from ..parallel.mesh import Mesh, lane_bounds, make_mesh, on_device, replicate, replicate_tiles, shard_lanes
+from ..stats import DEFAULT_TRIM
 from ..utils import segpack
 from ..utils.bucketing import (
     BatchPlan,
@@ -225,8 +226,13 @@ def resolve_device(device=None) -> torch.device:
 class SearchEngine:
     """Reusable scorer: pack a database once, search it with many queries."""
 
-    def __init__(self, config: SWConfig = SWConfig(), device=None):
+    def __init__(self, config: SWConfig = SWConfig(), device=None, *, top_trim: float = DEFAULT_TRIM):
+        """``top_trim``: the fraction of a query's scores whose top values
+        the null statistics keep, the fit's default trim; a fleet process
+        keeps more, to ship its share of the global trim whatever the skew
+        (``parallel.distributed``)."""
         self.config = config
+        self._top_trim = top_trim
         # A mesh of config.n_devices > 1 devices, or None for one device;
         # self.device is the mesh's primary, where results merge.
         self.mesh: Optional[Mesh] = self._resolve_mesh(device)
@@ -282,13 +288,6 @@ class SearchEngine:
         self._prefilter_edge_cache = None
         self._evalue_sample_cache = None
         self._exact: Optional["SearchEngine"] = None
-        # The fraction of a query's scores whose top values the null
-        # statistics keep: the fit's default trim; a fleet process keeps
-        # more, to ship its share of the global trim whatever the skew
-        # (parallel.distributed).
-        from ..stats import DEFAULT_TRIM
-
-        self._top_trim = DEFAULT_TRIM
 
     # --- device plumbing -------------------------------------------------------
 
@@ -521,30 +520,24 @@ class SearchEngine:
         )
 
     def pack_to_device(self, db: Database, plan=None) -> PackedDatabase:
-        """Pack the whole database on the engine's device: into wave buckets
+        """Pack the whole database on the engine's devices: into wave buckets
         on the wavefront path (``plan``: a plan_wave_buckets result), each
         then placed on the mesh (``_place``), else
         into ladder groups (``plan``: a BatchPlan) and, with segment packing,
         segment-packed groups for every sequence shorter than
-        max(seg_widths); on a mesh those are packed on the host and their
-        row shards placed on the devices (``_place_rows``)."""
+        max(seg_widths), each packed on the host and its row shards placed
+        on the devices as soon as it is packed (``_place_rows``; one device
+        holds one shard)."""
         if self._wave_enabled:
             if plan is None:
                 plan = self._wave_plan(db)
             packed = pack_database_wave(db, device=self.device, plan=plan)
             return dataclasses.replace(packed, wave_groups=tuple(self._place(g) for g in packed.wave_groups))
-        if self._lanes.size > 1:
-            packed = self._pack_rows(db, plan, "cpu")
-            return dataclasses.replace(
-                packed,
-                groups=tuple(self._place_rows(g) for g in packed.groups),
-                seg_groups=tuple(self._place_rows(g) for g in packed.seg_groups),
-            )
-        return self._pack_rows(db, plan, self.device)
+        return self._pack_rows(db, plan)
 
-    def _pack_rows(self, db: Database, plan: Optional[BatchPlan], device) -> PackedDatabase:
-        """The row path's ladder and segment groups of ``db``, uploaded to
-        ``device`` (``pack_to_device``)."""
+    def _pack_rows(self, db: Database, plan: Optional[BatchPlan]) -> PackedDatabase:
+        """The row path's ladder and segment groups of ``db``, placed on the
+        devices (``pack_to_device``)."""
         cfg = self.config
         # Segment packing needs a usable saturation ceiling; large gap
         # penalties (or int16 mode) pack plain ladder batches.
@@ -555,7 +548,7 @@ class SearchEngine:
             and segpack.seg16_sat(cfg.gap_penalty, cfg.seg_widths[0], cfg.seg_s_max) >= 1024
         )
         if not seg_ok:
-            return pack_database(db, plan if plan is not None else self.plan(db), device=device)
+            return pack_database(db, plan if plan is not None else self.plan(db), place=self._place_rows)
         lengths = db.lengths
         s_max_for = lambda w: max(2, min(cfg.seg_s_max, cfg.seg_widths[0] * cfg.seg_s_max // w))  # noqa: E731
         rows_for = lambda w: min(cfg.batch_rows, max(256, cfg.max_batch_cells // w))  # noqa: E731
@@ -566,7 +559,7 @@ class SearchEngine:
         for width, batches in segpack.plan_multiclass(lengths[short_idx], short_idx, cfg.seg_widths, s_max_for, rows_for):
             seg_groups.extend(
                 segpack.pack_batches_to_groups(
-                    db, batches, gap=cfg.gap_penalty, width=width, s_max=s_max_for(width), device=device,
+                    db, batches, gap=cfg.gap_penalty, width=width, s_max=s_max_for(width), place=self._place_rows,
                     row_multiple=self._row_multiple,
                 )
             )
@@ -579,7 +572,7 @@ class SearchEngine:
                 long_plan,
                 batches=tuple(dataclasses.replace(b, ids=long_idx[b.ids].astype(np.int64)) for b in long_plan.batches),
             )
-            groups = pack_database(db, remapped, device=device).groups
+            groups = pack_database(db, remapped, place=self._place_rows).groups
         return PackedDatabase(groups=groups, n_sequences=db.n, seg_groups=tuple(seg_groups))
 
     def _resident_packed(self, db: Database, plan: Optional[BatchPlan] = None) -> Optional[PackedDatabase]:

@@ -163,11 +163,9 @@ class DistributedSearchEngine:
     def _local_engine(self, config: SWConfig):
         from ..models.search import SearchEngine
 
-        eng = SearchEngine(config, device=self.device)
         # Every process collects process_count times the trim's top values,
         # so it can ship ceil(trim x the global count) of them (D14).
-        eng._top_trim = min(1.0, DEFAULT_TRIM * self.process_count)
-        return eng
+        return SearchEngine(config, device=self.device, top_trim=min(1.0, DEFAULT_TRIM * self.process_count))
 
     def _engine(self, top_k: Optional[int]):
         key = None if self.full_scores else top_k

@@ -474,10 +474,12 @@ def iter_packed(db: Database, plan: BatchPlan) -> Iterator[Tuple[Batch, np.ndarr
         yield b, pack_batch(db, b)
 
 
-def pack_database(db: Database, plan: BatchPlan, device="cpu") -> PackedDatabase:
-    """Materialise the full plan as stacked same-shape groups on ``device``
-    (each batch packed on the host in place into its group's stack, one
-    upload per group)."""
+def pack_database(db: Database, plan: BatchPlan, place=None) -> PackedDatabase:
+    """Materialise the full plan as stacked same-shape groups, each batch
+    packed on the host in place into its group's stack.  ``place`` (a
+    function of a host group, such as an engine's placement on its devices)
+    maps each group as soon as it is packed, so that the host holds one
+    group's stack at a time; None keeps the groups on the host."""
     by_shape: dict = {}
     for batch in plan.batches:
         by_shape.setdefault((batch.rows, batch.width), []).append(batch)
@@ -488,7 +490,8 @@ def pack_database(db: Database, plan: BatchPlan, device="cpu") -> PackedDatabase
         for c, b in enumerate(batches):
             pack_batch(db, b, out=stack[c])
             ids[c, : b.n_valid] = b.ids
-        groups.append(PackedGroup(rows=rows, width=width, parts=(torch.from_numpy(stack).to(device),), ids=ids))
+        group = PackedGroup(rows=rows, width=width, parts=(torch.from_numpy(stack),), ids=ids)
+        groups.append(group if place is None else place(group))
     return PackedDatabase(groups=tuple(groups), n_sequences=plan.n_sequences)
 
 

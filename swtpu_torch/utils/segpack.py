@@ -307,11 +307,10 @@ def pack_seg_groups(
     width: int = 512,
     s_max: int = 8,
     batch_rows: int = 8192,
-    device="cpu",
 ) -> List[PackedSegGroup]:
-    """Plan + pack + build rebases for one single-width class."""
+    """Plan + pack + build rebases for one single-width class, on the host."""
     batches = plan_segments(lengths, ids, width=width, s_max=s_max, batch_rows=batch_rows)
-    return pack_batches_to_groups(db, batches, gap=gap, width=width, s_max=s_max, device=device)
+    return pack_batches_to_groups(db, batches, gap=gap, width=width, s_max=s_max)
 
 
 def pack_batches_to_groups(
@@ -321,12 +320,13 @@ def pack_batches_to_groups(
     gap: int,
     width: int,
     s_max: int,
-    device="cpu",
+    place=None,
     row_multiple: int = 1,
 ) -> List[PackedSegGroup]:
     """Stack planned batches per quantised row count (full batches in one
     big stack, the partial tail in its own) so no batch pays full-block pad
-    rows; build the rebases and upload everything to ``device``.
+    rows, and build the rebases, on the host; ``place`` maps each group as
+    soon as it is packed (``bucketing.pack_database``'s).
     ``row_multiple`` (a power of two) forces every batch's rows to a
     multiple of it."""
     if not batches:
@@ -343,15 +343,13 @@ def pack_batches_to_groups(
             pack_segments(db, b, out=stack[c])
         rebases = np.stack([build_rebase(b, gap, sat) for b in bs])
         ends = np.stack([b.ends for b in bs])
-        groups.append(
-            PackedSegGroup(
-                rows=rows,
-                width=width,
-                s_max=s_max,
-                sat=sat,
-                parts=((torch.from_numpy(stack).to(device), torch.from_numpy(rebases).to(device),
-                        torch.from_numpy(ends).to(device)),),
-                batches=tuple(bs),
-            )
+        group = PackedSegGroup(
+            rows=rows,
+            width=width,
+            s_max=s_max,
+            sat=sat,
+            parts=((torch.from_numpy(stack), torch.from_numpy(rebases), torch.from_numpy(ends)),),
+            batches=tuple(bs),
         )
+        groups.append(group if place is None else place(group))
     return groups

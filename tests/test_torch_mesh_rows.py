@@ -115,7 +115,9 @@ def test_plan_and_pack_under_a_mesh_match_swtpu(data, n):
         assert [(g.rows, g.width, g.s_max, g.sat, g.chunks) for g in packed.seg_groups] == [
             (g.rows, g.width, g.s_max, g.sat, g.chunks) for g in jpacked.seg_groups
         ]
-        one_groups = eng._pack_rows(db, None, "cpu")  # the same groups, in one part on the host
+        host = _engine(n, **kw)
+        host._place_rows = lambda g: g  # the same groups, in one part on the host
+        one_groups = host._pack_rows(db, None)
         for g, w in zip(packed.groups, one_groups.groups):
             assert len(g.parts) == n and torch.equal(torch.cat(g.parts, dim=1), w.stack)
         for g, w in zip(packed.seg_groups, one_groups.seg_groups):
