@@ -60,11 +60,29 @@ Phases (one line each; any failure exits non-zero with no result line):
               SearchEngine(device="cuda"): exact equality; the subset under
               affine gaps (10, 1) against the NumPy oracle
               (swtpu_torch.ops.oracle.sw_affine_score_diag), subject by subject
+ 4b. fuzz     swtpu_torch.tools.card_fuzz, every function at its own seeds:
+              K1 linear, multi-query, query-band pipeline, chained and
+              affine on random buckets (tools/tpu_fuzz.py's five); every
+              (G, H) forced in every K1 mode across pass boundaries and 143
+              bands, the hand-off as rung chains from a zero and a seeded
+              carry; K2, K3 and the fast16 clamp at every (G, H), widths 1
+              to 6,000, a self-alignment above 32,767; the wrappers' own
+              choice at BAND_THREADS and BAND_ROWS +- 1 and 32 on one device
+              and as 2, 3 and 4 lane or row shards; every launch against its
+              plain version (exact) and a strided oracle sample; cases and
+              launches by kernel, mode and (G, H); seconds
+ 4c. battery  swtpu_torch.tools.gpu_validate: tools/tpu_validate.py's checks
+              on the card (not its TPU-only check 8), each OK
   5. scale    a SwissProt-shaped database of 559,228 sequences (bench.py's
               recipe, seed 0) packed on the card and searched with P01008
               through the user entry points; kernel launch counts are zeroed
               just before the first search and read just after; three timed
               searches; every score against the plain version on the card
+ 5a. profile  the CLI with --profile on the subset (a subprocess): its Chrome
+              trace's events, device events and kernel names; one resident
+              P01008 search under torch.profiler: kernel time by name and
+              the device's busy share over the search's window; the three
+              added phases' seconds together
  5b. native   native.parse: that database written as a FASTA file (60
               columns) into a temporary directory and parsed by the native
               parse and its plain version, each bit-equal to the database in
@@ -524,14 +542,7 @@ def phase_kernel_rows():
         sat = row_sw.fast16_sat(gap, L)
         clamp = bucket_sw.sw_score_bucket_fast16(prof, stack[0], gap=gap, sat=sat)
         clamp_want = row_sw.sw_score_bucket_fast16(prof, stack[0], gap=gap, strip=32, sat=sat, stage_int8=True)
-        shaped = []
-        rule = bucket_sw.rows_shape
-        try:  # the wrapper launches the shape rows_shape gives: every compiled one in turn
-            for shape in bucket_sw.SHAPES:
-                bucket_sw.rows_shape = lambda n_bands, rows, shape=shape: shape
-                shaped.append(bucket_sw.sw_score_bucket_fused(prof, stack, gap=gap))
-        finally:
-            bucket_sw.rows_shape = rule
+        shaped = [bucket_sw.sw_score_bucket_fused(prof, stack, gap=gap, shape=shape) for shape in bucket_sw.SHAPES]
         torch.cuda.synchronize()
         after = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
         if after != (before[0] + 2 + len(bucket_sw.SHAPES), before[1] + C):
@@ -553,24 +564,6 @@ def phase_kernel_rows():
     return worst
 
 
-def rung_chain(fn, profile, stack, carry, n_segs, gaps):
-    """Run a profile's bands through ``fn`` (sw_wave or sw_wave_plain) as
-    the engine's chain of band groups, handing ``carry`` on; returns the
-    running max of the groups' scores and every group's (scores, carry)."""
-    import torch
-
-    from swtpu_torch.models.search import SearchEngine
-
-    best, steps, band = None, [], 0
-    for rung in SearchEngine._compose_groups(profile.shape[0] // 32):
-        part = profile[band * 32 : (band + rung) * 32]
-        band += rung
-        scores, carry = fn(part, stack, carry, n_segs=n_segs, return_carry=True, **gaps)
-        steps.append((scores, carry.clone()))
-        best = scores if best is None else torch.maximum(best, scores)
-    return best, steps
-
-
 def phase_kernel_carry():
     """The band-carry hand-off mode against its plain version on the first
     case list, linear and affine: every group's scores and carry, from a
@@ -580,6 +573,7 @@ def phase_kernel_carry():
     import torch
 
     from swtpu_torch.ops import wave_sw
+    from swtpu_torch.tools.card_fuzz import rung_chain, seeded_carry
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(4)
@@ -589,9 +583,7 @@ def phase_kernel_carry():
         for gaps in (dict(gap=2), AFFINE):
             affine = "gap_open" in gaps
             virgin = wave_sw.virgin_carry(stack, affine)
-            # A seeded carry as a band's bottom row can hold it: H >= 0, F = H - open < H.
-            h = torch.from_numpy(rng.integers(0, 80, tuple(virgin.shape[:2])).astype(np.int32)).cuda()
-            seeded = torch.stack([h, h - AFFINE["gap_open"]], dim=-1).contiguous() if affine else h
+            seeded = seeded_carry(rng, virgin, gaps)
             where = f"qlen={qlen} ws={ws} n_segs={n_segs} lanes={lanes} gaps={gaps}"
             for start in (virgin, seeded):
                 before = wave_sw.sw_wave.carry_launches
@@ -645,6 +637,82 @@ def phase_goldens():
     res = SearchEngine(device="cuda").search(Query("sat", query, ""), synth.database_from_arrays(seqs))
     check("saturation", res.scores, "golden_sat_case.txt")
     say("goldens", checked=checked, tolerance="exact")
+
+
+def phase_fuzz():
+    """fuzz: swtpu_torch.tools.card_fuzz, every function at its own cases and
+    seeds: every case bit-exact against the plain version and equal to the
+    oracle sample; every (G, H) of both SHAPES tuples ran in every K1 mode,
+    K2 and K3; both sides of BAND_THREADS and BAND_ROWS at n = 1 to 4 (the
+    tool fails otherwise).  Returns the largest kernel-plain error by
+    kernel and mode."""
+    from swtpu_torch.ops import bucket_sw, wave_sw
+    from swtpu_torch.tools import card_fuzz
+
+    rc, summary = card_fuzz.run()
+    say("fuzz", **summary)
+    if rc:
+        raise AssertionError(f"card fuzz: {summary['failures']} mismatches (MISMATCH lines above)")
+    want = [f"K1 {m} {card_fuzz.shape_key(s)}" for m in card_fuzz.K1_MODES for s in wave_sw.SHAPES]
+    want += [f"{k} {card_fuzz.shape_key(s)}" for k in ("K2 stack", "K3 bucket") for s in bucket_sw.SHAPES]
+    missing = [k for k in want if not summary["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"card fuzz never launched {missing}")
+    return summary["max_abs_err"]
+
+
+def phase_battery():
+    """battery: swtpu_torch.tools.gpu_validate, every check on the card."""
+    from swtpu_torch.tools import gpu_validate
+
+    t0 = time.perf_counter()
+    results = gpu_validate.run(device="cuda")
+    failed = [k for k, ok in results.items() if not ok]
+    say("battery", checks=list(results), failed=failed, seconds=round(time.perf_counter() - t0, 3))
+    if failed:
+        raise AssertionError(f"battery checks failed: {failed}")
+
+
+def phase_profile(db, engine, first_scores, tmp):
+    """profile: the CLI with --profile on the subset writes a Chrome trace
+    (its device events and the kernels among them); then one resident
+    P01008 search on the SwissProt-shaped database under torch.profiler:
+    kernel time by name and the device's busy share over the search's
+    window (the device events' sum over the span from the first to the
+    last)."""
+    import numpy as np
+
+    from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.utils.profiling import TRACE_NAME, trace, trace_summary
+
+    t0 = time.perf_counter()
+    data = ROOT / "tests" / "data"
+    out_dir = Path(tmp) / "profile_cli"
+    cmd = [sys.executable, "-m", "swtpu_torch", "--query", str(data / "queries" / "P02232.fasta"),
+           "--db", str(data / "uniprot_subset.fasta"), "--no-scores", "--profile", str(out_dir)]
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if run.returncode:
+        raise AssertionError(f"--profile exited {run.returncode}: {run.stderr[-2000:]}")
+    cli = trace_summary(out_dir / TRACE_NAME)
+    say("profile.cli", trace=TRACE_NAME, events=cli["events"], device_events=cli["device_events"],
+        kernels=sorted(cli["kernel_ms"]), device_ms=cli["device_ms"], stderr=run.stderr.strip().splitlines()[-2:])
+    if not cli["events"]:
+        raise AssertionError("the --profile trace holds no events")
+
+    query = parse_query(data / "queries" / f"{MAIN_QUERY}.fasta")
+    with trace(Path(tmp) / "profile_search", "cuda") as path:
+        t1 = time.perf_counter()
+        res = engine.search(query, db)
+        wall = time.perf_counter() - t1
+    if not np.array_equal(res.scores, first_scores):
+        raise AssertionError("the profiled search differs from the unprofiled one")
+    s = trace_summary(path)
+    say("profile.search", query=MAIN_QUERY, resident=True, wall_seconds=wall,
+        device_seconds=res.metrics.device_seconds, events=s["events"], device_events=s["device_events"],
+        kernel_ms=s["kernel_ms"], device_ms=s["device_ms"], window_ms=s["window_ms"], busy_share=s["busy_share"],
+        device_share_of_wall=s["device_ms"] / 1e3 / wall,
+        note=None if s["device_events"] else "the trace holds no device events",
+        seconds=round(time.perf_counter() - t0, 3))
 
 
 def phase_scale():
@@ -722,7 +790,7 @@ def phase_scale():
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
     }
-    return entry, db, engine, [row[-1] for row in per_bucket]
+    return entry, db, engine, [row[-1] for row in per_bucket], first.scores
 
 
 def phase_native_parse_and_cli(db, engine, tmp):
@@ -3035,7 +3103,15 @@ def main() -> int:
         k9 = phase_i16_rates(built)  # three entries: elementwise tiles, dp_row tiles, chains
         phase_goldens()
         phase_goldens_affine()
-        entry, db, engine, q1_bucket_ms = phase_scale()
+        t_fuzz = time.perf_counter()
+        fuzz_err = phase_fuzz()
+        phase_battery()
+        added_s = time.perf_counter() - t_fuzz
+        entry, db, engine, q1_bucket_ms, first_scores = phase_scale()
+        t_profile = time.perf_counter()
+        phase_profile(db, engine, first_scores, tmp.name)
+        added_s += time.perf_counter() - t_profile
+        say("fuzz.battery.profile", seconds=round(added_s, 3))
         fasta = phase_native_parse_and_cli(db, engine, tmp.name)
         multi, suite_scores = phase_serving(db, engine, q1_bucket_ms)
         affine, affine_engine = phase_affine(db, q1_bucket_ms)
@@ -3058,13 +3134,15 @@ def main() -> int:
         return 1
     finally:
         tmp.cleanup()
-    entry["max_abs_err"] = max(entry["max_abs_err"], kernel_err)
-    multi["max_abs_err"] = max(multi["max_abs_err"], multi_err)
-    affine["max_abs_err"] = max(affine["max_abs_err"], affine_err)
-    for k in (k2, k3, mesh_rows):
-        k["max_abs_err"] = max(k["max_abs_err"], rows_err)
-    carry["max_abs_err"] = max(carry["max_abs_err"], carry_err)
-    mesh_bands["max_abs_err"] = max(mesh_bands["max_abs_err"], mesh_kernel_err)
+    fuzz = lambda *keys: max((fuzz_err.get(k, 0) for k in keys), default=0)  # noqa: E731
+    entry["max_abs_err"] = max(entry["max_abs_err"], kernel_err, fuzz("K1 B1a", "K1 B1b"))
+    multi["max_abs_err"] = max(multi["max_abs_err"], multi_err, fuzz("K1 B1c"))
+    affine["max_abs_err"] = max(affine["max_abs_err"], affine_err, fuzz("K1 B1e"))
+    for k in (k2, mesh_rows):
+        k["max_abs_err"] = max(k["max_abs_err"], rows_err, fuzz("K2 stack", "K2 fast16"))
+    k3["max_abs_err"] = max(k3["max_abs_err"], rows_err, fuzz("K3 bucket"))
+    carry["max_abs_err"] = max(carry["max_abs_err"], carry_err, fuzz("K1 B1d"))
+    mesh_bands["max_abs_err"] = max(mesh_bands["max_abs_err"], mesh_kernel_err, fuzz("K1 B1d"))
     coarse["max_abs_err"] = max(coarse["max_abs_err"], counts_err)
     probe["max_abs_err"] = max(probe["max_abs_err"], probe_err)
     chain["max_abs_err"] = max(chain["max_abs_err"], chain_err)

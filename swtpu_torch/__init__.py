@@ -6,4 +6,6 @@ linear or affine gaps, with the top hits' alignments traced back on the
 host.  It imports neither JAX nor ``swtpu``.
 """
 
+from .config import REFERENCE_PARITY, SWConfig  # noqa: F401
+
 __version__ = "0.1.0"

@@ -11,8 +11,10 @@ parity mode, ``--batch-rows``/``--length-quantum`` for its ladder);
 heuristic two-phase search (k-mer coarse pass, exact rescore of the top
 candidates; requires ``--top-k``); ``--mesh N`` to shard the database
 over N cards (N CPU shards with ``--device cpu``) on every one of those
-paths, with ``--query-shard`` to shard the query's bands instead.  Runs on
-the card unless ``--device cpu``.  A refused combination exits 2.  The
+paths, with ``--query-shard`` to shard the query's bands instead;
+``--profile DIR`` to write a ``torch.profiler`` Chrome trace of the search
+to ``DIR/swtpu_torch_trace.json``.  Runs on the card unless ``--device
+cpu``.  A refused combination exits 2.  The
 multi-process fleet has its own entry point, ``python -m
 swtpu_torch.parallel.launch``.
 
@@ -112,6 +114,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --mesh N: shard the query's bands across the devices instead (systolic wavefront "
         "pipeline; latency mode for a long query against a small database, which is replicated)",
     )
+    p.add_argument(
+        "--profile",
+        metavar="DIR",
+        default=None,
+        help="write a torch.profiler Chrome trace of the search to DIR/swtpu_torch_trace.json "
+        "(CPU activity, and CUDA activity on a CUDA device; a summary line goes to stderr)",
+    )
     p.add_argument("--batch-rows", type=int, default=8192)
     p.add_argument("--length-quantum", type=int, default=128)
     return p
@@ -164,7 +173,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"swtpu_torch: error: {e}", file=sys.stderr)
         return 2
-    result = engine.search(query, db)
+    if args.profile is None:
+        result = engine.search(query, db)
+    else:
+        from .utils.profiling import trace, trace_summary
+
+        with trace(args.profile, engine.device) as path:
+            result = engine.search(query, db)
+        summary = trace_summary(path)
+        print(f"swtpu_torch: profile: {path}: {summary['events']} events, {summary['device_events']} on the device, "
+              f"kernels {sorted(summary['kernel_ms'])}", file=sys.stderr)
+        if engine.device.type == "cuda" and not summary["device_events"]:
+            print("swtpu_torch: profile: the trace holds no device events", file=sys.stderr)
 
     if args.align_top_k is not None:
         from .models.align import align_hits

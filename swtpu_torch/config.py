@@ -166,3 +166,8 @@ class SWConfig:
     def replace(self, **kw) -> "SWConfig":
         return dataclasses.replace(self, **kw)
 
+
+
+# Reference-parity config: length quantum 8 as the reference's pad-to-8,
+# exact int32 scores, the reference's BLOSUM50 with a zeroed '*', gap 2.
+REFERENCE_PARITY = SWConfig(length_quantum=8, matrix="blosum50_ref", gap_penalty=2)

@@ -1,4 +1,4 @@
-"""FASTA ingestion (``swtpu.io.fasta`` without headers).
+"""FASTA ingestion (``swtpu.io.fasta``).
 
 * database record ids are 0-based FASTA file order,
 * a query is the concatenation of every non-header line of its file,
@@ -8,7 +8,11 @@ A parsed database is a flat int8 residue buffer plus offsets: the packers
 build buckets from it (swtpu_torch.utils.bucketing).  ``parse_database``
 parses and encodes a file in one native pass (swtpu_torch.native, as
 swtpu's default parse); ``parse_database_plain`` is its NumPy version, for
-the tests and chip_smoke.py.
+the tests and chip_smoke.py.  With ``keep_headers=True`` both also keep each
+record's header line, less its trailing ``\r``s, in ``Database.headers``,
+and ``take`` and ``shard`` carry them.  Both count records by one rule,
+headers or not (C2); swtpu's header-keeping parse drops one record more
+than its native parse (D10, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ class Database:
 
     residues: np.ndarray  # (total,) int8, concatenated encoded sequences
     offsets: np.ndarray  # (n+1,) int64, sequence i = residues[offsets[i]:offsets[i+1]]
+    headers: Optional[List[str]] = None  # record i's header line, when kept
 
     @property
     def n(self) -> int:
@@ -86,14 +91,16 @@ class Database:
         np.cumsum(lens, out=off[1:])
         # Each output position's source: its record's start plus its place in the record.
         src = np.repeat(self.offsets[ids] - off[:-1], lens) + np.arange(int(off[-1]), dtype=np.int64)
-        return Database(residues=self.residues[src], offsets=off)
+        hdr = None if self.headers is None else [self.headers[int(i)] for i in ids]
+        return Database(residues=self.residues[src], offsets=off, headers=hdr)
 
     def shard(self, index: int, count: int) -> "Database":
         """Contiguous shard ``index`` of ``count`` (:func:`shard_range`);
         record i of the shard is record ``lo + i`` of this database."""
         lo, hi = shard_range(self.n, index, count)
         off = self.offsets[lo : hi + 1]
-        return Database(residues=self.residues[int(off[0]) : int(off[-1])], offsets=(off - off[0]).copy())
+        hdr = None if self.headers is None else self.headers[lo:hi]
+        return Database(residues=self.residues[int(off[0]) : int(off[-1])], offsets=(off - off[0]).copy(), headers=hdr)
 
 
 def shard_range(n: int, index: int, count: int) -> Tuple[int, int]:
@@ -131,31 +138,49 @@ def parse_query(path: str | Path) -> Query:
     )
 
 
-def parse_database(path: str | Path) -> Database:
+def _records(data: bytes) -> List[Tuple[bytes, bytes]]:
+    """The database records of FASTA bytes: one is dropped only when its
+    header, less one trailing ``\r``, and its body are both empty (so a
+    header line of ``\r\r`` keeps its record)."""
+    return [(h, b) for h, b in _split_records(data) if b or h.removesuffix(b"\r")]
+
+
+def _headers(recs: List[Tuple[bytes, bytes]]) -> List[str]:
+    return [h.rstrip(b"\r").decode("utf-8", errors="replace") for h, _ in recs]
+
+
+def parse_database(path: str | Path, keep_headers: bool = False) -> Database:
     """Parse a multi-record FASTA database: one native parse-and-encode pass
-    over the file's bytes (record rules in ``csrc/sw_native.cpp``)."""
-    residues, offsets = native.parse_fasta_bytes(Path(path).read_bytes())
-    return Database(residues=residues, offsets=offsets)
+    over the file's bytes (record rules in ``csrc/sw_native.cpp``); with
+    ``keep_headers``, also the records' header lines, by the same rule."""
+    data = Path(path).read_bytes()
+    residues, offsets = native.parse_fasta_bytes(data)
+    headers = None
+    if keep_headers:
+        headers = _headers(_records(data))
+        if len(headers) != offsets.shape[0] - 1:
+            raise RuntimeError(f"{path}: {len(headers)} headers for {offsets.shape[0] - 1} native records")
+    return Database(residues=residues, offsets=offsets, headers=headers)
 
 
-def parse_database_plain(path: str | Path) -> Database:
-    """NumPy version of :func:`parse_database`, with the same records: one
-    is dropped only when its header, less one trailing ``\\r``, and its body
-    are both empty (so a header line of ``\\r\\r`` keeps its record)."""
-    recs = [(h, b) for h, b in _split_records(Path(path).read_bytes()) if b or h.removesuffix(b"\r")]
+def parse_database_plain(path: str | Path, keep_headers: bool = False) -> Database:
+    """NumPy version of :func:`parse_database`, with the same records
+    (:func:`_records`)."""
+    recs = _records(Path(path).read_bytes())
     lengths = np.fromiter((len(b) for _, b in recs), count=len(recs), dtype=np.int64)
     offsets = np.zeros(len(recs) + 1, dtype=np.int64)
     np.cumsum(lengths, out=offsets[1:])
-    return Database(residues=encode_bytes(b"".join(b for _, b in recs)), offsets=offsets)
+    headers = _headers(recs) if keep_headers else None
+    return Database(residues=encode_bytes(b"".join(b for _, b in recs)), offsets=offsets, headers=headers)
 
 
-def database_from_sequences(seqs: List[str | bytes]) -> Database:
+def database_from_sequences(seqs: List[str | bytes], headers: Optional[List[str]] = None) -> Database:
     """Build a Database directly from in-memory sequences (tests, goldens)."""
     bs = [s.encode("ascii") if isinstance(s, str) else bytes(s) for s in seqs]
     lengths = np.fromiter((len(b) for b in bs), count=len(bs), dtype=np.int64)
     offsets = np.zeros(len(bs) + 1, dtype=np.int64)
     np.cumsum(lengths, out=offsets[1:])
-    return Database(residues=encode_bytes(b"".join(bs)), offsets=offsets)
+    return Database(residues=encode_bytes(b"".join(bs)), offsets=offsets, headers=headers)
 
 
 def write_fasta(path: str | Path, seqs: List[str], headers: Optional[List[str]] = None, width: int = 60) -> None:

@@ -16,8 +16,8 @@ tensor reaches its kernel or raises.  Each wrapper counts its kernel
 launches in ``.launches``.
 
 The kernel scores a launch's bands in passes of G bands of H rows
-(``rows_shape`` picks (G, H) per launch, ``wave_sw.n_passes`` counts the
-passes): a warp wavefront with the band-to-band carry in registers, or, for
+(``rows_shape`` picks (G, H) per launch unless a wrapper's ``shape=`` forces
+one of ``SHAPES``; ``wave_sw.n_passes`` counts the passes): a warp wavefront with the band-to-band carry in registers, or, for
 a single band and for launches of many rows, a sweep of one band at a time
 (G = 1).  Only a pass boundary goes through the carry in device memory.
 
@@ -29,14 +29,14 @@ operations, about 6 a padded cell (see the source note).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..alphabet import PADDED_ALPHABET_SIZE as A32
 from . import _build, row_sw
 from .profile import PAD_SCORE
-from .wave_sw import n_passes
+from .wave_sw import check_shape, n_passes
 
 W = 32  # query rows per band of the CUDA kernel
 
@@ -79,11 +79,12 @@ def rows_shape(n_bands: int, rows: int, band_rows: int = BAND_ROWS) -> Tuple[int
     return min(16, 1 << (n_bands - 1).bit_length()), W
 
 
-def carry_bytes(n_bands: int, chunks: int, rows: int, width: int) -> int:
-    """Device bytes of a launch's band carry: the bottom H row of a pass,
-    one int32 per column and subject.  A launch whose bands fit in one pass
-    (``rows_shape`` of its chunks x rows) needs none."""
-    passes = n_passes(n_bands, *rows_shape(n_bands, chunks * rows))
+def carry_bytes(n_bands: int, chunks: int, rows: int, width: int, *, shape: Optional[Tuple[int, int]] = None) -> int:
+    """Device bytes of a launch's band carry at ``shape`` (G, H), or at
+    ``rows_shape``'s of its chunks x rows when None: the bottom H row of a
+    pass, one int32 per column and subject.  A launch whose bands fit in one
+    pass needs none."""
+    passes = n_passes(n_bands, *(shape or rows_shape(n_bands, chunks * rows)))
     return 4 * chunks * rows * width if passes > 1 else 0
 
 
@@ -100,9 +101,9 @@ def _band_profile(profile: torch.Tensor) -> torch.Tensor:
     return profile.contiguous()
 
 
-def _launch(wrapper, profile: torch.Tensor, stack: torch.Tensor, gap: int) -> torch.Tensor:
-    """Run the kernel on a (C, B, L) stack on the card, in rows_shape's (G,
-    H); (C, B) int32.  Counts the launch on ``wrapper``."""
+def _launch(wrapper, profile: torch.Tensor, stack: torch.Tensor, gap: int, shape=None) -> torch.Tensor:
+    """Run the kernel on a (C, B, L) stack on the card, in ``shape`` or
+    rows_shape's (G, H); (C, B) int32.  Counts the launch on ``wrapper``."""
     if gap < 0:
         raise ValueError("gap must be >= 0")
     C, B, L = stack.shape
@@ -116,8 +117,8 @@ def _launch(wrapper, profile: torch.Tensor, stack: torch.Tensor, gap: int) -> to
     prof = _band_profile(profile)
     stack = stack.contiguous()
     n_bands = prof.shape[0] // W
-    g, h = rows_shape(n_bands, C * B)
-    carry = torch.empty(max(carry_bytes(n_bands, C, B, L) // 4, 1), dtype=torch.int32, device=dev)
+    g, h = shape or rows_shape(n_bands, C * B)
+    carry = torch.empty(max(carry_bytes(n_bands, C, B, L, shape=(g, h)) // 4, 1), dtype=torch.int32, device=dev)
     rc = lib.sw_rows_launch(prof.data_ptr(), stack.data_ptr(), carry.data_ptr(), out.data_ptr(), C, n_bands, B, L,
                             gap, g, h, *_build.where(dev))
     _build.check(rc, lib.sw_rows_error_string, "sw_rows kernel launch")
@@ -125,19 +126,24 @@ def _launch(wrapper, profile: torch.Tensor, stack: torch.Tensor, gap: int) -> to
     return out
 
 
-def sw_score_bucket_fused(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32) -> torch.Tensor:
+def sw_score_bucket_fused(
+    profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32, shape: Optional[Tuple[int, int]] = None
+) -> torch.Tensor:
     """K2: exact int32 scoring (the contract of row_sw.sw_score_bucket).
 
     profile: (qpad, 32) int8, qpad % strip == 0.  subjects: (B, L) int8, or
-    a (C, B, L) stack scored in one launch; pads PAD_SUBJECT.  Returns (B,)
-    or (C, B) int32.
+    a (C, B, L) stack scored in one launch; pads PAD_SUBJECT.  shape: the
+    kernel's (G, H), one of ``SHAPES``, instead of ``rows_shape``'s choice;
+    it changes no score (ValueError for any other).  Returns (B,) or (C, B)
+    int32.
     """
     _check(profile, subjects, strip, (2, 3))
+    check_shape(shape, SHAPES)
     stack = subjects if subjects.dim() == 3 else subjects[None]
     if stack.device.type == "cpu":
         out = row_sw.sw_score_stack(profile, stack, gap=gap, strip=strip)
     else:
-        out = _launch(sw_score_bucket_fused, profile, stack, gap)
+        out = _launch(sw_score_bucket_fused, profile, stack, gap, shape)
     return out if subjects.dim() == 3 else out[0]
 
 
@@ -145,21 +151,25 @@ sw_score_bucket_fused.launches = 0  # kernel launches since the count was last s
 
 
 def sw_score_bucket_fast16(
-    profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32, sat: int
+    profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32, sat: int,
+    shape: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """fast16 contract over K2: the exact scores, clamped at ``sat`` (as
     row_sw.sw_score_bucket_fast16 gives every score below it exactly)."""
-    return torch.clamp_max(sw_score_bucket_fused(profile, subjects, gap=gap, strip=strip), sat)
+    return torch.clamp_max(sw_score_bucket_fused(profile, subjects, gap=gap, strip=strip, shape=shape), sat)
 
 
-def sw_score_bucket(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32) -> torch.Tensor:
+def sw_score_bucket(
+    profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32, shape: Optional[Tuple[int, int]] = None
+) -> torch.Tensor:
     """K3: max SW score of one query vs a (B, L) bucket, any B (exact int32;
-    the contract of row_sw.sw_score_bucket): K2's kernel at C = 1.  Returns
-    (B,) int32."""
+    the contract of row_sw.sw_score_bucket): K2's kernel at C = 1, at
+    ``shape`` as K2's.  Returns (B,) int32."""
     _check(profile, subjects, strip, (2,))
+    check_shape(shape, SHAPES)
     if subjects.device.type == "cpu":
         return row_sw.sw_score_bucket(profile, subjects, gap=gap, strip=strip)
-    return _launch(sw_score_bucket, profile, subjects[None], gap)[0]
+    return _launch(sw_score_bucket, profile, subjects[None], gap, shape)[0]
 
 
 sw_score_bucket.launches = 0  # kernel launches since the count was last set to 0

@@ -4,8 +4,11 @@ the parts of ``swtpu.ops.oracle`` this package needs).
 Deliberately simple host code, independent of the kernel and of its plain
 version: full H (linear) and H/E/F (affine, Gotoh) matrices for the
 traceback (``swtpu_torch.models.align``), their row-block recomputation from
-a checkpoint row for its memory-bounded mode, and anti-diagonal and scalar
-scorers that hold the engine's scores to an independent algorithm.
+a checkpoint row for its memory-bounded mode, anti-diagonal and scalar
+scorers that hold the engine's scores to an independent algorithm, and the
+cell-by-cell score and direction matrices with their walk
+(``sw_matrix``, ``sw_traceback``) behind the pairwise aligner
+``swtpu_torch.cpu_align``.
 
 Semantics: local alignment, ``H = max(0, diag + S, E, F)``; a linear gap
 costs ``gap`` a residue, an affine gap of length L ``open_ + (L-1)*ext``
@@ -17,7 +20,7 @@ row-major order.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -25,6 +28,88 @@ FROM_NONE = 0
 FROM_LEFT = 1
 FROM_TOP = 2
 FROM_TOP_LEFT = 3
+
+
+def sw_score_scalar(query: np.ndarray, subject: np.ndarray, matrix: np.ndarray, gap: int) -> int:
+    """Naive scalar SW max-score (the most obviously correct form; tiny
+    inputs only).  query/subject: int residue indices."""
+    q = np.asarray(query, dtype=np.int64)
+    s = np.asarray(subject, dtype=np.int64)
+    prev = np.zeros(len(s) + 1, dtype=np.int64)
+    best = 0
+    for qi in q:
+        cur = np.zeros(len(s) + 1, dtype=np.int64)
+        for j in range(1, len(s) + 1):
+            h = max(0, cur[j - 1] - gap, prev[j] - gap, prev[j - 1] + int(matrix[qi, s[j - 1]]))
+            cur[j] = h
+            if h > best:
+                best = h
+        prev = cur
+    return int(best)
+
+
+def sw_matrix(query: np.ndarray, subject: np.ndarray, matrix: np.ndarray, gap: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Full (m+1, n+1) score and direction matrices, cell by cell: LEFT,
+    TOP, DIAG tried in that order, each overriding only on a strictly
+    greater score (FROM_NONE where the cell is 0)."""
+    q = np.asarray(query, dtype=np.int64)
+    s = np.asarray(subject, dtype=np.int64)
+    m, n = len(q), len(s)
+    H = np.zeros((m + 1, n + 1), dtype=np.int64)
+    TB = np.zeros((m + 1, n + 1), dtype=np.int8)
+    for i in range(1, m + 1):
+        for j in range(1, n + 1):
+            score, origin = 0, FROM_NONE
+            cand = H[i, j - 1] - gap
+            if cand > score:
+                score, origin = cand, FROM_LEFT
+            cand = H[i - 1, j] - gap
+            if cand > score:
+                score, origin = cand, FROM_TOP
+            cand = H[i - 1, j - 1] + int(matrix[q[i - 1], s[j - 1]])
+            if cand > score:
+                score, origin = cand, FROM_TOP_LEFT
+            H[i, j] = score
+            TB[i, j] = origin
+    return H, TB
+
+
+def sw_traceback(
+    query_str: str, subject_str: str, matrix: np.ndarray, gap: int, encode=None
+) -> Tuple[int, str, str, Tuple[int, int]]:
+    """Score and gapped aligned strings of the first maximal cell in
+    row-major order, walked back until a cell of 0.
+
+    Returns (max_score, aligned_query, aligned_subject, (end_i, end_j)), the
+    end indices 1-based into the DP matrix.  ``encode`` maps a string to
+    residue indices (default: ``swtpu_torch.alphabet.encode_str``).
+    """
+    if encode is None:
+        from ..alphabet import encode_str as encode
+    H, TB = sw_matrix(encode(query_str), encode(subject_str), matrix, gap)
+    i, j = divmod(int(np.argmax(H)), H.shape[1])
+    best = int(H[i, j])
+    out_q: List[str] = []
+    out_s: List[str] = []
+    ti, tj = i, j
+    while H[ti, tj] != 0:
+        d = TB[ti, tj]
+        if d == FROM_LEFT:
+            tj -= 1
+            out_q.append("-")
+            out_s.append(subject_str[tj])
+        elif d == FROM_TOP:
+            ti -= 1
+            out_q.append(query_str[ti])
+            out_s.append("-")
+        elif d == FROM_TOP_LEFT:
+            ti -= 1
+            tj -= 1
+            out_q.append(query_str[ti])
+            out_s.append(subject_str[tj])
+        else:  # a nonzero cell always has an origin
+            break
+    return best, "".join(reversed(out_q)), "".join(reversed(out_s)), (i, j)
 
 
 def sw_matrix_h(query: np.ndarray, subject: np.ndarray, matrix: np.ndarray, gap: int) -> np.ndarray:
@@ -124,6 +209,11 @@ def sw_score_diag(query: np.ndarray, subject: np.ndarray, matrix: np.ndarray, ga
             best = m_
         d2, d1 = d1, cur
     return int(best)
+
+
+def sw_score_many(query: np.ndarray, subjects: Sequence[np.ndarray], matrix: np.ndarray, gap: int) -> np.ndarray:
+    """One query against many subjects with the diagonal scorer; (n,) int32."""
+    return np.array([sw_score_diag(query, s, matrix, gap) for s in subjects], dtype=np.int32)
 
 
 def sw_affine_score_scalar(

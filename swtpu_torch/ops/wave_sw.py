@@ -27,10 +27,10 @@ returns that same tensor.
 tensors on the card and runs ``sw_wave_plain`` for tensors on the CPU.  It
 never swaps one for the other: a CUDA tensor either reaches the kernel or
 raises.  The kernel scores a launch's bands in passes of G bands of H rows
-(``wave_shape`` picks (G, H) per launch, ``n_passes`` counts the passes): a
-warp wavefront with the band-to-band carry in registers, or, on a bucket of
-many (lane, segment) pairs and for a single band, a sweep of one band at a
-time (G = 1).  Only a pass boundary or a hand-off goes through the carry in
+(``wave_shape`` picks (G, H) per launch unless ``shape=`` forces one of
+``SHAPES``; ``n_passes`` counts the passes): a warp wavefront with the
+band-to-band carry in registers, or, on a bucket of many (lane, segment)
+pairs and for a single band, a sweep of one band at a time (G = 1).  Only a pass boundary or a hand-off goes through the carry in
 device memory.
 """
 
@@ -183,6 +183,7 @@ def sw_wave(
     gap_open: Optional[int] = None,
     gap_extend: Optional[int] = None,
     return_carry: bool = False,
+    shape: Optional[Tuple[int, int]] = None,
 ):
     """Exact int32 SW max of one or Q query profiles vs every (lane, segment).
 
@@ -198,6 +199,9 @@ def sw_wave(
         length-L gap costs gap_open + (L-1) * gap_extend.
       return_carry: also return the last band's bottom row, the next band
         group's ``top_in`` (``top_in`` itself when given); one query only.
+      shape: the kernel's (G, H), one of ``SHAPES``, instead of
+        ``wave_shape``'s choice (swtpu's explicit ``Lc``/``Bt``); it changes
+        no score.  ValueError for any other.
 
     Returns:
       (B * n_segs,) int32 on the inputs' device, lane-major; (Q, B * n_segs)
@@ -206,11 +210,12 @@ def sw_wave(
     gaps = gap_model(gap, gap_open, gap_extend)
     seg_cols = _check(profile, subjT, n_segs)
     _check_hand_off(profile, subjT, top_in, return_carry, gaps[1] is not None)
+    check_shape(shape, SHAPES)
     if subjT.device.type == "cpu":
         return _plain(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry)
     if subjT.device.type != "cuda":
         raise ValueError(f"sw_wave runs on CPU or CUDA tensors, not {subjT.device}")
-    return _sw_wave_cuda(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry)
+    return _sw_wave_cuda(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry, shape)
 
 
 sw_wave.launches = 0  # kernel launches since the count was last set to 0
@@ -239,6 +244,13 @@ BAND_THREADS = 14_848
 BAND_H = (64, 32)
 
 
+def check_shape(shape: Optional[Tuple[int, int]], shapes: Tuple[Tuple[int, int], ...]) -> None:
+    """Refuse a forced (G, H) that is not one of the compiled ``shapes``
+    (None: the wrapper picks)."""
+    if shape is not None and tuple(shape) not in shapes:
+        raise ValueError(f"shape {shape} is not a compiled (G, H): {shapes}")
+
+
 def wave_shape(n_bands: int, lanes: int, n_segs: int, affine: bool = False,
                band_threads: int = BAND_THREADS) -> Tuple[int, int]:
     """(G, H) of a launch of ``n_bands`` 32-row bands on a bucket of
@@ -262,18 +274,20 @@ def n_passes(n_bands: int, g: int, h: int) -> int:
 
 
 def carry_bytes(
-    n_bands: int, n_segs: int, seg_cols: int, lanes: int, affine: bool = False, hand_off: bool = False
+    n_bands: int, n_segs: int, seg_cols: int, lanes: int, affine: bool = False, hand_off: bool = False, *,
+    shape: Optional[Tuple[int, int]] = None,
 ) -> int:
-    """Device bytes of one query's band carry in a launch: the bottom H row
-    of a pass, one int32 per column and lane, and in affine mode the bottom
-    F row beside it.  A launch whose bands fit in one pass needs none
-    unless it hands the carry on (``hand_off``: top_in or return_carry)."""
+    """Device bytes of one query's band carry in a launch at ``shape`` (G,
+    H), or at ``wave_shape``'s when None: the bottom H row of a pass, one
+    int32 per column and lane, and in affine mode the bottom F row beside
+    it.  A launch whose bands fit in one pass needs none unless it hands the
+    carry on (``hand_off``: top_in or return_carry)."""
     planes = 2 if affine else 1
-    passes = n_passes(n_bands, *wave_shape(n_bands, lanes, n_segs, affine))
+    passes = n_passes(n_bands, *(shape or wave_shape(n_bands, lanes, n_segs, affine)))
     return 4 * planes * n_segs * seg_cols * lanes if passes > 1 or hand_off else 0
 
 
-def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry):
+def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry, shape=None):
     lib = _kernel_lib()
     dev = subjT.device
     multi = profile.dim() == 3
@@ -282,6 +296,7 @@ def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_c
     prof3 = profile if multi else profile[None]
     n_q, n_bands = prof3.shape[0], prof3.shape[1] // W
     B = subjT.shape[1]
+    shape = tuple(shape or wave_shape(n_bands, B, n_segs, affine))
     out = torch.empty(n_q, B * n_segs, dtype=torch.int32, device=dev)
     if top_in is not None:
         carry = top_in  # read as band 0's top, then overwritten in place
@@ -289,13 +304,14 @@ def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_c
         carry = torch.empty(_carry_shape(subjT, affine), dtype=torch.int32, device=dev)
     else:
         # Each query has its own carry slice: blocks of different queries run at once.
-        carry = torch.empty(n_q * carry_bytes(n_bands, n_segs, seg_cols, B, affine) // 4, dtype=torch.int32, device=dev)
+        carry = torch.empty(n_q * carry_bytes(n_bands, n_segs, seg_cols, B, affine, shape=shape) // 4,
+                            dtype=torch.int32, device=dev)
     scores = out if multi else out[0]
     if B == 0:
         return (scores, carry) if return_carry else scores
     args = (prof3.data_ptr(), subjT.data_ptr(), carry.data_ptr(), out.data_ptr(), n_q, n_bands, B, n_segs, seg_cols)
     # A hand-off always writes the last band's bottom: top_in then holds the new carry.
-    tail = (int(top_in is not None), int(hand_off), *wave_shape(n_bands, B, n_segs, affine))
+    tail = (int(top_in is not None), int(hand_off), *shape)
     if affine:
         rc = lib.sw_wave_affine_launch(*args, gaps[0], gaps[1], *tail, *_build.where(dev))
     else:

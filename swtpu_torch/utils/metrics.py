@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import time
 from typing import Dict, Optional
 
@@ -19,6 +20,7 @@ class PhaseTimer:
     """Accumulating wall-clock phase timer."""
 
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)  # times each phase ran
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -27,6 +29,11 @@ class PhaseTimer:
             yield
         finally:
             self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def total(self) -> float:
+        """Seconds over every phase."""
+        return sum(self.phases.values())
 
 
 @dataclasses.dataclass
@@ -79,6 +86,9 @@ class SearchMetrics:
             gcups_device_padded=self.gcups_device_padded,
         )
         return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
 
     def format_reference_block(self, elapsed: Optional[float] = None) -> str:
         """The METRICS block in the reference CLI's format."""

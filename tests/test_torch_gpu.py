@@ -19,7 +19,9 @@ prefetch depths, K6's stage switches) and K9's int16 tiles and chains are
 held to their plain versions, and the lab variants that keep the DP to K1.
 Every instantiation of the row-parallel lab kernel (K10: v2, v3, v4, v41) is
 held to its plain version and to K2, at gap 2 and at a gap past JAX's int8
-fold.  The CLI on a FASTA file runs on the card through the native host
+fold.  Every function of the card fuzz (``swtpu_torch.tools.card_fuzz``)
+runs a few cases, and the CLI's ``--profile`` writes a trace whose device
+events hold the wavefront kernel.  The CLI on a FASTA file runs on the card through the native host
 runtime, and the streamed paths on natively packed buckets equal the
 resident ones.  The lane-sharded and query-sharded engines on meshes that
 name the card n times (and on distinct cards where there are several) equal
@@ -82,21 +84,21 @@ def test_kernel_matches_plain(cuda, qlen, ws, S, B):
 
 @pytest.mark.parametrize("shape", wave_sw.SHAPES, ids=[f"G{g}H{h}" for g, h in wave_sw.SHAPES])
 @pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
-def test_every_kernel_shape_matches_plain(cuda, monkeypatch, shape, gaps):
-    """Every compiled (G, H), whatever the wrapper would pick: 15 bands on
-    chained segments, fused and as a hand-off chain (8, 4, 2, 1)."""
-    monkeypatch.setattr(wave_sw, "wave_shape", lambda n_bands, lanes, n_segs, affine=False: shape)
+def test_every_kernel_shape_matches_plain(cuda, shape, gaps):
+    """Every compiled (G, H) forced with ``shape=``, whatever the wrapper
+    would pick: 15 bands on chained segments, fused and as a hand-off chain
+    (8, 4, 2, 1)."""
     rng = np.random.default_rng(sum(shape))
     prof, stack = _bucket(rng, 470, 40, 3, 99)
     prof, stack = prof.to(cuda), stack.to(cuda)
     kw = dict(n_segs=3, gap=2) if gaps is None else dict(n_segs=3, gap_open=gaps[0], gap_extend=gaps[1])
-    assert torch.equal(wave_sw.sw_wave(prof, stack, **kw), wave_sw.sw_wave_plain(prof, stack, **kw))
+    assert torch.equal(wave_sw.sw_wave(prof, stack, shape=shape, **kw), wave_sw.sw_wave_plain(prof, stack, **kw))
     carry = wave_sw.virgin_carry(stack, gaps is not None)
     plain_carry, band = carry.clone(), 0
     for rung in SearchEngine._compose_groups(prof.shape[0] // 32):
         part = prof[band * 32 : (band + rung) * 32]
         band += rung
-        scores, carry = wave_sw.sw_wave(part, stack, carry, return_carry=True, **kw)
+        scores, carry = wave_sw.sw_wave(part, stack, carry, return_carry=True, shape=shape, **kw)
         want, plain_carry = wave_sw.sw_wave_plain(part, stack, plain_carry, return_carry=True, **kw)
         assert torch.equal(scores, want) and torch.equal(carry, plain_carry)
 
@@ -256,12 +258,12 @@ def _row_stack(rng, qlen, C, B, L):
      (1000, 1, 31, 129, 0)],
     ids=["one-pass", "nine-passes", "width-7", "aligned", "unaligned", "odd-rows"],
 )
-def test_every_row_kernel_shape_matches_plain(cuda, monkeypatch, shape, qlen, C, B, L, offset):
-    """Every compiled (G, H) of K2/K3, whatever rows_shape would pick: one
-    pass and several (4,548 residues: nine at G = 16), B not a multiple of
-    32 / G, C > 1, L < 16, L % 16 != 0, and 16-byte rows at an odd address
-    (``offset``), through both wrappers, bit-equal to the plain version."""
-    monkeypatch.setattr(bucket_sw, "rows_shape", lambda n_bands, rows: shape)
+def test_every_row_kernel_shape_matches_plain(cuda, shape, qlen, C, B, L, offset):
+    """Every compiled (G, H) of K2/K3 forced with ``shape=``, whatever
+    rows_shape would pick: one pass and several (4,548 residues: nine at G =
+    16), B not a multiple of 32 / G, C > 1, L < 16, L % 16 != 0, and 16-byte
+    rows at an odd address (``offset``), through both wrappers, bit-equal to
+    the plain version."""
     prof, stack = _row_stack(np.random.default_rng(qlen + L + offset), qlen, C, B, L)
     buf = torch.zeros(stack.numel() + offset, dtype=torch.int8, device=cuda)
     dev_stack = buf[offset:].view(C, B, L)
@@ -270,8 +272,8 @@ def test_every_row_kernel_shape_matches_plain(cuda, monkeypatch, shape, qlen, C,
     assert (dev_stack.data_ptr() % 16 != 0) == bool(offset)
     want = row_sw.sw_score_stack(prof, dev_stack, gap=2, strip=32)
     before = (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches)
-    fused = bucket_sw.sw_score_bucket_fused(prof, dev_stack, gap=2)
-    single = bucket_sw.sw_score_bucket(prof, dev_stack[C - 1], gap=2)
+    fused = bucket_sw.sw_score_bucket_fused(prof, dev_stack, gap=2, shape=shape)
+    single = bucket_sw.sw_score_bucket(prof, dev_stack[C - 1], gap=2, shape=shape)
     torch.cuda.synchronize()
     assert (bucket_sw.sw_score_bucket_fused.launches, bucket_sw.sw_score_bucket.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(fused, want) and torch.equal(single, want[C - 1])
@@ -279,10 +281,56 @@ def test_every_row_kernel_shape_matches_plain(cuda, monkeypatch, shape, qlen, C,
 
 @pytest.mark.parametrize("shape", [(3, 32), (16, 64), (32, 32)])
 def test_row_kernel_refuses_a_shape_not_compiled(cuda, monkeypatch, shape):
-    monkeypatch.setattr(bucket_sw, "rows_shape", lambda n_bands, rows: shape)
+    """The wrappers' ``shape=`` refuses it before a launch; a rule that
+    picks it reaches the kernel, which refuses it."""
     prof, stack = _row_stack(np.random.default_rng(0), 40, 1, 4, 16)
+    prof, stack = prof.to(cuda), stack.to(cuda)
+    for fn, x in ((bucket_sw.sw_score_bucket_fused, stack), (bucket_sw.sw_score_bucket, stack[0])):
+        with pytest.raises(ValueError, match="not a compiled"):
+            fn(prof, x, gap=2, shape=shape)
+    with pytest.raises(ValueError, match="not a compiled"):
+        wave_sw.sw_wave(*[t.to(cuda) for t in _bucket(np.random.default_rng(0), 40, 16, 1, 4)], gap=2, shape=shape)
+    monkeypatch.setattr(bucket_sw, "rows_shape", lambda n_bands, rows: shape)
     with pytest.raises(RuntimeError, match="sw_rows kernel launch"):
-        bucket_sw.sw_score_bucket_fused(prof.to(cuda), stack.to(cuda), gap=2)
+        bucket_sw.sw_score_bucket_fused(prof, stack, gap=2)
+
+
+@pytest.mark.parametrize("name", ["main", "main_multi", "main_shard", "main_chain", "main_affine", "main_rows",
+                                  "main_shapes", "main_thresholds"])
+def test_card_fuzz_functions(cuda, name):
+    """``swtpu_torch.tools.card_fuzz`` on the card, a few cases a function:
+    every launch bit-equal to its plain version and to the oracle sample,
+    and counted by its wrapper as by the fuzz."""
+    from swtpu_torch.tools import card_fuzz
+
+    fz = card_fuzz.Fuzz(cuda)
+    assert getattr(card_fuzz, name)(n_cases=3, fuzz=fz) == 0, fz.failures
+    summary = fz.summary(0.0)
+    assert summary["failures"] == 0 and summary["launch_total"] > 0
+    assert summary["wrapper_launches"] == {k: sum(n for key, n in fz.launches.items() if key.startswith(k + " "))
+                                           for k in ("K1", "K2", "K3")}
+    assert set(summary["max_abs_err"].values()) == {0}
+
+
+def test_cli_profile_on_card(cuda, tmp_path):
+    """``--profile`` on the card writes a Chrome trace; its device events
+    hold the wavefront kernel, and the dump equals the run without it."""
+    import subprocess
+    import sys
+
+    from swtpu_torch.utils.profiling import TRACE_NAME, trace_summary
+
+    root = Path(__file__).resolve().parent.parent
+    cmd = [sys.executable, "-m", "swtpu_torch", "--query", str(DATA / "queries" / "P02232.fasta"),
+           "--db", str(DATA / "uniprot_subset.fasta")]
+    runs = [subprocess.run(cmd + extra, cwd=root, capture_output=True, text=True, timeout=600)
+            for extra in ([], ["--profile", str(tmp_path / "trace")])]
+    assert all(r.returncode == 0 for r in runs), [r.stderr[-2000:] for r in runs]
+    assert runs[0].stdout.split("=" * 80)[0] == runs[1].stdout.split("=" * 80)[0]
+    s = trace_summary(tmp_path / "trace" / TRACE_NAME)
+    assert s["device_events"] > 0 and any(k.startswith("sw_wave_kernel<") or k.startswith("sw_band_kernel<")
+                                          for k in s["kernel_ms"])
+    assert 0 < s["busy_share"]
 
 
 @pytest.mark.parametrize("resident", [True, False], ids=["K2 resident", "K3 streamed"])

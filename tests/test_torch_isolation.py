@@ -1,14 +1,14 @@
 """The port stands alone and never hides the device.
 
-* importing swtpu_torch (its stats copy, the prefilter, the int8, chain,
-  wavefront-lab, row-lab and int16 kernels' wrappers, the native host
-  runtime, the parallel package with the multi-process engine and its
-  launcher, the shard manifest, and the roofline and lab tools included)
-  and running a search, a row-path search, a batched top-K with E-values, a
-  prefiltered search (through the native parse, packers and signatures),
-  lane-sharded, query-sharded and row-path searches on a CPU mesh, and a
-  2-process gloo search loads neither JAX nor swtpu (a subprocess: every
-  pytest process here has imported JAX already);
+* importing every module of swtpu_torch (``pkgutil.walk_packages``: the
+  kernels' wrappers, the native host runtime, the parallel package, the
+  tools, the card fuzz and GPU battery, the pairwise aligner, the UniProt
+  preprocessor and the profiler helper included) and running a search, a
+  row-path search, a batched top-K with E-values, a prefiltered search
+  (through the native parse, packers and signatures), lane-sharded,
+  query-sharded and row-path searches on a CPU mesh, and a 2-process gloo
+  search loads neither JAX nor swtpu (a subprocess: every pytest process
+  here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
 * the combinations a mesh refused until slice A14b run, and the serving,
   affine-gap, row-path, composed-dispatch, prefilter and mesh knobs are
@@ -42,16 +42,18 @@ def _one_torch_thread():
 
 def test_port_imports_neither_jax_nor_swtpu():
     code = """
-import sys
-import swtpu_torch.cli, swtpu_torch.models.search, swtpu_torch.synth, swtpu_torch.ops._build, swtpu_torch.stats
-import swtpu_torch.models.align, swtpu_torch.ops.oracle
-import swtpu_torch.ops.row_sw, swtpu_torch.ops.bucket_sw, swtpu_torch.utils.segpack
-import swtpu_torch.ops.prefilter, swtpu_torch.ops.int8_mma, swtpu_torch.ops.vpu_chain, swtpu_torch.tools.roofline
-import swtpu_torch.ops.wave_lab, swtpu_torch.ops.i16_probe, swtpu_torch.tools.buckets
-import swtpu_torch.tools.probe_i16, swtpu_torch.tools.probe_breakdown, swtpu_torch.tools.wave_lab
-import swtpu_torch.ops.rows_lab, swtpu_torch.tools.pallas_lab, swtpu_torch.native
-import swtpu_torch.parallel, swtpu_torch.parallel.mesh, swtpu_torch.parallel.search, swtpu_torch.parallel.query_shard
-import swtpu_torch.io.manifest, swtpu_torch.parallel.distributed, swtpu_torch.parallel.launch
+import importlib, pkgutil, sys
+import swtpu_torch
+
+def _raise(name):
+    raise ImportError(f"walk_packages could not import {name}")
+
+modules = [m.name for m in pkgutil.walk_packages(swtpu_torch.__path__, "swtpu_torch.", onerror=_raise)]
+for name in modules:
+    importlib.import_module(name)
+new = {"swtpu_torch.cpu_align", "swtpu_torch.io.uniprot", "swtpu_torch.tools.card_fuzz",
+       "swtpu_torch.tools.gpu_validate", "swtpu_torch.utils.profiling"}
+assert new <= set(modules) and len(modules) >= 50, modules
 from swtpu_torch.io.fasta import parse_database, parse_query
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.config import SWConfig
