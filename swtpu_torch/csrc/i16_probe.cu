@@ -40,6 +40,7 @@
 // asks.  The tile reads and writes 32-96 KB once.
 
 #include <algorithm>
+#include <chrono>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -186,6 +187,14 @@ ChainKernel chain_kernel(int op, int packed) {
   return packed ? chain_kernel<I16x2>(op) : chain_kernel<I32>(op);
 }
 
+void launch_tile(const void* a, const void* b, void* out, int rows, int words, int op, int packed,
+                 cudaStream_t stream) {
+  const size_t shared = op == DP_ROW ? words * sizeof(uint32_t) : 0;
+  auto kernel = packed ? i16_tile_kernel<I16x2> : i16_tile_kernel<I32>;
+  kernel<<<rows, words, shared, stream>>>(static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+                                          static_cast<uint32_t*>(out), words, op);
+}
+
 }  // namespace
 
 extern "C" {
@@ -197,11 +206,41 @@ int i16_tile_launch(const void* a, const void* b, void* out, int rows, int words
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (op < MAX || op > DP_ROW || words < 1 || words > 1024 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shared = op == DP_ROW ? words * sizeof(uint32_t) : 0;
-  auto kernel = packed ? i16_tile_kernel<I16x2> : i16_tile_kernel<I32>;
-  kernel<<<rows, words, shared, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b), static_cast<uint32_t*>(out), words, op);
+  launch_tile(a, b, out, rows, words, op, packed, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
+}
+
+// ctypes' own cost of a call with i16_tile_launch's arguments: it does nothing.
+int i16_route_noop(const void*, const void*, void*, int, int, int, int, int, void*) { return 0; }
+
+// Host microseconds a call of the C pieces of i16_tile_launch, each timed
+// alone over `reps` calls: us[0] cudaGetDevice, us[1] cudaSetDevice of the
+// current device, us[2] the tile kernel's launch alone, us[3]
+// cudaGetLastError.  The launches queue on `stream`; the caller synchronises.
+int i16_tile_route_us(const void* a, const void* b, void* out, int rows, int words, int op, int packed, int device,
+                      void* stream, int reps, double* us) {
+  using clock = std::chrono::steady_clock;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (op < MAX || op > DP_ROW || words < 1 || words > 1024 || rows < 1 || reps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto per_call = [reps](clock::time_point t0) {
+    return std::chrono::duration<double, std::micro>(clock::now() - t0).count() / reps;
+  };
+  int cur = -1;
+  auto t0 = clock::now();
+  for (int k = 0; k < reps; ++k) err = cudaGetDevice(&cur);
+  us[0] = per_call(t0);
+  t0 = clock::now();
+  for (int k = 0; k < reps; ++k) err = cudaSetDevice(device);
+  us[1] = per_call(t0);
+  t0 = clock::now();
+  for (int k = 0; k < reps; ++k) launch_tile(a, b, out, rows, words, op, packed, static_cast<cudaStream_t>(stream));
+  us[2] = per_call(t0);
+  t0 = clock::now();
+  for (int k = 0; k < reps; ++k) err = cudaGetLastError();
+  us[3] = per_call(t0);
+  return static_cast<int>(err);
 }
 
 // Blocks of `cols` threads of the (op, packed) chain that fill every SM of

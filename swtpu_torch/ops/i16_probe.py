@@ -45,6 +45,9 @@ def _kernel_lib() -> ctypes.CDLL:
         i16_tile_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         i16_chain_full_blocks=[ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
         i16_chain_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        i16_route_noop=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        i16_tile_route_us=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                                                          ctypes.POINTER(ctypes.c_double)],
     )
 
 

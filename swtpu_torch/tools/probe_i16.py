@@ -89,6 +89,109 @@ def measure_chains(iters: int = 16384, device="cuda", reps: int = 3) -> List[Dic
     return rows
 
 
+LIBRARY = {"max": torch.maximum, "add": torch.add, "sub": torch.sub,
+           "select": lambda a, b: torch.where(a < b, b, a)}  # one PyTorch call of each elementwise op
+
+
+def route_split(device="cuda", reps: int = 2000, turns: int = 3, op: str = "max",
+                dtype: torch.dtype = torch.int16) -> Dict[str, List[float]]:
+    """Host microseconds a call of each piece of ``i16_op``'s launch route
+    on the (16, 512) tile, and of the wrapper and the library call whole:
+    every piece ``reps`` calls on a host clock, the pieces in turns,
+    ``turns`` times ({piece: [us a call, a turn]}).  The C pieces
+    (cudaGetDevice, cudaSetDevice of the current device, the launch alone,
+    cudaGetLastError) are timed inside the library (``i16_tile_route_us``);
+    ctypes' own cost is a call of an entry that does nothing
+    (``i16_route_noop``) with the launch's arguments.  Launches queue on
+    the current stream and are synchronised between pieces."""
+    import ctypes
+    import time
+
+    from ..ops import _build
+
+    dev = _cuda(device)
+    a, b = tile_inputs(dtype, dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = i16_probe._kernel_lib()
+    aw, bw = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    out = torch.empty_like(aw)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (aw.data_ptr(), bw.data_ptr(), out.data_ptr(), aw.shape[0], aw.shape[1], i16_probe._CODE[op],
+            int(dtype == torch.int16), idx, stream)
+    lib_call = LIBRARY[op]
+    pieces = {
+        "i16_op (the whole wrapper)": lambda: i16_probe.i16_op(a, b, op),
+        "library call (whole)": lambda: lib_call(a, b),
+        "_check": lambda: i16_probe._check(a, b, op, i16_probe.OPS),
+        "two .contiguous().view(int32)": lambda: (a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)),
+        "torch.empty_like": lambda: torch.empty_like(aw),
+        "_kernel_lib()": i16_probe._kernel_lib,
+        "_build.where(a.device)": lambda: _build.where(a.device),
+        "a.device": lambda: a.device,
+        "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "three data_ptr()": lambda: (aw.data_ptr(), bw.data_ptr(), out.data_ptr()),
+        "ctypes call of a no-op entry (9 arguments)": lambda: lib.i16_route_noop(*args),
+        "launch counter += 1": lambda: setattr(i16_probe.i16_op, "launches", i16_probe.i16_op.launches),
+    }
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        pieces["torch._C._cuda_getCurrentRawStream(index)"] = lambda: raw(idx)
+    split: Dict[str, List[float]] = {name: [] for name in pieces}
+    c_names = ("cudaGetDevice", "cudaSetDevice (current device)", "the launch alone (C)", "cudaGetLastError")
+    split.update({name: [] for name in c_names})
+    us = (ctypes.c_double * 4)()
+    for fn in pieces.values():  # warm
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(turns):
+        for name, fn in pieces.items():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            split[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+        rc = lib.i16_tile_route_us(*args, reps, us)
+        _build.check(rc, lib.i16_probe_error_string, "i16_tile_route_us")
+        torch.cuda.synchronize()
+        for name, v in zip(c_names, us):
+            split[name].append(v)
+    return split
+
+
+def device_split(device="cuda", reps: int = 100) -> Dict[str, Dict[str, float]]:
+    """Device microseconds a call of K9's elementwise tiles and of the
+    library call of the same op and type, from ``torch.profiler``'s trace
+    (``utils.profiling.trace_summary``): one trace an (op, dtype) of
+    ``reps`` kernel calls, then ``reps`` library calls.  {"op dtype":
+    {"k9_us", "library_us", "k9_kernels", "library_kernels"}}; the kernels
+    are the trace's labels."""
+    import tempfile
+
+    from ..utils import profiling
+
+    dev = _cuda(device)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="probe_i16_") as tmp:
+        for dtype in i16_probe.DTYPES:
+            a, b = tile_inputs(dtype, dev)
+            for op, lib_call in LIBRARY.items():
+                i16_probe.i16_op(a, b, op), lib_call(a, b)  # warm
+                torch.cuda.synchronize()
+                with profiling.trace(tmp, dev) as path:
+                    for _ in range(reps):
+                        i16_probe.i16_op(a, b, op)
+                    for _ in range(reps):
+                        lib_call(a, b)
+                    torch.cuda.synchronize()
+                kernels = profiling.trace_summary(path)["kernel_ms"]
+                mine = {k: v for k, v in kernels.items() if "i16_tile_kernel" in k}
+                other = {k: v for k, v in kernels.items() if k not in mine}
+                out[f"{op} {str(dtype).split('.')[-1]}"] = dict(
+                    k9_us=1e3 * sum(mine.values()) / reps, library_us=1e3 * sum(other.values()) / reps,
+                    k9_kernels=sorted(mine), library_kernels=sorted(other))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe_i16: no CUDA device: the kernels and rates are the card's", file=sys.stderr)
@@ -100,6 +203,11 @@ def main() -> int:
         ok &= equal
         print(f"{r['op']:7s} {r['dtype']}: {'OK' if equal else 'MISMATCH'}  {r['ms'] * 1e3:8.2f} us a tile "
               f"(plain {r['plain_ms'] * 1e3:9.2f} us)")
+    for name, v in device_split().items():
+        print(f"device {name:12s}: K9 {v['k9_us']:6.2f} us a call, library {v['library_us']:6.2f} us "
+              f"({', '.join(v['library_kernels'])})")
+    for name, v in route_split().items():
+        print(f"host {name:45s}: " + ", ".join(f"{x:7.3f}" for x in v) + " us a call")
     for r in measure_chains():
         print(f"chain {r['op']:7s} {r['dtype']}: {r['ops_per_s'] / 1e12:7.2f} T element ops/s "
               f"({r['ms']:.3f} ms a launch; {100 * r['share_of_int32_peak']:.1f}% of the int32 peak "
