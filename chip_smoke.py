@@ -34,10 +34,12 @@ Phases (one line each; any failure exits non-zero with no result line):
               2048) and its mma_probe, and K8's chain, against their plain
               versions (K8's chain is K9's int32 addmax chain kernel):
               exact equality; then the wavefront lab kernels on
-              the first case list (K4 at every band height and block, K5 at
-              every prefetch depth, K6 at every stage switch) against their
-              plain versions, and those that keep the DP against K1's
-              kernel; then K9's int16 and int32 tiles (tools/probe_i16.py's
+              the first case list (K4, the warp wavefront, at every band
+              height and block: one pass and several at every height, a
+              last pass of fewer bands, chained segments, a bucket of
+              20,800 (lane, segment) pairs; K5 at every prefetch depth, K6
+              at every stage switch) against their plain versions, and those
+              that keep the DP against K1's kernel; then K9's int16 and int32 tiles (tools/probe_i16.py's
               inputs and random ones whose sums wrap) and short chains of
               every op: exact equality; then K10, every instantiation of
               the row-parallel lab kernel (v2, v3, v4, v41) on the row
@@ -53,7 +55,10 @@ Phases (one line each; any failure exits non-zero with no result line):
               swtpu_torch.tools.probe_i16 runs it (counts zeroed just
               before each part, read just after): the eight elementwise
               tiles and the two dp_row tiles against their plain versions
-              and the library calls, and every chain's rate, packed int16
+              and the library calls, the host microseconds of each piece
+              of K9's launch route and of the library call (no trace runs
+              before the main path: their device time is 5a's), and every
+              chain's rate, packed int16
               against int32, with its loop body's SASS a link and its tile
               against the plain version on the same inputs
   4. goldens  the committed subset, 10k-scale and saturation goldens through
@@ -81,8 +86,10 @@ Phases (one line each; any failure exits non-zero with no result line):
  5a. profile  the CLI with --profile on the subset (a subprocess): its Chrome
               trace's events, device events and kernel names; one resident
               P01008 search under torch.profiler: kernel time by name and
-              the device's busy share over the search's window; the three
-              added phases' seconds together
+              the device's busy share over the search's window; then the
+              device time a call of K9's elementwise tiles and of the
+              library calls under torch.profiler; the three added phases'
+              seconds together
  5b. native   native.parse: that database written as a FASTA file (60
               columns) into a temporary directory and parsed by the native
               parse and its plain version, each bit-equal to the database in
@@ -157,7 +164,9 @@ Phases (one line each; any failure exits non-zero with no result line):
               bucket): every variant that keeps the DP bit-equal to K1's
               scores of all 559,228 sequences, every variant equal to its
               plain version (run once a variant), a per-bucket table of
-              milliseconds beside K1's with narrow, mid and full sums
+              milliseconds beside K1's, K1 forced to its warp wavefront and to its band
+              sweep on every bucket, with narrow, mid and full sums; each K4
+              variant's schedule for P01008 and its blocks an SM
  13. lab.rows K10 as swtpu_torch.tools.pallas_lab --swissprot runs it on
               P01008's 13 row-path ladder groups of the same resident
               database (counts zeroed just before, read just after; one
@@ -279,7 +288,7 @@ N_SEQS = 559_228
 MAIN_QUERY = "P01008"
 # sw_wave_lab.cu's SKIP codes and i16_probe.cu's op codes, as its kernels are named
 LAB_SKIPS = ("none", "subject", "carry", "dp")
-I16_CHAIN_OPS = {0: "max", 1: "add", 2: "sub", 3: "select", 5: "addmax", 6: "max3"}
+I16_OPS = {0: "max", 1: "add", 2: "sub", 3: "select", 4: "dp_row", 5: "addmax", 6: "max3"}
 K8_KERNEL = "K9 i16_chain_kernel I32 addmax"  # K8's chain is K9's int32 addmax chain (ops/vpu_chain.py)
 I16_CHAIN_ITERS = 2048  # roofline.i16's chains: ~2 ms a launch, and each one's plain version well under 1 s
 # The reference Performance suite's queries (bench.py --full), in its order.
@@ -328,10 +337,13 @@ def phase_build():
     out = {}
 
     def label(mangled):  # K1's shapes; sw_rows.cu's K2/K3 shapes; K7; the labs; K9 (and K8)
+        k4 = re.search(r"sw_wave_band_kernelILi(\d+)ELi(\d+)E", mangled)
+        if k4:
+            return f"K4 sw_wave_band_kernel H{k4.group(1)} B{k4.group(2)} wavefront"
         lab = re.search(r"sw_wave_lab_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", mangled)
         if lab:
             h, blk, d, skip = lab.groups()
-            return f"K4-K6 sw_wave_lab_kernel H{h} B{blk} D{d} {LAB_SKIPS[int(skip)]}"
+            return f"K5/K6 sw_wave_lab_kernel H{h} B{blk} D{d} {LAB_SKIPS[int(skip)]}"
         k10 = re.search(r"sw_rows_lab_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELb([01])E", mangled)
         if k10:
             stage, scan, strip, ilp, _ = k10.groups()
@@ -340,7 +352,7 @@ def phase_build():
         i16 = re.search(r"i16_(chain|tile)_kernelINS_\d+(I32|I16x2)E(?:Li(\d)E)?", mangled)
         if i16:
             kind, typ, op = i16.groups()
-            return f"K9 i16_{kind}_kernel {typ}" + (f" {I16_CHAIN_OPS[int(op)]}" if op else "")
+            return f"K9 i16_{kind}_kernel {typ}" + (f" {I16_OPS[int(op)]}" if op else "")
         rows = re.search(r"sw_rows_kernelILi(\d+)ELi(\d+)E", mangled)  # K2 and K3: sw_rows_kernel<G, H>
         if rows:
             g, h = rows.groups()
@@ -679,10 +691,13 @@ def phase_profile(db, engine, first_scores, tmp):
     P01008 search on the SwissProt-shaped database under torch.profiler:
     kernel time by name and the device's busy share over the search's
     window (the device events' sum over the span from the first to the
-    last)."""
+    last); then profile.i16: the device time a call of K9's elementwise
+    tiles and of the library calls of the same op and type (one trace an
+    (op, dtype) of each, swtpu_torch.tools.probe_i16.device_split)."""
     import numpy as np
 
     from swtpu_torch.io.fasta import parse_query
+    from swtpu_torch.tools import probe_i16
     from swtpu_torch.utils.profiling import TRACE_NAME, trace, trace_summary
 
     t0 = time.perf_counter()
@@ -713,6 +728,9 @@ def phase_profile(db, engine, first_scores, tmp):
         device_share_of_wall=s["device_ms"] / 1e3 / wall,
         note=None if s["device_events"] else "the trace holds no device events",
         seconds=round(time.perf_counter() - t0, 3))
+    t1 = time.perf_counter()
+    say("profile.i16", device_us_a_call=probe_i16.device_split(), of="K9's elementwise tiles (16, 512) and the "
+        "library calls, 100 calls a trace", seconds=round(time.perf_counter() - t1, 3))
 
 
 def phase_scale():
@@ -1905,9 +1923,11 @@ def phase_kernel_lab():
     from swtpu_torch.ops import wave_lab, wave_sw
 
     rng = np.random.default_rng(0)
-    worst, launches = 0, 0
+    worst, launches, schedules = 0, 0, []
     for qlen, ws, n_segs, lanes, _ in KERNEL_CASES:
         prof, stack = random_bucket(rng, qlen, ws, n_segs, lanes)
+        schedules.append({"qlen": qlen, "pairs": lanes * n_segs, "n_segs": n_segs, **{
+            f"H{h}": wave_lab.band_schedule(-(-qlen // h), h, 128, lanes)._asdict() for h in wave_lab.HEIGHTS}})
         k1 = wave_sw.sw_wave(prof, stack, gap=2, n_segs=n_segs)
         runs = [(h, "none", wave_lab.pad_profile(prof, h),
                  lambda p, h=h, blk=blk: wave_lab.sw_wave_band(p, stack, gap=2, n_segs=n_segs, height=h, block=blk))
@@ -1930,6 +1950,7 @@ def phase_kernel_lab():
                                      f"lanes={lanes}: max err {err}")
     say("kernel.lab", cases=len(KERNEL_CASES), heights=wave_lab.HEIGHTS, blocks=wave_lab.BLOCKS,
         depths=wave_lab.DEPTHS, skips=wave_lab.SKIPS, launches=launches, max_abs_err=worst,
+        k4_schedules_at_block_128=schedules,
         tolerance="exact; every variant that keeps the DP also equals K1's kernel")
     return worst
 
@@ -1982,7 +2003,12 @@ def phase_i16_rates(built):
     calls; then every chain's sustained rate at full occupancy beside the
     int32 peak, with its loop body's SASS a link, and its tile against the
     plain version on the same inputs.  Three kernels entries: the
-    elementwise tiles, the dp_row tiles, the chains."""
+    elementwise tiles, the dp_row tiles, the chains.  Then, after the
+    counts are read, the host side of the elementwise tiles' time: the
+    microseconds of each piece of K9's launch route and of the library call
+    (their device time a call is phase_profile's profile.i16: a trace
+    leaves the host slower after it, so no trace runs before the timed
+    main-path phases)."""
     import torch
 
     from swtpu_torch.ops import i16_probe
@@ -2003,7 +2029,7 @@ def phase_i16_rates(built):
     def peak(dtype):  # element operations a second: a packed int16 instruction does two lanes' work
         return int32_ops_per_s * (2 if dtype == "int16" else 1)
 
-    library = {"max": torch.maximum, "add": torch.add, "sub": torch.sub, "select": lambda a, b: torch.where(a < b, b, a)}
+    library = probe_i16.LIBRARY
     rows, entries = [], []
     for part, tiles in parts.items():
         worst, nbytes, ops_ms, lib_ms = 0, 0, 0.0, []
@@ -2046,7 +2072,10 @@ def phase_i16_rates(built):
         typ = "I16x2" if r["dtype"] == "int16" else "I32"
         body = built["i16_probe"].get(f"K9 i16_chain_kernel {typ} {r['op']}", {}).get("loop_body_opcodes", {})
         r["loop_body_per_link"] = {op: n / links for op, n in body.items() if op not in ("UIADD3", "ISETP")}
+    host_us = probe_i16.route_split()
     say("roofline.i16", tile_columns=["op", "dtype", "ms", "plain_ms", "library_ms"], tiles=rows,
+        host_us_a_call_by_piece=host_us,
+        host_split_of="i16_op max int16 (16, 512): every piece 2,000 calls a turn, three turns",
         chains=rates, chain_max_abs_err_vs_plain=worst, int32_peak_ops_per_s=INT32_OPS_PER_S,
         bound_ops_per_s={"int32": peak("int32"), "int16 (packed pairs)": peak("int16")}, launches=launched,
         launches_cover={"tiles": "100 timed calls a tile; ms is their mean a call",
@@ -2069,7 +2098,10 @@ def phase_lab(db, engine):
     launch a variant a bucket, the variants that keep the DP bit-equal to
     K1's full-array scores, every variant equal to its plain version (run
     once a variant on the same buckets), and a per-bucket table of
-    milliseconds beside K1's with narrow, mid and full sums."""
+    milliseconds beside K1's (its own schedule a bucket) and K1 forced to
+    its warp wavefront and to its band sweep on every bucket, with narrow,
+    mid and full sums; each K4 variant's schedule for P01008 and its blocks
+    an SM."""
     import numpy as np
 
     from swtpu_torch.ops import wave_lab
@@ -2088,13 +2120,15 @@ def phase_lab(db, engine):
     }
     for fn in families:
         fn.launches = 0
-    res = lb.run(b.groups, lb.launches(b, variants))
+    k1_forced = wave_lab_tool.k1_schedules(b.query.length)
+    res = lb.run(b.groups, lb.launches(b, {**k1_forced, **variants}))
     launched = {fn.__name__: fn.launches for fn in families}
     want = {fn.__name__: len(b.groups) * sum(f is fn for f, _ in variants.values()) for fn in families}
     if launched != want:
         raise AssertionError(f"the lab tools launched {launched}, not one launch a variant a bucket: {want}")
-    if not np.array_equal(b.reduce(res["flats"]["K1"]), scale_scores):
-        raise AssertionError("the lab run's K1 pass differs from the engine's search")
+    for name in ("K1", *k1_forced):
+        if not np.array_equal(b.reduce(res["flats"][name]), scale_scores):
+            raise AssertionError(f"the lab run's {name} pass differs from the engine's search")
     plain_ms, err = {}, {}
     for name, (fn, kw) in variants.items():
         h, skip = lb.height(kw), lb.skip(kw)
@@ -2123,6 +2157,7 @@ def phase_lab(db, engine):
 
     say("lab", query=MAIN_QUERY, buckets=len(b.groups), launches=launched,
         launches_cover="one timed launch a variant a bucket (an untimed K1 launch warms each bucket)",
+        k4_schedules=wave_lab_tool.k4_schedules(b.query.length),
         group_rule={"narrow": f"threads < {lb.NARROW_THREADS}", "full": f"threads >= {lb.FULL_THREADS}"},
         groups={grp: sum(lb.group_of(g) == grp for g in b.groups) for grp in lb.GROUPS},
         keep_dp_bit_equal_k1=[n for n, (_, kw) in variants.items() if lb.skip(kw) == "none"],

@@ -8,26 +8,49 @@
 //      :211), V6: chunk c + 1's staging interleaved with chunk c's DP;
 //  K6  tools/probe_breakdown.py:199 run_variant -> _kernel (:33, pallas_call
 //      :208), K1 with one stage at a time switched off, a timing probe.
-// They are one kernel here, sw_wave.cu's linear sweep with four
-// compile-time knobs, and take K1's input contract: a (n_bands * H, 32) int8
-// profile, a (L2, B) int8 transposed bucket of n_segs chained segments of
-// seg_cols columns, and flat int32 out[lane * n_segs + seg].  A thread owns a
-// (lane, segment), holds H query rows in registers, sweeps its columns and
-// hands each band's bottom row to the next through a global carry, as K1
-// does (sw_wave.cu's notes).  The TPU knobs with no Hopper meaning are not
-// carried over: g, KPAD and the banded lhs (the MXU's skew staging), Lc
-// (VMEM chunking: a thread streams its whole segment) and Bt (lanes are
-// threads here).
-//  * H (K4's W): query rows a band, 16, 32 or 64.  It sets the registers a
-//    thread holds, the carry bytes (8 / H a cell) and the profile-staging
-//    barriers (one pair a band).
-//  * BLOCK (K4): threads a block, 32, 64 or 128.  A narrow bucket of 128-768
-//    threads spreads over more SMs with smaller blocks.
+// All take K1's input contract: a (n_bands * H, 32) int8 profile (its rows
+// past the query score PAD_SCORE, below every real cell, so they raise no
+// maximum), a (L2, B) int8 transposed bucket of n_segs chained segments of
+// seg_cols columns, and flat int32 out[lane * n_segs + seg].  The TPU knobs
+// with no Hopper meaning are not carried over: g, KPAD and the banded lhs
+// (the MXU's skew staging), Lc (VMEM chunking) and Bt (lanes are threads or
+// thread groups here).
+//
+// K4: the warp wavefront of K1 (sw_wave.cu: sw_wave_kernel, its notes) with
+// K4's two knobs, so that the lab measures the shipping kernel's schedule
+// (sw_wave_band_kernel<H, BLOCK>):
+//  * G threads of a warp score one lane, all its chained segments end to
+//    end (a reset at each segment's first column); thread b holds band b's
+//    H query rows in registers.  At step t it computes column t - b and
+//    hands its bottom row, the column's residue and the segment's running
+//    best to thread b + 1 by a volatile-PTX shfl.sync.up, issued by every
+//    thread at every step (ptxas twice sank a shuffle into a branch in this
+//    package).  A pass is G bands; the global carry is read by a pass's
+//    first band and written by its last only between passes.
+//  * G, a runtime argument, is the next power of two of the profile's
+//    bands, at most 16 (ops/wave_lab.py: band_schedule, the pure function
+//    the wrapper passes it from; wave_sw.wave_shape's rule at H = 32); a
+//    block of BLOCK threads holds BLOCK / G lanes.  Every bucket runs the
+//    wavefront: there is no band-sweep route, so the lab times the full
+//    buckets on it.
+//  * The block stages a pass's bands of profile once for its warps, in
+//    K1's int32 layout ([band][residue][row], row stride H + 4): G x 32 x
+//    (H + 4) x 4 bytes of dynamic shared memory, 139 KB at H = 64, G = 16.
+//    That stage is kept, and the lab shows its cost: at that shape one
+//    block fits an SM (a single warp at BLOCK = 32).  P01008 runs H = 64 at
+//    G = 8 (70 KB), H = 32 and 16 at G = 16 (74 and 41 KB).
+//  * H (K4's W): 16, 32 or 64 rows a band: registers a thread, the skew's
+//    fill (G - 1 columns a pass) against passes (ceil(bands / G)).  BLOCK:
+//    32, 64 or 128 threads, so with the stage the warps an SM.
+// K5 and K6 keep the band sweep (sw_wave_lab_kernel<H, BLOCK, D, SKIP>):
+// a thread owns a (lane, segment), holds H query rows in registers, sweeps
+// its columns and hands each band's bottom row to the next through a global
+// carry.
 //  * D (K5): subject residues and carry tops load D columns ahead into a
 //    register ring, 1, 2, 4 or 8; the column loop is unrolled by D so the
-//    ring's indices are constants.  D = 1 is K1's schedule (sw_wave.cu's
-//    "column j + 1 ... load while column j computes").  The TPU's chunk c + 1
-//    under chunk c is the same idea: loads in flight under the DP.
+//    ring's indices are constants.  D = 1 is the sweep's own schedule.  The
+//    TPU's chunk c + 1 under chunk c is the same idea: loads in flight under
+//    the DP.
 //  * SKIP (K6): one stage dropped, with an exactly defined result, so every
 //    variant is checked as well as timed (the TPU probe's outputs were
 //    garbage by design):
@@ -46,18 +69,37 @@
 // What bounds it: int32 operations, 6 a padded cell (sw_wave.cu's count) over
 // the card's int32 rate, as K1; SKIP = DP does H + 2 a column (H max, an add,
 // the running best), its bound the larger of those and its bytes (subjects,
-// profile and scores once).  PERF.md's
-// questions: is a narrow bucket's column bound by load latency (K6: SUBJECT
-// and CARRY against NONE), does loading D columns ahead cut it (K5), and
-// which band height and block size win per bucket group (K4).
+// profile and scores once).  PERF.md's questions: on which buckets the
+// wavefront loses to K1's band sweep and whether more warps an SM or a
+// smaller stage helps (K4); is a narrow bucket's sweep bound by load latency
+// (K6: SUBJECT and CARRY against NONE), and does loading D columns ahead cut
+// it (K5).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int A = 32;  // profile columns (padded alphabet)
+constexpr int A = 32;      // profile columns (padded alphabet)
+constexpr int MAX_G = 16;  // bands a pass of the wavefront
 enum Skip { NONE = 0, SUBJECT = 1, CARRY = 2, DP = 3 };
+
+// K1's shared layout of one band: [residue][row] int32, rows padded to
+// stride H + 4 (16-byte aligned), bands 16 bytes apart modulo the 32 banks.
+template <int H> struct Stage {
+  static constexpr int STRIDE = H + 4;
+  static constexpr int BAND = A * STRIDE + 4;
+  static constexpr int bytes(int g) { return g * BAND * 4; }
+};
+
+// __shfl_up_sync(~0u, v, 1, g) as volatile PTX, with the width's clamp
+// (32 - g) << 8 a register: every thread issues it where it stands.
+__device__ __forceinline__ int shfl_up1(int v, int clamp) {
+  int r;
+  asm volatile("shfl.sync.up.b32 %0, %1, 1, %2, -1;" : "=r"(r) : "r"(v), "r"(clamp));
+  return r;
+}
 
 __device__ __forceinline__ void cell(int& h, int s, int& diag, int& up, int& best, int gap) {
   const int left = h;
@@ -69,6 +111,114 @@ __device__ __forceinline__ void cell(int& h, int s, int& diag, int& up, int& bes
   best = max(best, v);
 }
 
+// K4: the warp wavefront, g bands of H rows a pass in g threads of a warp
+// (g a power of two, at most MAX_G), BLOCK / g lanes a block.
+template <int H, int BLOCK>
+__global__ void __launch_bounds__(BLOCK)
+sw_wave_band_kernel(const int8_t* __restrict__ profile,  // (n_bands * H, A)
+                    const int8_t* __restrict__ subjT,    // (L2, B)
+                    int32_t* __restrict__ carry,         // (n_segs * seg_cols, B); unused with one pass
+                    int32_t* __restrict__ out,           // (B * n_segs)
+                    int n_bands, int B, int n_segs, int seg_cols, int gap, int g) {
+  using S = Stage<H>;
+  extern __shared__ int4 smem[];
+  int32_t* sprof = reinterpret_cast<int32_t*>(smem);
+  const int n_pass = (n_bands + g - 1) / g;
+  const int total_cols = n_segs * seg_cols;
+  const int clamp = (32 - g) << 8;
+  const int b = threadIdx.x & (g - 1);  // this thread's band in the pass
+  const int lane = blockIdx.x * (BLOCK / g) + threadIdx.x / g;
+  const bool active = lane < B;  // lanes past B compute on lane B - 1's data and store nothing
+  const int ln = active ? lane : B - 1;
+  const int8_t* col = subjT + ln;
+  // sw_wave.cu's opaque copy: the carry pointer stays in a register.
+  unsigned long long cc_addr = reinterpret_cast<unsigned long long>(carry + ln);
+  asm volatile("mov.b64 %0, %0;" : "+l"(cc_addr));
+  int32_t* cc = reinterpret_cast<int32_t*>(cc_addr);
+
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int band0 = pass * g;
+    const int nb = min(g, n_bands - band0);  // bands in this pass
+    __syncthreads();  // every reader of the previous pass's profile is done
+    for (int k = threadIdx.x; k < nb * H * (A / 4); k += BLOCK) {
+      const int row = k / (A / 4), a = (k % (A / 4)) * 4;
+      int32_t* dst = sprof + (row / H) * S::BAND + a * S::STRIDE + row % H;
+      const char4 v = *reinterpret_cast<const char4*>(profile + (static_cast<size_t>(band0) * H + row) * A + a);
+      dst[0] = v.x;
+      dst[S::STRIDE] = v.y;
+      dst[2 * S::STRIDE] = v.z;
+      dst[3 * S::STRIDE] = v.w;
+    }
+    __syncthreads();
+    const int32_t* bprof = sprof + b * S::BAND;
+    const bool real = b < nb;
+    const bool first = b == 0;
+    const bool top_in = first && pass > 0;
+    const bool put_bottom = active && b == nb - 1 && pass + 1 < n_pass;
+    const bool put_best = active && b == nb - 1;
+    const int steps = total_cols + nb - 1;
+
+    int h[H];
+    int best = 0, top_prev = 0, sc = 0, seg = 0;
+    // What this thread hands to thread b + 1: the residue of its last column,
+    // its band's bottom there and the segment's running best.
+    int send_res = 0, send_h = 0, send_cb = 0;
+    // The first thread's column t + 1 (residue and top) loads while column t computes.
+    int a_next = col[0] & (A - 1);
+    int top_next = top_in ? cc[0] : 0;
+
+    for (int t = 0; t < steps; ++t) {
+      int r_res = shfl_up1(send_res, clamp);
+      int r_h = shfl_up1(send_h, clamp);
+      int r_cb = shfl_up1(send_cb, clamp);
+      if (first) {
+        r_res = a_next;
+        r_h = top_next;
+        r_cb = 0;
+        if (t + 1 < total_cols) {
+          const size_t nxt = static_cast<size_t>(t + 1) * B;
+          a_next = col[nxt] & (A - 1);
+          if (top_in) top_next = cc[nxt];
+        }
+      }
+      const int c = t - b;
+      if (real && c >= 0 && c < total_cols) {
+        if (sc == 0) {  // a segment's first column: zero left boundary, fresh best
+#pragma unroll
+          for (int r = 0; r < H; ++r) h[r] = 0;
+          best = 0;
+          top_prev = 0;
+        }
+        const int4* s4 = reinterpret_cast<const int4*>(bprof + r_res * S::STRIDE);
+        int diag = top_prev, up = r_h;
+#pragma unroll
+        for (int q = 0; q < H / 4; ++q) {
+          const int4 s = s4[q];
+          cell(h[4 * q + 0], s.x, diag, up, best, gap);
+          cell(h[4 * q + 1], s.y, diag, up, best, gap);
+          cell(h[4 * q + 2], s.z, diag, up, best, gap);
+          cell(h[4 * q + 3], s.w, diag, up, best, gap);
+        }
+        if (put_bottom) cc[static_cast<size_t>(c) * B] = h[H - 1];
+        top_prev = r_h;
+        const int cb = max(best, r_cb);
+        if (++sc == seg_cols) {  // the segment's last column: its best over this pass's bands is cb
+          if (put_best) {
+            int32_t* o = out + static_cast<size_t>(lane) * n_segs + seg;
+            *o = pass > 0 ? max(*o, cb) : cb;
+          }
+          sc = 0;
+          ++seg;
+        }
+        send_h = h[H - 1];
+        send_cb = cb;
+      }
+      send_res = r_res;
+    }
+  }
+}
+
+// K5 and K6: the band sweep, a thread a (lane, segment).
 template <int H, int BLOCK, int D, int SKIP>
 __global__ void __launch_bounds__(BLOCK)
 sw_wave_lab_kernel(const int8_t* __restrict__ profile,  // (n_bands * H, A)
@@ -172,54 +322,125 @@ sw_wave_lab_kernel(const int8_t* __restrict__ profile,  // (n_bands * H, A)
 }
 
 using Kernel = void (*)(const int8_t*, const int8_t*, int32_t*, int32_t*, int, int, int, int, int);
+using WaveKernel = void (*)(const int8_t*, const int8_t*, int32_t*, int32_t*, int, int, int, int, int, int);
 
-struct Variant {
-  int height, block, depth, skip;
+struct Sweep {
+  int depth, skip;
   Kernel kernel;
 };
 
-// K4: every (H, BLOCK) at D = 1; K5: every D at K1's H = 32, BLOCK = 64;
-// K6: every SKIP at K1's H, BLOCK and D.  (32, 64, 1, NONE) serves all three.
-const Variant VARIANTS[] = {
-    {16, 32, 1, NONE, sw_wave_lab_kernel<16, 32, 1, NONE>},
-    {16, 64, 1, NONE, sw_wave_lab_kernel<16, 64, 1, NONE>},
-    {16, 128, 1, NONE, sw_wave_lab_kernel<16, 128, 1, NONE>},
-    {32, 32, 1, NONE, sw_wave_lab_kernel<32, 32, 1, NONE>},
-    {32, 64, 1, NONE, sw_wave_lab_kernel<32, 64, 1, NONE>},
-    {32, 128, 1, NONE, sw_wave_lab_kernel<32, 128, 1, NONE>},
-    {64, 32, 1, NONE, sw_wave_lab_kernel<64, 32, 1, NONE>},
-    {64, 64, 1, NONE, sw_wave_lab_kernel<64, 64, 1, NONE>},
-    {64, 128, 1, NONE, sw_wave_lab_kernel<64, 128, 1, NONE>},
-    {32, 64, 2, NONE, sw_wave_lab_kernel<32, 64, 2, NONE>},
-    {32, 64, 4, NONE, sw_wave_lab_kernel<32, 64, 4, NONE>},
-    {32, 64, 8, NONE, sw_wave_lab_kernel<32, 64, 8, NONE>},
-    {32, 64, 1, SUBJECT, sw_wave_lab_kernel<32, 64, 1, SUBJECT>},
-    {32, 64, 1, CARRY, sw_wave_lab_kernel<32, 64, 1, CARRY>},
-    {32, 64, 1, DP, sw_wave_lab_kernel<32, 64, 1, DP>},
+// K5: every D at K1's H = 32 and the sweep's BLOCK = 64; K6: every SKIP at D = 1.
+// (1, NONE) serves both.
+const Sweep SWEEPS[] = {
+    {1, NONE, sw_wave_lab_kernel<32, 64, 1, NONE>},       {2, NONE, sw_wave_lab_kernel<32, 64, 2, NONE>},
+    {4, NONE, sw_wave_lab_kernel<32, 64, 4, NONE>},       {8, NONE, sw_wave_lab_kernel<32, 64, 8, NONE>},
+    {1, SUBJECT, sw_wave_lab_kernel<32, 64, 1, SUBJECT>}, {1, CARRY, sw_wave_lab_kernel<32, 64, 1, CARRY>},
+    {1, DP, sw_wave_lab_kernel<32, 64, 1, DP>},
 };
+
+struct Wave {
+  int height, block, stage_max;
+  WaveKernel kernel;
+};
+
+// K4: every (H, BLOCK).
+#define K4_WAVE(H, BLOCK) {H, BLOCK, Stage<H>::bytes(MAX_G), sw_wave_band_kernel<H, BLOCK>}
+const Wave WAVES[] = {
+    K4_WAVE(16, 32), K4_WAVE(16, 64), K4_WAVE(16, 128), K4_WAVE(32, 32), K4_WAVE(32, 64),
+    K4_WAVE(32, 128), K4_WAVE(64, 32), K4_WAVE(64, 64), K4_WAVE(64, 128),
+};
+#undef K4_WAVE
+
+constexpr int N_WAVES = sizeof(WAVES) / sizeof(WAVES[0]);
+constexpr int MAX_DEVICES = 64;  // devices whose shared-memory attribute is remembered as set
+
+// cudaSetDevice only when `device` is not the thread's current device.
+cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  return err != cudaSuccess || current == device ? err : cudaSetDevice(device);
+}
+
+// The index in WAVES of K4's (height, block), or -1.
+int wave_index(int height, int block) {
+  for (int k = 0; k < N_WAVES; ++k) {
+    if (WAVES[k].height == height && WAVES[k].block == block) return k;
+  }
+  return -1;
+}
+
+// Let WAVES[k] take its largest stage: once a device per instantiation
+// (setting it twice from two threads is harmless).
+cudaError_t allow_stage(int k, int device) {
+  static std::atomic<bool> smem_set[N_WAVES][MAX_DEVICES];
+  if (device < MAX_DEVICES && smem_set[k][device].load(std::memory_order_relaxed)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(WAVES[k].kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WAVES[k].stage_max);
+  if (err == cudaSuccess && device < MAX_DEVICES) smem_set[k][device].store(true, std::memory_order_relaxed);
+  return err;
+}
+
+cudaError_t launch_wave(int k, int device, cudaStream_t stream, const void* profile, const void* subjT, void* carry,
+                        void* out, int n_bands, int B, int n_segs, int seg_cols, int gap, int g) {
+  const Wave& w = WAVES[k];
+  const cudaError_t err = allow_stage(k, device);
+  if (err != cudaSuccess) return err;
+  const long long threads = static_cast<long long>(B) * g;
+  const unsigned grid = static_cast<unsigned>((threads + w.block - 1) / w.block);
+  const int stage = w.stage_max / MAX_G * g;
+  w.kernel<<<grid, w.block, stage, stream>>>(static_cast<const int8_t*>(profile), static_cast<const int8_t*>(subjT),
+                                              static_cast<int32_t*>(carry), static_cast<int32_t*>(out), n_bands, B,
+                                              n_segs, seg_cols, gap, g);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// Launch the (height, block, depth, skip) variant on `stream` of `device`;
-// return cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a
-// variant that is not compiled.
+// Launch a variant on `stream` of `device`; return cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for a variant that is not compiled.
+// g > 0: K4's wavefront at (height, block) with g bands a pass (depth 1,
+// skip NONE); g = 0: the band sweep at (height, block) = (32, 64) with the
+// (depth, skip) of K5 or K6.
 int sw_wave_lab_launch(const void* profile, const void* subjT, void* carry, void* out, int n_bands, int B,
-                       int n_segs, int seg_cols, int gap, int height, int block, int depth, int skip, int device,
-                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                       int n_segs, int seg_cols, int gap, int height, int block, int depth, int skip, int g,
+                       int device, void* stream) {
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (const Variant& v : VARIANTS) {
-    if (v.height != height || v.block != block || v.depth != depth || v.skip != skip) continue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (g > 0) {
+    const int k = wave_index(height, block);
+    if (k < 0 || g > MAX_G || (g & (g - 1)) || depth != 1 || skip != NONE)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_wave(k, device, s, profile, subjT, carry, out, n_bands, B, n_segs, seg_cols, gap,
+                                        g));
+  }
+  if (height != 32 || block != 64) return static_cast<int>(cudaErrorInvalidValue);
+  for (const Sweep& v : SWEEPS) {
+    if (v.depth != depth || v.skip != skip) continue;
     const long long threads = static_cast<long long>(B) * n_segs;
     const unsigned grid = static_cast<unsigned>((threads + block - 1) / block);
-    v.kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(profile), static_cast<const int8_t*>(subjT), static_cast<int32_t*>(carry),
-        static_cast<int32_t*>(out), n_bands, B, n_segs, seg_cols, gap);
+    v.kernel<<<grid, block, 0, s>>>(static_cast<const int8_t*>(profile), static_cast<const int8_t*>(subjT),
+                                     static_cast<int32_t*>(carry), static_cast<int32_t*>(out), n_bands, B, n_segs,
+                                     seg_cols, gap);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks an SM of K4's (height, block) wavefront with g bands a pass, at
+// its stage of g bands (the runtime's occupancy for its registers, threads
+// and shared memory) into *blocks.
+int sw_wave_lab_blocks_per_sm(int height, int block, int g, int device, int* blocks) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int k = wave_index(height, block);
+  if (k < 0 || g < 1 || g > MAX_G || (g & (g - 1))) return static_cast<int>(cudaErrorInvalidValue);
+  err = allow_stage(k, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, WAVES[k].kernel, block, WAVES[k].stage_max / MAX_G * g));
 }
 
 const char* sw_wave_lab_error_string(int code) {

@@ -28,16 +28,15 @@ from ..ops import _build
 _P, _I64, _I8 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int8
 
 
-def _lib() -> ctypes.CDLL:
-    return _build.load(
-        "sw_native",
-        sw_fasta_record_bound=[ctypes.c_char_p, _I64, _P],
-        sw_parse_fasta=[ctypes.c_char_p, _I64, _P, _P, _I64, _P],
-        sw_pack_batch=[_P, _P, _I64, _P, _I64, _I64, _I64, _I8, _P],
-        sw_pack_segments=[_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I8, _P],
-        sw_pack_bucket_T=[_P, _P, _I64, _P, _I64, _I64, _I64, _I8, _P],
-        sw_build_signatures=[_P, _P, _I64, _I64, _P, _P],
-    )
+_lib = _build.Library(
+    "sw_native",
+    sw_fasta_record_bound=[ctypes.c_char_p, _I64, _P],
+    sw_parse_fasta=[ctypes.c_char_p, _I64, _P, _P, _I64, _P],
+    sw_pack_batch=[_P, _P, _I64, _P, _I64, _I64, _I64, _I8, _P],
+    sw_pack_segments=[_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I8, _P],
+    sw_pack_bucket_T=[_P, _P, _I64, _P, _I64, _I64, _I64, _I8, _P],
+    sw_build_signatures=[_P, _P, _I64, _I64, _P, _P],
+)
 
 
 def _call(entry: str, *args) -> None:

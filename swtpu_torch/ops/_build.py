@@ -105,7 +105,11 @@ def load(name: str, **entries: list) -> ctypes.CDLL:
     if needed.  ``entries`` maps each C entry point to its argument ctypes;
     every one returns an int error code, which ``<name>_error_string``
     names.  Thread-safe: the engine's warmers launch from several threads
-    at once."""
+    at once.  A loaded library is returned without taking the lock: it is
+    published only once its entry points are bound."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _load_lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -118,12 +122,42 @@ def load(name: str, **entries: list) -> ctypes.CDLL:
     return lib
 
 
+class Library:
+    """A library's entry points and their argument ctypes, named once at
+    module level (nothing is built then); a call returns the loaded
+    ``ctypes.CDLL``: a dict lookup once ``load`` has built and bound it."""
+
+    __slots__ = ("name", "entries")
+
+    def __init__(self, name: str, **entries: list):
+        self.name, self.entries = name, entries
+
+    def __call__(self) -> ctypes.CDLL:
+        lib = _loaded.get(self.name)
+        return lib if lib is not None else load(self.name, **self.entries)
+
+
+def stream(index: int) -> int:
+    """The handle of the current CUDA stream of device ``index``, as
+    ``torch.cuda.current_stream(index).cuda_stream`` gives it, read by
+    torch's raw getter without building a ``torch.cuda.Stream`` (a tenth of
+    a microsecond a call against several for the public route on an H100's
+    host: PERF.md, K9's split; the gpu test
+    ``test_stream_handle_is_the_current_stream`` pins the two together)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def where(dev) -> Tuple[int, int]:
     """(device index, current stream handle) of a CUDA ``torch.device``:
     the last two arguments of every launch entry point."""
-    import torch
+    index = dev.index
+    if index is None:
+        import torch
 
-    return dev.index if dev.index is not None else torch.cuda.current_device(), torch.cuda.current_stream(dev).cuda_stream
+        index = torch.cuda.current_device()
+    return index, stream(index)
 
 
 def check(rc: int, error_string: Callable[[int], bytes], what: str) -> None:

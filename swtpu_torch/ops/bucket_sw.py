@@ -88,8 +88,7 @@ def carry_bytes(n_bands: int, chunks: int, rows: int, width: int, *, shape: Opti
     return 4 * chunks * rows * width if passes > 1 else 0
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    return _build.load("sw_rows", sw_rows_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_kernel_lib = _build.Library("sw_rows", sw_rows_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def _band_profile(profile: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,13 @@ For tensors on the card ``i16_op`` and ``i16_chain`` launch the hand-written
 CUDA kernels of ``csrc/i16_probe.cu``; for tensors on the CPU they run
 ``i16_op_plain`` and ``i16_chain_plain``; a CUDA tensor reaches a kernel or
 raises.  ``i16_op.launches`` and ``i16_chain.launches`` count launches.
+
+``i16_op``'s tile is small enough that its device time is about a
+microsecond, so its route to the launch is kept short: the library's entry
+points are bound once (``_build.Library``), the device index and the
+current stream are read raw (``_build.stream``), the tiles go to the kernel
+as they are (contiguous and 16-byte aligned, else copied), and the kernel
+(one of ``TILE_INSTANCES``) is picked in C.
 """
 
 from __future__ import annotations
@@ -36,31 +43,35 @@ DTYPES = (torch.int16, torch.int32)
 ROWS = 32  # a chain tile's rows, a compile-time constant of the kernel
 UNROLL = 8  # links of one chain a loop body of the kernel
 MAX_COLS = 512  # a chain block's threads: one column of 32-bit words a thread
-MAX_WORDS = 1024  # a tile block's threads: one word of a row a thread
+# The tile kernel's ten instantiations, i16_tile_kernel<type, op>: (op, dtype).
+TILE_INSTANCES = tuple((op, dtype) for dtype in DTYPES for op in OPS)
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    return _build.load(
-        "i16_probe",
-        i16_tile_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-        i16_chain_full_blocks=[ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
-        i16_chain_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        i16_route_noop=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-        i16_tile_route_us=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                                                          ctypes.POINTER(ctypes.c_double)],
-    )
+_kernel_lib = _build.Library(
+    "i16_probe",
+    i16_tile_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    i16_chain_full_blocks=[ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    i16_chain_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    i16_route_noop=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    i16_tile_route_us=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                                                  ctypes.POINTER(ctypes.c_double)],
+)
 
 
-def _check(a: torch.Tensor, b: torch.Tensor, op: str, ops) -> None:
+def _check(a: torch.Tensor, b: torch.Tensor, op: str, ops) -> torch.device:
+    """Validate two tiles for ``op``; returns their device."""
     if op not in ops:
         raise ValueError(f"op must be one of {ops}, got {op!r}")
-    if a.dtype not in DTYPES or a.dtype != b.dtype or a.dim() != 2 or a.shape != b.shape:
-        raise ValueError(f"two equal 2-D int16 or int32 tiles, got {tuple(a.shape)} {a.dtype} and "
+    dtype, shape = a.dtype, a.shape
+    if dtype not in DTYPES or dtype != b.dtype or len(shape) != 2 or shape != b.shape:
+        raise ValueError(f"two equal 2-D int16 or int32 tiles, got {tuple(shape)} {dtype} and "
                          f"{tuple(b.shape)} {b.dtype}")
-    if a.dtype == torch.int16 and a.shape[1] % 2:
-        raise ValueError(f"an int16 tile needs an even column count (packed pairs), got {a.shape[1]}")
-    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"CPU or CUDA tensors on one device, not {a.device} and {b.device}")
+    if dtype == torch.int16 and shape[1] % 2:
+        raise ValueError(f"an int16 tile needs an even column count (packed pairs), got {shape[1]}")
+    dev = a.device
+    if dev != b.device or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"CPU or CUDA tensors on one device, not {dev} and {b.device}")
+    return dev
 
 
 def _words(t: torch.Tensor) -> torch.Tensor:
@@ -71,20 +82,23 @@ def _words(t: torch.Tensor) -> torch.Tensor:
 
 def i16_op(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
     """One of ``OPS`` on two equal (rows, cols) int16 or int32 tiles."""
-    _check(a, b, op, OPS)
-    if a.device.type == "cpu":
+    dev = _check(a, b, op, OPS)
+    if dev.type == "cpu":
         return i16_op_plain(a, b, op)
-    aw, bw = _words(a), _words(b)
-    rows, words = aw.shape
-    if not 0 < words <= MAX_WORDS or rows == 0:
-        raise ValueError(f"the tile kernel takes 1 to {MAX_WORDS} words a row, got {tuple(a.shape)} {a.dtype}")
-    out = torch.empty_like(aw)
+    rows, cols = a.shape
+    if rows == 0 or cols == 0:
+        raise ValueError(f"the tile kernel takes a non-empty tile, got {tuple(a.shape)} {a.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()) or (a.data_ptr() | b.data_ptr()) & 15:
+        a, b = a.clone(memory_format=torch.contiguous_format), b.clone(memory_format=torch.contiguous_format)
+    packed = a.dtype == torch.int16
+    out = torch.empty_like(a)  # a is contiguous, so out is
     lib = _kernel_lib()
-    rc = lib.i16_tile_launch(aw.data_ptr(), bw.data_ptr(), out.data_ptr(), rows, words, _CODE[op],
-                             int(a.dtype == torch.int16), *_build.where(a.device))
-    _build.check(rc, lib.i16_probe_error_string, "i16_op kernel launch")
+    rc = lib.i16_tile_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, cols // 2 if packed else cols,
+                             _CODE[op], packed, dev.index, _build.stream(dev.index))
+    if rc:
+        _build.check(rc, lib.i16_probe_error_string, "i16_op kernel launch")
     i16_op.launches += 1
-    return out.view(a.dtype)
+    return out
 
 
 i16_op.launches = 0  # kernel launches since the count was last set to 0

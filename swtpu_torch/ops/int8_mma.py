@@ -35,13 +35,12 @@ COARSE_ROWS, COARSE_QUERIES = 128, 32
 PROBE_TILE = (16, 32)  # (rows, columns) of a probe warp's output tile
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    return _build.load(
-        "int8_mma",
-        int8_mma_coarse_counts_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        int8_mma_probe_warps=[ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
-        int8_mma_probe_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    )
+_kernel_lib = _build.Library(
+    "int8_mma",
+    int8_mma_coarse_counts_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    int8_mma_probe_warps=[ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    int8_mma_probe_launch=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:

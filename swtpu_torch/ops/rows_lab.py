@@ -44,9 +44,8 @@ ILPS = (2, 4)  # v4's subjects a warp
 INSTANCES = tuple((v, s, ilp) for v in VARIANTS for s in STRIPS[v] for ilp in (ILPS if v == "v4" else (1,)))
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    return _build.load("sw_rows_lab",
-                       sw_rows_lab_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_kernel_lib = _build.Library("sw_rows_lab",
+                             sw_rows_lab_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def _check(variant: str, profile: torch.Tensor, subjects: torch.Tensor, gap: int, strip: int, ilp: int) -> None:

@@ -3,10 +3,13 @@
 Counterparts of three TPU lab kernels, as knobs of one CUDA kernel
 (``csrc/sw_wave_lab.cu``, whose note defines each variant):
 
-* ``sw_wave_band`` (K4, ``tools/pallas_wave.py:208``): ``height`` query rows a
-  band (16, 32, 64) and ``block`` threads a block (32, 64, 128);
-* ``sw_wave_prefetch`` (K5, ``tools/pallas_wave2.py:201``): subject residues
-  and carry tops loaded ``depth`` columns ahead (1, 2, 4, 8);
+* ``sw_wave_band`` (K4, ``tools/pallas_wave.py:208``): K1's warp wavefront
+  with ``height`` query rows a band (16, 32, 64) and ``block`` threads a
+  block (32, 64, 128), on every bucket (``band_schedule`` gives the launch's
+  bands a pass, lanes a block, blocks and passes);
+* ``sw_wave_prefetch`` (K5, ``tools/pallas_wave2.py:201``): the band sweep,
+  subject residues and carry tops loaded ``depth`` columns ahead (1, 2, 4,
+  8);
 * ``sw_wave_skip`` (K6, ``tools/probe_breakdown.py:199``): one stage dropped,
   ``skip`` = "none", "subject", "carry" or "dp", each with an exact result.
 
@@ -25,6 +28,7 @@ counts it on its own ``launches``; for tensors on the CPU it runs
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,12 +41,53 @@ HEIGHTS = (16, 32, 64)  # K4's band heights
 BLOCKS = (32, 64, 128)  # K4's block sizes
 DEPTHS = (1, 2, 4, 8)  # K5's prefetch depths
 SKIPS = ("none", "subject", "carry", "dp")  # K6's dropped stage
-K1_HEIGHT, K1_BLOCK = 32, 64  # sw_wave.cu's: K5 and K6 run at these
+# K1's band height and its band sweep's block (sw_wave.cu): K5 and K6 run at
+# these, and K4 at them by default.
+K1_HEIGHT, K1_BLOCK = 32, 64
+MAX_G = 16  # K4's most bands a pass: half a warp a lane
+STAGE_INTS = {h: 32 * (h + 4) + 4 for h in HEIGHTS}  # int32 a band of K4's shared stage (csrc: Stage<H>::BAND)
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    return _build.load("sw_wave_lab",
-                       sw_wave_lab_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_kernel_lib = _build.Library("sw_wave_lab",
+                             sw_wave_lab_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+                             sw_wave_lab_blocks_per_sm=[ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+
+
+class Schedule(NamedTuple):
+    """K4's launch: ``g`` bands a pass in ``g`` threads a lane,
+    ``lanes_per_block`` lanes a block of ``block`` threads, ``blocks`` blocks
+    and ``passes`` passes (the carry goes through device memory between
+    passes only), ``stage_bytes`` of dynamic shared memory a block."""
+
+    g: int
+    lanes_per_block: int
+    blocks: int
+    passes: int
+    stage_bytes: int
+
+
+def band_schedule(n_bands: int, height: int, block: int, lanes: int) -> Schedule:
+    """K4's schedule for a profile of ``n_bands`` bands of ``height`` rows
+    on a bucket of ``lanes`` lanes: G is the next power of two of the bands,
+    at most ``MAX_G`` (``wave_sw.wave_shape``'s rule at H = 32), whatever the
+    bucket's size."""
+    if height not in HEIGHTS or block not in BLOCKS or n_bands < 1 or lanes < 0:
+        raise ValueError(f"no K4 schedule for n_bands={n_bands}, height={height}, block={block}, lanes={lanes}")
+    g = min(MAX_G, 1 << (n_bands - 1).bit_length())
+    per_block = block // g
+    return Schedule(g=g, lanes_per_block=per_block, blocks=-(-lanes // per_block), passes=-(-n_bands // g),
+                    stage_bytes=4 * g * STAGE_INTS[height])
+
+
+def blocks_per_sm(height: int, block: int, g: int, device) -> int:
+    """Blocks an SM of K4's (height, block) wavefront at ``g`` bands a pass
+    on ``device`` (a CUDA device), by the runtime's occupancy calculator:
+    its registers, its threads and its stage of ``g`` bands."""
+    lib = _kernel_lib()
+    blocks = ctypes.c_int(0)
+    rc = lib.sw_wave_lab_blocks_per_sm(height, block, g, _build.where(torch.device(device))[0], ctypes.byref(blocks))
+    _build.check(rc, lib.sw_wave_lab_error_string, "sw_wave_lab occupancy query")
+    return blocks.value
 
 
 def pad_profile(profile: torch.Tensor, height: int) -> torch.Tensor:
@@ -77,7 +122,8 @@ def _check(profile: torch.Tensor, subjT: torch.Tensor, n_segs: int, gap: int, he
     return cols // n_segs
 
 
-def _run(profile, subjT, gap, n_segs, height, block, depth, skip, counter) -> torch.Tensor:
+def _run(profile, subjT, gap, n_segs, height, block, depth, skip, counter, wave=False) -> torch.Tensor:
+    """One launch: K4's wavefront (``wave``) or the band sweep of K5 and K6."""
     seg_cols = _check(profile, subjT, n_segs, gap, height)
     if subjT.device.type == "cpu":
         return _plain(profile, subjT, gap, n_segs, seg_cols, height, skip)
@@ -86,11 +132,15 @@ def _run(profile, subjT, gap, n_segs, height, block, depth, skip, counter) -> to
     out = torch.empty(B * n_segs, dtype=torch.int32, device=subjT.device)
     if B == 0:
         return out
-    needs_carry = n_bands > 1 and skip != "carry"
+    if wave:
+        sched = band_schedule(n_bands, height, block, B)
+        g, needs_carry = sched.g, sched.passes > 1
+    else:
+        g, needs_carry = 0, n_bands > 1 and skip != "carry"
     carry = torch.empty(n_segs * seg_cols * B if needs_carry else 0, dtype=torch.int32, device=subjT.device)
     lib = _kernel_lib()
     rc = lib.sw_wave_lab_launch(profile.data_ptr(), subjT.data_ptr(), carry.data_ptr(), out.data_ptr(), n_bands, B,
-                                n_segs, seg_cols, gap, height, block, depth, SKIPS.index(skip),
+                                n_segs, seg_cols, gap, height, block, depth, SKIPS.index(skip), g,
                                 *_build.where(subjT.device))
     _build.check(rc, lib.sw_wave_lab_error_string, "sw_wave_lab kernel launch")
     counter.launches += 1
@@ -99,17 +149,19 @@ def _run(profile, subjT, gap, n_segs, height, block, depth, skip, counter) -> to
 
 def sw_wave_band(profile: torch.Tensor, subjT: torch.Tensor, *, gap: int, n_segs: int = 1, height: int = K1_HEIGHT,
                  block: int = K1_BLOCK) -> torch.Tensor:
-    """K4: SW max of each (lane, segment) with ``height`` query rows a band
-    and ``block`` threads a block; ``sw_wave``'s scores at every setting."""
+    """K4: SW max of each (lane, segment) on K1's warp wavefront with
+    ``height`` query rows a band and ``block`` threads a block
+    (``band_schedule``); ``sw_wave``'s scores at every setting."""
     if block not in BLOCKS:
         raise ValueError(f"block must be one of {BLOCKS}, got {block}")
-    return _run(profile, subjT, gap, n_segs, height, block, 1, "none", sw_wave_band)
+    return _run(profile, subjT, gap, n_segs, height, block, 1, "none", sw_wave_band, wave=True)
 
 
 def sw_wave_prefetch(profile: torch.Tensor, subjT: torch.Tensor, *, gap: int, n_segs: int = 1,
                      depth: int = 1) -> torch.Tensor:
-    """K5: SW max of each (lane, segment), residues and carry tops loaded
-    ``depth`` columns ahead; ``sw_wave``'s scores at every depth."""
+    """K5: SW max of each (lane, segment) on the band sweep, residues and
+    carry tops loaded ``depth`` columns ahead; ``sw_wave``'s scores at every
+    depth."""
     if depth not in DEPTHS:
         raise ValueError(f"depth must be one of {DEPTHS}, got {depth}")
     return _run(profile, subjT, gap, n_segs, K1_HEIGHT, K1_BLOCK, depth, "none", sw_wave_prefetch)
@@ -117,8 +169,9 @@ def sw_wave_prefetch(profile: torch.Tensor, subjT: torch.Tensor, *, gap: int, n_
 
 def sw_wave_skip(profile: torch.Tensor, subjT: torch.Tensor, *, gap: int, n_segs: int = 1,
                  skip: str = "none") -> torch.Tensor:
-    """K6: K1's sweep with the ``skip`` stage dropped (``sw_wave_lab_plain``
-    defines each result); "none" gives ``sw_wave``'s scores."""
+    """K6: the band sweep with the ``skip`` stage dropped
+    (``sw_wave_lab_plain`` defines each result); "none" gives ``sw_wave``'s
+    scores."""
     if skip not in SKIPS:
         raise ValueError(f"skip must be one of {SKIPS}, got {skip!r}")
     return _run(profile, subjT, gap, n_segs, K1_HEIGHT, K1_BLOCK, 1, skip, sw_wave_skip)

@@ -224,12 +224,11 @@ sw_wave.affine_launches = 0  # of those, launches with affine gaps
 sw_wave.carry_launches = 0  # of those, launches with top_in or return_carry
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    return _build.load(
-        "sw_wave",
-        sw_wave_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
-        sw_wave_affine_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-    )
+_kernel_lib = _build.Library(
+    "sw_wave",
+    sw_wave_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    sw_wave_affine_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+)
 
 
 # (G, H) shapes of the kernel (csrc/sw_wave.cu SW_WAVE_SHAPES): G bands a

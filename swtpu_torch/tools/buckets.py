@@ -63,13 +63,18 @@ class Buckets:
         return self.engine._reduce_flat(torch.cat(list(flats)).cpu().numpy(), packed)
 
 
+def swissprot_query() -> Query:
+    """The lab's query, P01008 (464 residues)."""
+    return parse_query(QUERIES / f"{QUERY}.fasta")
+
+
 def swissprot_buckets(db: Optional[Database] = None, engine: Optional[SearchEngine] = None) -> Buckets:
     """P01008's buckets; ``db`` and ``engine`` default to the SwissProt-shaped
     database and a default engine on the card."""
     db = synth.synth_database(N_SEQS, seed=0) if db is None else db
     engine = SearchEngine(SWConfig(), device="cuda") if engine is None else engine
     groups = list(engine._resident_packed(db).wave_groups)
-    return Buckets(db=db, engine=engine, query=parse_query(QUERIES / f"{QUERY}.fasta"), groups=groups)
+    return Buckets(db=db, engine=engine, query=swissprot_query(), groups=groups)
 
 
 def group_of(g: WaveGroup) -> str:
@@ -127,7 +132,11 @@ def main(tool: str, variants: Variants) -> int:
         print(f"{tool}: no CUDA device: the kernels run on the card only", file=sys.stderr)
         return 1
     b = swissprot_buckets()
-    res = run(b.groups, launches(b, variants))
+    fns = launches(b, variants)
+    small = min(b.groups, key=lambda g: g.stack.numel())
+    for launch in fns.values():  # load every kernel before anything is timed
+        launch(small)
+    res = run(b.groups, fns)
     k1 = torch.cat(res["flats"]["K1"])
     keep_dp = [name for name, (_, kw) in variants.items() if skip(kw) == "none"]
     unequal = [name for name in keep_dp if not torch.equal(torch.cat(res["flats"][name]), k1)]
@@ -202,7 +211,7 @@ def swissprot_rows(db: Optional[Database] = None, engine: Optional[SearchEngine]
     engine = SearchEngine(SWConfig(use_wave=False), device="cuda") if engine is None else engine
     if engine._wave_enabled:
         raise ValueError("the row-path groups need a row-path engine (use_wave=False)")
-    return RowGroups(db=db, engine=engine, query=parse_query(QUERIES / f"{QUERY}.fasta"),
+    return RowGroups(db=db, engine=engine, query=swissprot_query(),
                      packed=engine._resident_packed(db))
 
 

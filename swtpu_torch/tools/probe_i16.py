@@ -13,9 +13,11 @@ compiled each op, this runs them:
   operations a second against the int32 peak every int32 bound divides by
   (``roofline.INT32_OPS_PER_S``).
 
-Exits 1 without a CUDA device.
+``--route-ab PARENT`` times the tiles' launch route of the checkout at
+PARENT against this one's instead (``route_ab``).  Exits 1 without a CUDA
+device.
 
-Run: ``python -m swtpu_torch.tools.probe_i16``
+Run: ``python -m swtpu_torch.tools.probe_i16 [--route-ab PARENT]``
 """
 
 from __future__ import annotations
@@ -99,11 +101,14 @@ def route_split(device="cuda", reps: int = 2000, turns: int = 3, op: str = "max"
     on the (16, 512) tile, and of the wrapper and the library call whole:
     every piece ``reps`` calls on a host clock, the pieces in turns,
     ``turns`` times ({piece: [us a call, a turn]}).  The C pieces
-    (cudaGetDevice, cudaSetDevice of the current device, the launch alone,
-    cudaGetLastError) are timed inside the library (``i16_tile_route_us``);
-    ctypes' own cost is a call of an entry that does nothing
-    (``i16_route_noop``) with the launch's arguments.  Launches queue on
-    the current stream and are synchronised between pieces."""
+    (cudaGetDevice, the entry's check of the current device;
+    cudaSetDevice of the current device, which the entry no longer makes;
+    the launch alone; cudaGetLastError) are timed inside the library
+    (``i16_tile_route_us``); ctypes' own cost is a call of an entry that
+    does nothing (``i16_route_noop``) with the launch's arguments.  The
+    public stream getter, which the route no longer takes, is timed beside
+    the raw one.  Launches queue on the current stream and are synchronised
+    between pieces."""
     import ctypes
     import time
 
@@ -113,29 +118,25 @@ def route_split(device="cuda", reps: int = 2000, turns: int = 3, op: str = "max"
     a, b = tile_inputs(dtype, dev)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = i16_probe._kernel_lib()
-    aw, bw = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
-    out = torch.empty_like(aw)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (aw.data_ptr(), bw.data_ptr(), out.data_ptr(), aw.shape[0], aw.shape[1], i16_probe._CODE[op],
-            int(dtype == torch.int16), idx, stream)
+    out = torch.empty_like(a)
+    packed = dtype == torch.int16
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1] // (2 if packed else 1),
+            i16_probe._CODE[op], packed, idx, _build.stream(idx))
     lib_call = LIBRARY[op]
     pieces = {
         "i16_op (the whole wrapper)": lambda: i16_probe.i16_op(a, b, op),
         "library call (whole)": lambda: lib_call(a, b),
         "_check": lambda: i16_probe._check(a, b, op, i16_probe.OPS),
-        "two .contiguous().view(int32)": lambda: (a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)),
-        "torch.empty_like": lambda: torch.empty_like(aw),
+        "is_contiguous and 16-byte alignment": lambda: (a.is_contiguous() and b.is_contiguous()
+                                                        and not (a.data_ptr() | b.data_ptr()) & 15),
+        "torch.empty_like": lambda: torch.empty_like(a),
         "_kernel_lib()": i16_probe._kernel_lib,
-        "_build.where(a.device)": lambda: _build.where(a.device),
-        "a.device": lambda: a.device,
+        "_build.stream(index)": lambda: _build.stream(idx),
         "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "three data_ptr()": lambda: (aw.data_ptr(), bw.data_ptr(), out.data_ptr()),
+        "three data_ptr()": lambda: (a.data_ptr(), b.data_ptr(), out.data_ptr()),
         "ctypes call of a no-op entry (9 arguments)": lambda: lib.i16_route_noop(*args),
         "launch counter += 1": lambda: setattr(i16_probe.i16_op, "launches", i16_probe.i16_op.launches),
     }
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        pieces["torch._C._cuda_getCurrentRawStream(index)"] = lambda: raw(idx)
     split: Dict[str, List[float]] = {name: [] for name in pieces}
     c_names = ("cudaGetDevice", "cudaSetDevice (current device)", "the launch alone (C)", "cudaGetLastError")
     split.update({name: [] for name in c_names})
@@ -192,22 +193,82 @@ def device_split(device="cuda", reps: int = 100) -> Dict[str, Dict[str, float]]:
     return out
 
 
-def main() -> int:
+# One turn of ``route_ab``, run in a subprocess from a checkout's root: the
+# elementwise tiles timed as ``run_tiles`` times them, the library calls the
+# same way, and ``route_split``.  It names only what every version of this
+# tool since the split was first measured has.
+ROUTE_TURN = """
+import json, torch
+from swtpu_torch.tools import probe_i16 as p
+from swtpu_torch.tools.roofline import events_ms
+ops = tuple(op for op in p.i16_probe.OPS if op != "dp_row")
+for dtype in p.i16_probe.DTYPES:  # warm: the first call builds and loads the library
+    p.i16_probe.i16_op(*p.tile_inputs(dtype, "cuda"), "max")
+torch.cuda.synchronize()
+tiles = {f"{r['op']} {r['dtype']}": r["ms"] for r in p.run_tiles(ops=ops)}
+lib = {}
+for dtype in p.i16_probe.DTYPES:
+    a, b = p.tile_inputs(dtype, "cuda")
+    for op in ops:
+        fn = p.LIBRARY[op]
+        fn(a, b)
+        lib[f"{op} {str(dtype).split('.')[-1]}"] = events_ms(lambda: fn(a, b), 100)[0]
+print("ROUTE_TURN " + json.dumps(dict(tiles_ms=tiles, library_ms=lib, host_us=p.route_split())))
+"""
+
+
+def route_ab(parent: str) -> Dict[str, List[dict]]:
+    """The launch route of the package at ``parent`` (a checkout's root)
+    against this one's, in turns parent, this, this, parent, each turn a
+    fresh process on the card with no profiler before it:
+    {"parent": [turn, turn], "this": [turn, turn]}, a turn holding the eight
+    elementwise tiles' ms a call (CUDA events over 100 calls, as
+    ``run_tiles``), the library calls' the same way, and ``route_split``."""
+    import json
+    import subprocess
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parents[2]
+    out: Dict[str, List[dict]] = {"parent": [], "this": []}
+    for name, root in (("parent", parent), ("this", here), ("this", here), ("parent", parent)):
+        run = subprocess.run([sys.executable, "-c", ROUTE_TURN], cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        line = [ln for ln in run.stdout.splitlines() if ln.startswith("ROUTE_TURN ")]
+        if run.returncode or not line:
+            raise RuntimeError(f"route_ab: the {name} turn failed ({run.returncode}):\n{run.stderr[-2000:]}")
+        out[name].append(json.loads(line[0].split(" ", 1)[1]))
+    return out
+
+
+def main(argv=()) -> int:
+    """``--route-ab PARENT``: ``route_ab`` against the checkout at PARENT,
+    printed as JSON; otherwise the tiles, their route's host split, their
+    device split and the chains."""
+    import argparse
+
+    args = argparse.ArgumentParser(prog="python -m swtpu_torch.tools.probe_i16")
+    args.add_argument("--route-ab", metavar="PARENT", help="a checkout's root whose launch route to time against this")
+    opts = args.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_i16: no CUDA device: the kernels and rates are the card's", file=sys.stderr)
         return 1
     print(f"device: {card()}")
+    if opts.route_ab:
+        import json
+
+        print(json.dumps(route_ab(opts.route_ab)))
+        return 0
     ok = True
     for r in run_tiles():
         equal = torch.equal(r["out"], r["plain"])
         ok &= equal
         print(f"{r['op']:7s} {r['dtype']}: {'OK' if equal else 'MISMATCH'}  {r['ms'] * 1e3:8.2f} us a tile "
               f"(plain {r['plain_ms'] * 1e3:9.2f} us)")
+    for name, v in route_split().items():  # before the profiler: a trace leaves the host slower after it
+        print(f"host {name:45s}: " + ", ".join(f"{x:7.3f}" for x in v) + " us a call")
     for name, v in device_split().items():
         print(f"device {name:12s}: K9 {v['k9_us']:6.2f} us a call, library {v['library_us']:6.2f} us "
               f"({', '.join(v['library_kernels'])})")
-    for name, v in route_split().items():
-        print(f"host {name:45s}: " + ", ".join(f"{x:7.3f}" for x in v) + " us a call")
     for r in measure_chains():
         print(f"chain {r['op']:7s} {r['dtype']}: {r['ops_per_s'] / 1e12:7.2f} T element ops/s "
               f"({r['ms']:.3f} ms a launch; {100 * r['share_of_int32_peak']:.1f}% of the int32 peak "
@@ -216,4 +277,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

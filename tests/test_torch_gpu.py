@@ -456,7 +456,8 @@ def test_prefiltered_engine_on_card_matches_cpu(cuda, evalue):
 
 @pytest.mark.parametrize(
     "qlen,ws,S,B",
-    [(20, 32, 1, 64), (33, 48, 2, 77), (100, 96, 3, 130), (1000, 160, 4, 515), (464, 4100, 1, 129)],
+    [(20, 32, 1, 64), (33, 48, 2, 77), (100, 96, 3, 130), (1000, 160, 4, 515), (464, 4100, 1, 129),
+     (300, 40, 3, 129), (1100, 24, 2, 65), (4548, 16, 1, 33)],
 )
 def test_wave_lab_kernels_match_plain(cuda, qlen, ws, S, B):
     prof, stack = _bucket(np.random.default_rng(qlen * 3 + S), qlen, ws, S, B)
@@ -467,11 +468,12 @@ def test_wave_lab_kernels_match_plain(cuda, qlen, ws, S, B):
         want = wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=S, height=h)
         assert torch.equal(want, k1)
         for blk in wave_lab.BLOCKS:
+            sched = wave_lab.band_schedule(p.shape[0] // h, h, blk, B)
             before = wave_lab.sw_wave_band.launches
             got = wave_lab.sw_wave_band(p, stack, gap=2, n_segs=S, height=h, block=blk)
             torch.cuda.synchronize()
             assert wave_lab.sw_wave_band.launches == before + 1
-            assert torch.equal(got, want), (h, blk)
+            assert torch.equal(got, want), (h, blk, sched)
     p = prof.to(cuda)
     for d in wave_lab.DEPTHS:
         before = wave_lab.sw_wave_prefetch.launches
@@ -511,6 +513,81 @@ def test_i16_tiles_and_chains_match_plain(cuda):
                     torch.cuda.synchronize()
                     assert i16_probe.i16_chain.launches == before + 1
                     assert torch.equal(got, i16_probe.i16_chain_plain(x, y, op, iters)), (op, dtype, iters)
+
+
+def test_wave_lab_cases_cross_pass_boundaries_and_tails():
+    """The K4 cases above run one pass and several at every height, with a
+    last pass of fewer bands than G (the tail) at H = 16 and 64, and the
+    139 KB stage (H = 64, G = 16)."""
+    bands = {h: [-(-q // h) for q in (300, 1100, 4548)] for h in wave_lab.HEIGHTS}
+    for h in wave_lab.HEIGHTS:
+        scheds = [wave_lab.band_schedule(n, h, 32, 1) for n in bands[h]]
+        assert max(s.passes for s in scheds) > 1
+        if h in (16, 64):
+            assert any(n % s.g for n, s in zip(bands[h], scheds) if s.passes > 1), h
+    assert wave_lab.band_schedule(bands[64][-1], 64, 32, 1).stage_bytes == 139_520
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 512), (1, 1), (300, 1), (1, 1024), (300, 1024), (7, 3), (5, 30)])
+def test_i16_tile_instances_match_plain_at_every_shape(cuda, rows, cols):
+    """The ten tile instantiations at 1 and 1,024 words a row and 1 and 300
+    rows (and odd word counts, whose rows are not 16-byte aligned), on
+    inputs whose int16 and int32 sums wrap."""
+    rng = np.random.default_rng(rows * 7 + cols)
+    for op, dtype in i16_probe.TILE_INSTANCES:
+        width = cols * (2 if dtype == torch.int16 else 1)
+        lo, hi = (-32768, 32768) if dtype == torch.int16 else (-(2**31), 2**31)
+        a, b = (torch.from_numpy(rng.integers(lo, hi, (rows, width))).to(dtype).to(cuda) for _ in range(2))
+        before = i16_probe.i16_op.launches
+        got = i16_probe.i16_op(a, b, op)
+        torch.cuda.synchronize()
+        assert i16_probe.i16_op.launches == before + 1
+        assert torch.equal(got, i16_probe.i16_op_plain(a, b, op)), (op, dtype, rows, cols)
+    a = torch.arange(3 * 6, dtype=torch.int32, device=cuda).reshape(3, 6)
+    got = i16_probe.i16_op(a[1:], a[1:] * 3, "dp_row")  # an offset tile: 24 bytes in, not 16-byte aligned
+    assert torch.equal(got, i16_probe.i16_op_plain(a[1:], a[1:] * 3, "dp_row"))
+
+
+def test_stream_handle_is_the_current_stream(cuda):
+    """Every launch's stream is read by _build.stream, torch's raw getter:
+    it must be the handle of torch.cuda.current_stream, on the default
+    stream and inside torch.cuda.stream(side)."""
+    from swtpu_torch.ops import _build
+
+    index = torch.cuda.current_device()
+    assert _build.stream(index) == torch.cuda.current_stream(index).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream(index) == torch.cuda.current_stream(index).cuda_stream == side.cuda_stream
+        assert _build.where(torch.device("cuda"))[1] == side.cuda_stream
+    assert _build.stream(index) == torch.cuda.current_stream(index).cuda_stream != side.cuda_stream
+
+
+def test_i16_tile_launches_on_the_callers_stream(cuda):
+    """A tile launched inside torch.cuda.stream(side) runs there, after
+    what was queued on it: the side stream waits on an event of the default
+    stream, sleeps, then copies the tiles the launch reads.  Launched on
+    another stream the kernel would read the copies' destinations before
+    they are written."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.integers(-32768, 32768, (64, 1024))).to(torch.int16).to(cuda)
+    b = torch.from_numpy(rng.integers(-32768, 32768, (64, 1024))).to(torch.int16).to(cuda)
+    for op in i16_probe.OPS:
+        want = i16_probe.i16_op_plain(a, b, op)
+        ready = torch.cuda.Event()
+        ready.record()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            a2, b2 = torch.empty_like(a), torch.empty_like(b)
+            torch.cuda._sleep(50_000_000)  # tens of milliseconds of the side stream
+            a2.copy_(a)
+            b2.copy_(b)
+            got = i16_probe.i16_op(a2, b2, op)
+            done = torch.cuda.Event()
+            done.record()
+        torch.cuda.current_stream().wait_event(done)
+        assert torch.equal(got, want), op
 
 
 @pytest.mark.parametrize(
