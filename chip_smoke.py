@@ -8,7 +8,10 @@ Phases (one line each; any failure exits non-zero with no result line):
   1. card     name, power limit, torch and CUDA versions
   2. build    nvcc of every kernel source and g++ of the native host
               runtime (csrc/sw_native.cpp) at once; seconds, and registers,
-              spills and SASS opcode counts of each kernel instantiation
+              spills and SASS opcode counts of each kernel instantiation,
+              and the loop-body opcodes of K1's linear band sweep at H = 64
+              and of every K5/K6 instantiation beside it (K5 D1 none is a
+              copy of that sweep: registers, spills and loop body compared)
   3. kernel   each kernel against its plain PyTorch version on seeded random
               buckets (chain factors 1/2/3/8, odd lane counts, one and many
               bands, widths 32 to 4100; K1's shapes: the suite's longest
@@ -37,9 +40,11 @@ Phases (one line each; any failure exits non-zero with no result line):
               the first case list (K4, the warp wavefront, at every band
               height and block: one pass and several at every height, a
               last pass of fewer bands, chained segments, a bucket of
-              20,800 (lane, segment) pairs; K5 at every prefetch depth, K6
-              at every stage switch) against their plain versions, and those
-              that keep the DP against K1's kernel; then K9's int16 and int32 tiles (tools/probe_i16.py's
+              20,800 (lane, segment) pairs; K5 at every prefetch depth and
+              K6 at every stage switch, both K1's band sweep at H = 64 on
+              K1's unpadded profile, odd band counts ending in a 32-row
+              tail) against their plain versions, and those that keep the
+              DP against K1's kernel; then K9's int16 and int32 tiles (tools/probe_i16.py's
               inputs and random ones whose sums wrap) and short chains of
               every op: exact equality; then K10, every instantiation of
               the row-parallel lab kernel (v2, v3, v4, v41) on the row
@@ -160,21 +165,26 @@ Phases (one line each; any failure exits non-zero with no result line):
  12. lab      the wavefront lab kernels as swtpu_torch.tools.wave_lab (K4,
               K5) and swtpu_torch.tools.probe_breakdown (K6) run them on
               P01008's buckets of the same resident database (counts zeroed
-              just before, read just after; one timed launch a variant a
-              bucket): every variant that keeps the DP bit-equal to K1's
-              scores of all 559,228 sequences, every variant equal to its
-              plain version (run once a variant), a per-bucket table of
-              milliseconds beside K1's, K1 forced to its warp wavefront and to its band
-              sweep on every bucket, with narrow, mid and full sums; each K4
-              variant's schedule for P01008 and its blocks an SM
+              just before, read just after; 3 rounds of one timed launch a
+              variant a bucket, a bucket's time the median of its rounds):
+              in every round every variant that keeps the DP bit-equal to
+              K1's scores of all 559,228 sequences and every variant equal
+              to its plain version (run once a variant), a per-bucket table
+              of milliseconds beside K1's, K1 forced to its warp wavefront
+              and to its band sweep on every bucket, with narrow, mid and
+              full sums and each variant's spread across rounds; each K4
+              variant's schedule for P01008 and its blocks an SM; each K5
+              and K6 variant's shape and its ratio to K1's band sweep
  13. lab.rows K10 as swtpu_torch.tools.pallas_lab --swissprot runs it on
               P01008's 13 row-path ladder groups of the same resident
-              database (counts zeroed just before, read just after; one
-              timed launch an instantiation a group beside K2's): every
-              instantiation bit-equal to K2 on every group and, with the
+              database (counts zeroed just before, read just after; 3 rounds
+              of one timed launch an instantiation a group beside K2's, a
+              group's time the median of its rounds): in every round every
+              instantiation bit-equal to K2 on every group and K2, with the
               segment groups' scores, to the wavefront path's scores of all
               559,228 sequences; one plain pass for all; a per-group table
-              of milliseconds with each instantiation's ratio to K2
+              of milliseconds with each instantiation's ratio to K2 and its
+              spread across rounds
  14. mesh     the port's single-host mesh (swtpu_torch.parallel) on meshes
               that name the one card n times (and on distinct cards where the
               machine has n or more): every shard's kernels, the lane split,
@@ -288,6 +298,8 @@ N_SEQS = 559_228
 MAIN_QUERY = "P01008"
 # sw_wave_lab.cu's SKIP codes and i16_probe.cu's op codes, as its kernels are named
 LAB_SKIPS = ("none", "subject", "carry", "dp")
+# K1's linear band sweep at H = 64 and its copy, K5 at D = 1 with no stage skipped
+SWEEP_LABELS = ("linear band sweep H64", "K5/K6 sw_band_lab_kernel H64 D1 none")
 I16_OPS = {0: "max", 1: "add", 2: "sub", 3: "select", 4: "dp_row", 5: "addmax", 6: "max3"}
 K8_KERNEL = "K9 i16_chain_kernel I32 addmax"  # K8's chain is K9's int32 addmax chain (ops/vpu_chain.py)
 I16_CHAIN_ITERS = 2048  # roofline.i16's chains: ~2 ms a launch, and each one's plain version well under 1 s
@@ -340,10 +352,10 @@ def phase_build():
         k4 = re.search(r"sw_wave_band_kernelILi(\d+)ELi(\d+)E", mangled)
         if k4:
             return f"K4 sw_wave_band_kernel H{k4.group(1)} B{k4.group(2)} wavefront"
-        lab = re.search(r"sw_wave_lab_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E", mangled)
+        lab = re.search(r"sw_band_lab_kernelILi(\d+)ELi(\d+)ELi(\d)E", mangled)
         if lab:
-            h, blk, d, skip = lab.groups()
-            return f"K5/K6 sw_wave_lab_kernel H{h} B{blk} D{d} {LAB_SKIPS[int(skip)]}"
+            h, d, skip = lab.groups()
+            return f"K5/K6 sw_band_lab_kernel H{h} D{d} {LAB_SKIPS[int(skip)]}"
         k10 = re.search(r"sw_rows_lab_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELb([01])E", mangled)
         if k10:
             stage, scan, strip, ilp, _ = k10.groups()
@@ -387,11 +399,20 @@ def phase_build():
             for mangled, body in zip(parts[1::2], parts[2::2]):
                 ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPCODES}
                 kernels.setdefault(label(mangled), {})["sass_opcodes"] = ops
-                if "chain_kernel" in mangled:  # K9's chains (K8's among them): the rolled loop's body alone
+                if "chain_kernel" in mangled or "sw_band_lab_kernel" in mangled or label(mangled) == SWEEP_LABELS[0]:
+                    # K9's chains (K8's among them), K1's linear sweep and K5/K6: the rolled loops' bodies
                     kernels[label(mangled)]["loop_body_opcodes"] = loop_body_opcodes(body)
         say("build", source=f"swtpu_torch/csrc/{name}.cu", seconds=round(time.perf_counter() - t0, 3),
             kernels=kernels, cuobjdump=cuobjdump.exists())
         out[name] = kernels
+    k1, k5 = out["sw_wave"].get(SWEEP_LABELS[0], {}), out["sw_wave_lab"].get(SWEEP_LABELS[1], {})
+    a, b = k1.get("loop_body_opcodes", {}), k5.get("loop_body_opcodes", {})
+    say("build.sweep", k1=SWEEP_LABELS[0], k5=SWEEP_LABELS[1],
+        registers=[k1.get("registers"), k5.get("registers")], spill_bytes=[k1.get("spill_bytes"), k5.get("spill_bytes")],
+        loop_body_instructions=[sum(a.values()), sum(b.values())],
+        loop_body_differences={op: b.get(op, 0) - a.get(op, 0) for op in sorted(set(a) | set(b))
+                               if a.get(op, 0) != b.get(op, 0)},
+        spills_k5_k6={k: v.get("spill_bytes") for k, v in out["sw_wave_lab"].items() if k.startswith("K5/K6")})
     return out
 
 
@@ -1932,16 +1953,20 @@ def phase_kernel_lab():
         runs = [(h, "none", wave_lab.pad_profile(prof, h),
                  lambda p, h=h, blk=blk: wave_lab.sw_wave_band(p, stack, gap=2, n_segs=n_segs, height=h, block=blk))
                 for h in wave_lab.HEIGHTS for blk in wave_lab.BLOCKS]
-        runs += [(32, "none", prof, lambda p, d=d: wave_lab.sw_wave_prefetch(p, stack, gap=2, n_segs=n_segs, depth=d))
+        sweep = wave_lab.SWEEP_HEIGHT  # K5 and K6: K1's band sweep on K1's own profile, unpadded
+        runs += [(sweep, "none", prof,
+                  lambda p, d=d: wave_lab.sw_wave_prefetch(p, stack, gap=2, n_segs=n_segs, depth=d))
                  for d in wave_lab.DEPTHS]
-        runs += [(32, skip, prof, lambda p, skip=skip: wave_lab.sw_wave_skip(p, stack, gap=2, n_segs=n_segs, skip=skip))
+        runs += [(sweep, skip, prof,
+                  lambda p, skip=skip: wave_lab.sw_wave_skip(p, stack, gap=2, n_segs=n_segs, skip=skip))
                  for skip in wave_lab.SKIPS]
         plain = {}
         for h, skip, p, launch in runs:
             got = launch(p)
-            if (h, skip) not in plain:
-                plain[h, skip] = wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=n_segs, height=h, skip=skip)
-            want = plain[h, skip]
+            key = (h, skip, p.shape[0])  # K4 at H64 takes the profile padded to 64, K5 and K6 K1's
+            if key not in plain:
+                plain[key] = wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=n_segs, height=h, skip=skip)
+            want = plain[key]
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
             worst, launches = max(worst, err), launches + 1
@@ -1949,7 +1974,8 @@ def phase_kernel_lab():
                 raise AssertionError(f"lab kernel H{h} {skip} != plain or K1 at qlen={qlen} ws={ws} n_segs={n_segs} "
                                      f"lanes={lanes}: max err {err}")
     say("kernel.lab", cases=len(KERNEL_CASES), heights=wave_lab.HEIGHTS, blocks=wave_lab.BLOCKS,
-        depths=wave_lab.DEPTHS, skips=wave_lab.SKIPS, launches=launches, max_abs_err=worst,
+        depths=wave_lab.DEPTHS, skips=wave_lab.SKIPS, sweep_height=wave_lab.SWEEP_HEIGHT,
+        sweep_bands=[-(-c[0] // wave_lab.SWEEP_HEIGHT) for c in KERNEL_CASES], launches=launches, max_abs_err=worst,
         k4_schedules_at_block_128=schedules,
         tolerance="exact; every variant that keeps the DP also equals K1's kernel")
     return worst
@@ -2094,15 +2120,18 @@ def phase_lab(db, engine):
     """The lab kernels as their tools run them (swtpu_torch.tools.wave_lab's
     K4 and K5 variants and swtpu_torch.tools.probe_breakdown's K6 variants,
     in one swtpu_torch.tools.buckets.run; counts zeroed just before, read
-    just after) on P01008's buckets of the resident database: one timed
-    launch a variant a bucket, the variants that keep the DP bit-equal to
-    K1's full-array scores, every variant equal to its plain version (run
-    once a variant on the same buckets), and a per-bucket table of
-    milliseconds beside K1's (its own schedule a bucket) and K1 forced to
-    its warp wavefront and to its band sweep on every bucket, with narrow,
-    mid and full sums; each K4 variant's schedule for P01008 and its blocks
-    an SM."""
+    just after) on P01008's buckets of the resident database: ROUNDS rounds
+    of one timed launch a variant a bucket, a bucket's time the median of
+    its rounds; in every round the variants that keep the DP bit-equal to
+    K1's full-array scores and every variant equal to its plain version (run
+    once a variant on the same buckets); a per-bucket table of milliseconds
+    beside K1's (its own schedule a bucket) and K1 forced to its warp
+    wavefront and to its band sweep on every bucket, with narrow, mid and
+    full sums and each variant's spread across rounds; each K4 variant's
+    schedule for P01008 and its blocks an SM; each K5 and K6 variant's shape
+    and its ratio to K1's band sweep (whose sweep K5 D1 and K6 none copy)."""
     import numpy as np
+    import torch
 
     from swtpu_torch.ops import wave_lab
     from swtpu_torch.tools import buckets as lb
@@ -2123,45 +2152,55 @@ def phase_lab(db, engine):
     k1_forced = wave_lab_tool.k1_schedules(b.query.length)
     res = lb.run(b.groups, lb.launches(b, {**k1_forced, **variants}))
     launched = {fn.__name__: fn.launches for fn in families}
-    want = {fn.__name__: len(b.groups) * sum(f is fn for f, _ in variants.values()) for fn in families}
+    rounds = len(res["rounds"])
+    want = {fn.__name__: rounds * len(b.groups) * sum(f is fn for f, _ in variants.values()) for fn in families}
     if launched != want:
-        raise AssertionError(f"the lab tools launched {launched}, not one launch a variant a bucket: {want}")
-    for name in ("K1", *k1_forced):
-        if not np.array_equal(b.reduce(res["flats"][name]), scale_scores):
-            raise AssertionError(f"the lab run's {name} pass differs from the engine's search")
+        raise AssertionError(f"the lab tools launched {launched}, not one launch a variant a bucket a round: {want}")
+    for r, flats in enumerate(res["rounds"]):
+        for name in ("K1", *k1_forced):
+            if not np.array_equal(b.reduce(flats[name]), scale_scores):
+                raise AssertionError(f"the lab run's {name} pass differs from the engine's search in round {r}")
     plain_ms, err = {}, {}
     for name, (fn, kw) in variants.items():
         h, skip = lb.height(kw), lb.skip(kw)
         err[name] = 0
-        if skip == "none":
-            got = b.reduce(res["flats"][name])
-            err[name] = int(np.abs(got.astype(np.int64) - scale_scores.astype(np.int64)).max())
-            if err[name] or not np.array_equal(got, scale_scores):
-                raise AssertionError(f"lab {name} differs from K1 on P01008: max err {err[name]}")
-        prof = b.profile(h)
+        if skip == "none":  # every round against K1's flats of the same round, which equal the engine's scores
+            for r, flats in enumerate(res["rounds"]):
+                got, k1 = torch.cat(flats[name]), torch.cat(flats["K1"])
+                e = int((got.long() - k1.long()).abs().max())
+                err[name] = max(err[name], e)
+                if e or not got.equal(k1):
+                    raise AssertionError(f"lab {name} differs from K1 on P01008 in round {r}: max err {e}")
+        prof = b.profile(lb.pad(kw))
         plain_ms[name], plain = events_ms(lambda: [wave_lab.sw_wave_lab_plain(
             prof, g.stack, gap=b.gap, n_segs=g.n_segs, height=h, skip=skip) for g in b.groups])
-        e = max(int((x.long() - p.long()).abs().max()) for x, p in zip(res["flats"][name], plain))
+        e = max(int((x.long() - p.long()).abs().max()) for flats in res["rounds"] for x, p in zip(flats[name], plain))
         if e:
             raise AssertionError(f"lab {name} differs from its plain version on P01008: max err {e}")
-    print("\n".join(lb.table(b.groups, res["times"], "K1")), flush=True)
+    print("\n".join(lb.table(b.groups, res["times"], "K1", res["spread_ms"])), flush=True)
     sums = lb.group_sums(b.groups, res["times"])
 
     def bound(kw):  # the larger of bytes (subjects, profile, scores once) and int32 operations
         h, skip = lb.height(kw), lb.skip(kw)
-        qpad = b.profile(h).shape[0]
+        qpad = b.profile(lb.pad(kw)).shape[0]  # the rows the variant takes: K1's 480 for K5 and K6
         cells = sum(qpad * g.n_segs * g.seg_cols * g.lanes for g in b.groups)
         nbytes = sum((0 if skip == "subject" else g.stack.numel()) + qpad * 32 + 4 * g.rows for g in b.groups)
         ops = cells * ((h + 2) / h if skip == "dp" else OPS_PER_CELL)  # dp: H max, an add and the best a column
         return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / int32_ops_per_s
 
-    say("lab", query=MAIN_QUERY, buckets=len(b.groups), launches=launched,
-        launches_cover="one timed launch a variant a bucket (an untimed K1 launch warms each bucket)",
+    sweep = [name for name, (fn, _) in variants.items() if fn in (wave_lab.sw_wave_prefetch, wave_lab.sw_wave_skip)]
+    say("lab", query=MAIN_QUERY, buckets=len(b.groups), rounds=rounds, launches=launched,
+        launches_cover=f"{rounds} rounds of one timed launch a variant a bucket (an untimed K1 launch warms each "
+                       "bucket in each round); a bucket's ms is the median of its rounds",
         k4_schedules=wave_lab_tool.k4_schedules(b.query.length),
+        sweep_shapes=wave_lab_tool.sweep_shapes(variants),
         group_rule={"narrow": f"threads < {lb.NARROW_THREADS}", "full": f"threads >= {lb.FULL_THREADS}"},
         groups={grp: sum(lb.group_of(g) == grp for g in b.groups) for grp in lb.GROUPS},
-        keep_dp_bit_equal_k1=[n for n, (_, kw) in variants.items() if lb.skip(kw) == "none"],
-        scores=int(scale_scores.shape[0]), all_equal_plain=True, ms_by_group=sums, plain_ms=plain_ms,
+        keep_dp_bit_equal_k1_every_round=[n for n, (_, kw) in variants.items() if lb.skip(kw) == "none"],
+        scores=int(scale_scores.shape[0]), all_equal_plain_every_round=True, ms_by_group=sums,
+        ratio_to_k1_band_sweep={n: {grp: sums[n][grp] / sums["K1 band sweep"][grp] for grp in (*lb.GROUPS, "all")
+                                    if sums["K1 band sweep"][grp]} for n in sweep},
+        round_ms=res["round_ms"], spread_ms=res["spread_ms"], plain_ms=plain_ms,
         bound_ms={name: max(bound(kw)) for name, (_, kw) in variants.items()},
         seconds=round(time.perf_counter() - t0, 3))
     entries = []
@@ -2182,12 +2221,14 @@ def phase_lab(db, engine):
 def phase_lab_rows(db, engine, row_engine):
     """K10 as swtpu_torch.tools.pallas_lab --swissprot runs it (counts zeroed
     just before, read just after) on P01008's row-path ladder groups of the
-    resident database: one timed launch of every instantiation a group beside
-    K2's (an untimed K2 launch warms each group), every instantiation
-    bit-equal to K2 on every group and, with the segment groups' scores,
-    through the engine's _reduce_flat to the wavefront path's scores of all
-    559,228 sequences; one pass of the plain version on the same groups; a
-    per-group table of milliseconds with each instantiation's ratio to K2."""
+    resident database: ROUNDS rounds of one timed launch of every
+    instantiation a group beside K2's (an untimed K2 launch warms each group
+    in each round), a group's time the median of its rounds; in every round
+    every instantiation bit-equal to K2 on every group and K2, with the
+    segment groups' scores, through the engine's _reduce_flat to the
+    wavefront path's scores of all 559,228 sequences; one pass of the plain
+    version on the same groups; a per-group table of milliseconds with each
+    instantiation's ratio to K2 and its spread across rounds."""
     import numpy as np
 
     from swtpu_torch.ops import rows_lab
@@ -2201,34 +2242,40 @@ def phase_lab_rows(db, engine, row_engine):
         fn.launches = 0
     res = pallas_lab.swissprot(rg)
     launched = {v: fn.launches for v, fn in rows_lab.WRAPPERS.items()}
-    want = {v: len(rg.groups) * sum(vv == v for vv, _, _ in rows_lab.INSTANCES) for v in rows_lab.WRAPPERS}
+    rounds = len(res["rounds"])
+    want = {v: rounds * len(rg.groups) * sum(vv == v for vv, _, _ in rows_lab.INSTANCES) for v in rows_lab.WRAPPERS}
     if launched != want:
-        raise AssertionError(f"pallas_lab --swissprot launched {launched}, not once an instantiation a group: {want}")
+        raise AssertionError(f"pallas_lab --swissprot launched {launched}, not once an instantiation a group "
+                             f"a round: {want}")
     if res["unequal"]:
-        raise AssertionError(f"K10 {res['unequal']} differ from K2 on P01008's row-path groups")
-    for name in ["K2", *pallas_lab.VARIANTS]:
-        full = rg.reduce(res["flats"][name])
+        raise AssertionError(f"K10 {res['unequal']} differ from K2 on P01008's row-path groups in some round")
+    for r, flats in enumerate(res["rounds"]):  # every instantiation equals K2 in the round: K2 carries the check
+        full = rg.reduce(flats["K2"])
         if not np.array_equal(full, wave_scores):
-            raise AssertionError(f"lab.rows {name}: {int((full != wave_scores).sum())} scores differ from the wavefront's")
+            raise AssertionError(f"lab.rows K2, round {r}: {int((full != wave_scores).sum())} scores differ "
+                                 "from the wavefront's")
     prof = rg.profile()
     plain_ms, plain = events_ms(lambda: [rows_lab.rows_lab_plain(prof, g.stack, gap=rg.gap) for g in rg.groups])
-    err = {name: max(int((x.long() - p.long()).abs().max()) for x, p in zip(res["flats"][name], plain))
+    err = {name: max(int((x.long() - p.long()).abs().max()) for flats in res["rounds"]
+                     for x, p in zip(flats[name], plain))
            for name in pallas_lab.VARIANTS}
     if any(err.values()):
         raise AssertionError(f"K10 differs from its plain version on P01008: {err}")
-    print("\n".join(lb.row_table(rg.groups, res["times"], "K2")), flush=True)
+    print("\n".join(lb.row_table(rg.groups, res["times"], "K2", res["spread_ms"])), flush=True)
     qpad = prof.shape[0]
     cells = qpad * sum(g.chunks * g.rows * g.width for g in rg.groups)
     bound_ms, bound_by = row_bound(cells, sum(g.stack.numel() + qpad * 32 + 4 * g.chunks * g.rows for g in rg.groups))
     sums = {name: sum(ms) for name, ms in res["times"].items()}
     carry = {name: sum(rows_lab.carry_bytes(-(-qpad // kw["strip"]), g.chunks, g.rows, g.width) for g in rg.groups)
              for name, (_, kw) in pallas_lab.VARIANTS.items()}
-    say("lab.rows", query=MAIN_QUERY, groups=len(rg.groups), launches=launched,
-        launches_cover="one timed launch an instantiation a group (an untimed K2 launch warms each group)",
+    say("lab.rows", query=MAIN_QUERY, groups=len(rg.groups), rounds=rounds, launches=launched,
+        launches_cover=f"{rounds} rounds of one timed launch an instantiation a group (an untimed K2 launch warms "
+                       "each group in each round); a group's ms is the median of its rounds",
         shapes=[(g.chunks, g.rows, g.width) for g in rg.groups], padded_cells=cells,
         k2_group_ms=res["times"]["K2"], group_ms={n: res["times"][n] for n in pallas_lab.VARIANTS},
         ms=sums, ratio_to_k2={n: sums[n] / sums["K2"] for n in pallas_lab.VARIANTS},
-        bit_equal_k2=True, scores_equal_wavefront=int(wave_scores.shape[0]), plain_ms_one_pass=plain_ms,
+        round_ms=res["round_ms"], spread_ms=res["spread_ms"], bit_equal_k2_every_round=True,
+        scores_equal_wavefront=int(wave_scores.shape[0]), plain_ms_one_pass=plain_ms,
         bound_ms_a_pass=bound_ms, bound_by=bound_by, carry_bytes=carry, seconds=round(time.perf_counter() - t0, 3))
     entries = []
     for v, line in zip(rows_lab.VARIANTS, (102, 206, 304, 389)):

@@ -8,13 +8,13 @@
 //      :211), V6: chunk c + 1's staging interleaved with chunk c's DP;
 //  K6  tools/probe_breakdown.py:199 run_variant -> _kernel (:33, pallas_call
 //      :208), K1 with one stage at a time switched off, a timing probe.
-// All take K1's input contract: a (n_bands * H, 32) int8 profile (its rows
-// past the query score PAD_SCORE, below every real cell, so they raise no
-// maximum), a (L2, B) int8 transposed bucket of n_segs chained segments of
-// seg_cols columns, and flat int32 out[lane * n_segs + seg].  The TPU knobs
-// with no Hopper meaning are not carried over: g, KPAD and the banded lhs
-// (the MXU's skew staging), Lc (VMEM chunking) and Bt (lanes are threads or
-// thread groups here).
+// All take K1's input contract: a (n_bands * H, 32) int8 profile for K4 (its
+// rows past the query score PAD_SCORE, below every real cell, so they raise
+// no maximum), K1's own (n_bands * 32, 32) profile for K5 and K6, a (L2, B)
+// int8 transposed bucket of n_segs chained segments of seg_cols columns, and
+// flat int32 out[lane * n_segs + seg].  The TPU knobs with no Hopper meaning
+// are not carried over: g, KPAD and the banded lhs (the MXU's skew staging),
+// Lc (VMEM chunking) and Bt (lanes are threads or thread groups here).
 //
 // K4: the warp wavefront of K1 (sw_wave.cu: sw_wave_kernel, its notes) with
 // K4's two knobs, so that the lab measures the shipping kernel's schedule
@@ -42,38 +42,46 @@
 //  * H (K4's W): 16, 32 or 64 rows a band: registers a thread, the skew's
 //    fill (G - 1 columns a pass) against passes (ceil(bands / G)).  BLOCK:
 //    32, 64 or 128 threads, so with the stage the warps an SM.
-// K5 and K6 keep the band sweep (sw_wave_lab_kernel<H, BLOCK, D, SKIP>):
-// a thread owns a (lane, segment), holds H query rows in registers, sweeps
-// its columns and hands each band's bottom row to the next through a global
-// carry.
+// K5 and K6 run K1's linear band sweep, sw_band_kernel<false, false, 64>
+// (sw_wave.cu), as sw_band_lab_kernel<64, D, SKIP>: its linear branch copied
+// with everything it does -- H = 64, BAND_BLOCK = 64 threads, a thread a
+// (lane, segment) holding H query rows in registers, the band staged in
+// dynamic shared memory by char4 loads (Stage<64>, 8,720 bytes), K1's
+// 32-row-band profile with nb = ceil(rows / 64) sweep bands and the 32-row
+// tail of an odd band count staged as NEG_S, the opaque carry pointer, the
+// residue and top loaded one column ahead -- so that D = 1 with SKIP = NONE
+// is that sweep, and the lab's knobs sit on top of it:
 //  * D (K5): subject residues and carry tops load D columns ahead into a
 //    register ring, 1, 2, 4 or 8; the column loop is unrolled by D so the
-//    ring's indices are constants.  D = 1 is the sweep's own schedule.  The
+//    ring's indices are constants.  D = 1 is K1's own one column ahead.  The
 //    TPU's chunk c + 1 under chunk c is the same idea: loads in flight under
 //    the DP.
 //  * SKIP (K6): one stage dropped, with an exactly defined result, so every
 //    variant is checked as well as timed (the TPU probe's outputs were
-//    garbage by design):
+//    garbage by design).  Bands are the sweep's: rows [64b, 64b + 64) of the
+//    profile, the last one 32 rows where the 32-row band count is odd.
 //      NONE     K1's function: the SW maximum of each (lane, segment).
 //      SUBJECT  no subject loads: column c (of the bucket, seg * seg_cols + j)
 //               of lane `lane` holds residue (lane + c) & 31; otherwise NONE.
 //      CARRY    no carry reads or writes: every band starts from a zero top,
 //               so the result is the largest band-local SW maximum,
-//               max over bands b of SW(profile rows [bH, bH + H), segment).
-//      DP       no cell DP: column j of band b folds its H profile scores to
+//               max over bands b of SW(band b's rows, segment).  A tail's
+//               NEG_S rows raise no maximum (K1's argument, gap >= 0).
+//      DP       no cell DP: column j of band b folds its staged scores to
 //               m = their maximum and computes v = top + m, where top is the
 //               carry (v of band b - 1 at column j, 0 for band 0); v is the
-//               band's bottom, and the result is max(0, every v).
+//               band's bottom, and the result is max(0, every v).  NEG_S rows
+//               never give m: every band holds at least 32 real rows.
 // K4 at every (H, BLOCK), K5 at every D and K6 at NONE compute K1's scores.
 //
 // What bounds it: int32 operations, 6 a padded cell (sw_wave.cu's count) over
-// the card's int32 rate, as K1; SKIP = DP does H + 2 a column (H max, an add,
-// the running best), its bound the larger of those and its bytes (subjects,
-// profile and scores once).  PERF.md's questions: on which buckets the
-// wavefront loses to K1's band sweep and whether more warps an SM or a
-// smaller stage helps (K4); is a narrow bucket's sweep bound by load latency
-// (K6: SUBJECT and CARRY against NONE), and does loading D columns ahead cut
-// it (K5).
+// the card's int32 rate, as K1; SKIP = DP does H + 2 a column of H = 64 rows
+// (H max, an add, the running best), its bound the larger of those and its
+// bytes (subjects, profile and scores once).  PERF.md's questions: on which
+// buckets the wavefront loses to K1's band sweep and whether more warps an
+// SM or a smaller stage helps (K4); how much of the sweep K1 ships is its
+// carry through memory, its subject loads and its DP (K6: each against
+// NONE), and does loading D columns ahead cut it (K5).
 
 #include <atomic>
 #include <cstdint>
@@ -81,8 +89,11 @@
 
 namespace {
 
-constexpr int A = 32;      // profile columns (padded alphabet)
-constexpr int MAX_G = 16;  // bands a pass of the wavefront
+constexpr int A = 32;             // profile columns (padded alphabet)
+constexpr int MAX_G = 16;         // bands a pass of the wavefront
+constexpr int SWEEP_H = 64;       // rows a band of K1's linear band sweep (wave_sw.BAND_H[False])
+constexpr int BAND_BLOCK = 64;    // threads a block of the band sweep (sw_wave.cu)
+constexpr int NEG_S = -(1 << 28);  // the score of a profile row past the query's end (sw_wave.cu)
 enum Skip { NONE = 0, SUBJECT = 1, CARRY = 2, DP = 3 };
 
 // K1's shared layout of one band: [residue][row] int32, rows padded to
@@ -218,65 +229,86 @@ sw_wave_band_kernel(const int8_t* __restrict__ profile,  // (n_bands * H, A)
   }
 }
 
-// K5 and K6: the band sweep, a thread a (lane, segment).
-template <int H, int BLOCK, int D, int SKIP>
-__global__ void __launch_bounds__(BLOCK)
-sw_wave_lab_kernel(const int8_t* __restrict__ profile,  // (n_bands * H, A)
+// K5 and K6: K1's linear band sweep (sw_wave.cu: sw_band_kernel<false, false,
+// H>, its linear branch copied, not shared) with D and SKIP on top.  A thread
+// a (lane, segment) walks nb = ceil(rows / H) bands of H rows, each band's
+// bottom row handed to the next through the global carry; rows past the
+// query (a 32-row tail band of an odd band count) are staged as NEG_S and
+// the tail's bottom is its row 31, as in K1.
+template <int H, int D, int SKIP>
+__global__ void __launch_bounds__(BAND_BLOCK)
+sw_band_lab_kernel(const int8_t* __restrict__ profile,  // (n_bands * 32, A): K1's profile
                    const int8_t* __restrict__ subjT,    // (L2, B)
-                   int32_t* __restrict__ carry,         // (n_segs * seg_cols, B); unused if n_bands == 1 or CARRY
+                   int32_t* __restrict__ carry,         // (n_segs * seg_cols, B); unused for one band or CARRY
                    int32_t* __restrict__ out,           // (B * n_segs)
                    int n_bands, int B, int n_segs, int seg_cols, int gap) {
-  static_assert(H % 4 == 0 && D >= 1, "a band is read as int4 score quads");
-  constexpr int STRIDE = H + 4;  // shared row stride in int32: 16-byte aligned, spreads banks
-  __shared__ __align__(16) int32_t sprof[A * STRIDE];
-  const long long t = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
+  static_assert(H % 32 == 0 && D >= 1, "bands of whole 32-row profile bands");
+  using S = Stage<H>;
+  extern __shared__ int4 smem[];
+  int32_t* sprof = reinterpret_cast<int32_t*>(smem);
+  const int rows = n_bands * 32;
+  const int nb = (rows + H - 1) / H;
+  const long long t = static_cast<long long>(blockIdx.x) * BAND_BLOCK + threadIdx.x;
   const bool active = t < static_cast<long long>(B) * n_segs;
   const int seg = active ? static_cast<int>(t / B) : 0;
   const int lane = active ? static_cast<int>(t - static_cast<long long>(seg) * B) : 0;
   const size_t base = static_cast<size_t>(seg) * seg_cols * B + lane;
   const int8_t* col = subjT + base;
   const int first = lane + seg * seg_cols;  // SUBJECT: residue of column j is (first + j) & 31
-  // The opaque copy of sw_wave.cu, so both sweeps address the carry alike.
   unsigned long long cc_addr = reinterpret_cast<unsigned long long>(carry + base);
   asm volatile("mov.b64 %0, %0;" : "+l"(cc_addr));
   int32_t* cc = reinterpret_cast<int32_t*>(cc_addr);
   auto residue = [&](int j) -> int {
     if constexpr (SKIP == SUBJECT) return (first + j) & (A - 1);
-    return col[static_cast<size_t>(j) * B] & (A - 1);
+    else return col[static_cast<size_t>(j) * B] & (A - 1);
   };
   int best = 0;
 
-  for (int band = 0; band < n_bands; ++band) {
+  for (int band = 0; band < nb; ++band) {
     __syncthreads();  // every reader of the previous band's rows is done
-    for (int k = threadIdx.x; k < H * A; k += BLOCK) {
-      const int r = k / A, a = k % A;
-      sprof[a * STRIDE + r] = profile[static_cast<size_t>(band * H + r) * A + a];
+    for (int k = threadIdx.x; k < H * (A / 4); k += BAND_BLOCK) {
+      const int r = k / (A / 4), a = (k % (A / 4)) * 4;
+      const int grow = band * H + r;
+      int32_t* dst = sprof + a * S::STRIDE + r;
+      if (grow < rows) {
+        const char4 v = *reinterpret_cast<const char4*>(profile + static_cast<size_t>(grow) * A + a);
+        dst[0] = v.x;
+        dst[S::STRIDE] = v.y;
+        dst[2 * S::STRIDE] = v.z;
+        dst[3 * S::STRIDE] = v.w;
+      } else {
+        dst[0] = dst[S::STRIDE] = dst[2 * S::STRIDE] = dst[3 * S::STRIDE] = NEG_S;
+      }
     }
     __syncthreads();
     if (!active) continue;  // idle threads still reach both barriers
     const bool has_top = SKIP != CARRY && band > 0;
-    const bool put_bottom = SKIP != CARRY && band + 1 < n_bands;
+    const bool put_bottom = SKIP != CARRY && band + 1 < nb;
+    const bool tail = H > 32 && rows - band * H < H;
     int h[H];
 #pragma unroll
     for (int r = 0; r < H; ++r) h[r] = 0;
     int top_prev = 0;
     // The ring: column j's residue and top sit in slot j % D, loaded at
-    // column j - D (the first D before the sweep).
+    // column j - D (the first D before the sweep; at D = 1 K1's one column
+    // ahead, its slot 0 loaded unconditionally as K1 loads column 0).
     int a_ring[D], top_ring[D];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      a_ring[k] = k < seg_cols ? residue(k) : 0;
-      top_ring[k] = has_top && k < seg_cols ? cc[static_cast<size_t>(k) * B] : 0;
+      const bool in = k == 0 || k < seg_cols;
+      a_ring[k] = in ? residue(k) : 0;
+      top_ring[k] = has_top && in ? cc[static_cast<size_t>(k) * B] : 0;
     }
     // Column j from ring slot k, which then takes column j + D.
     auto column = [&](int j, int k) {
       const int a = a_ring[k], top = top_ring[k];
       if (j + D < seg_cols) {
-        a_ring[k] = residue(j + D);
-        if (has_top) top_ring[k] = cc[static_cast<size_t>(j + D) * B];
+        const size_t nxt = static_cast<size_t>(j + D) * B;
+        if constexpr (SKIP == SUBJECT) a_ring[k] = residue(j + D);
+        else a_ring[k] = col[nxt] & (A - 1);
+        if (has_top) top_ring[k] = cc[nxt];
       }
-      const int4* s4 = reinterpret_cast<const int4*>(sprof + a * STRIDE);
-      int bottom;
+      const int4* s4 = reinterpret_cast<const int4*>(sprof + a * S::STRIDE);
       if constexpr (SKIP == DP) {
         int m = s4[0].x;
 #pragma unroll
@@ -284,8 +316,9 @@ sw_wave_lab_kernel(const int8_t* __restrict__ profile,  // (n_bands * H, A)
           const int4 s = s4[q];
           m = max(max(m, s.x), max(max(s.y, s.z), s.w));
         }
-        bottom = top + m;
-        best = max(best, bottom);
+        const int v = top + m;  // NEG_S rows never win: every band holds 32 real rows
+        best = max(best, v);
+        if (put_bottom) cc[static_cast<size_t>(j) * B] = v;
       } else {
         int diag = top_prev, up = top;
 #pragma unroll
@@ -296,10 +329,9 @@ sw_wave_lab_kernel(const int8_t* __restrict__ profile,  // (n_bands * H, A)
           cell(h[4 * q + 2], s.z, diag, up, best, gap);
           cell(h[4 * q + 3], s.w, diag, up, best, gap);
         }
-        bottom = h[H - 1];
+        if (put_bottom) cc[static_cast<size_t>(j) * B] = tail ? h[31] : h[H - 1];
         top_prev = top;
       }
-      if (put_bottom) cc[static_cast<size_t>(j) * B] = bottom;
     };
     if constexpr (D == 1) {
       for (int j = 0; j < seg_cols; ++j) column(j, 0);
@@ -329,14 +361,22 @@ struct Sweep {
   Kernel kernel;
 };
 
-// K5: every D at K1's H = 32 and the sweep's BLOCK = 64; K6: every SKIP at D = 1.
-// (1, NONE) serves both.
+// K5: every D; K6: every SKIP at D = 1; (1, NONE) serves both.  All at K1's
+// linear sweep height and block.
+#define SWEEP(D, SKIP) {D, SKIP, sw_band_lab_kernel<SWEEP_H, D, SKIP>}
 const Sweep SWEEPS[] = {
-    {1, NONE, sw_wave_lab_kernel<32, 64, 1, NONE>},       {2, NONE, sw_wave_lab_kernel<32, 64, 2, NONE>},
-    {4, NONE, sw_wave_lab_kernel<32, 64, 4, NONE>},       {8, NONE, sw_wave_lab_kernel<32, 64, 8, NONE>},
-    {1, SUBJECT, sw_wave_lab_kernel<32, 64, 1, SUBJECT>}, {1, CARRY, sw_wave_lab_kernel<32, 64, 1, CARRY>},
-    {1, DP, sw_wave_lab_kernel<32, 64, 1, DP>},
+    SWEEP(1, NONE), SWEEP(2, NONE), SWEEP(4, NONE), SWEEP(8, NONE), SWEEP(1, SUBJECT), SWEEP(1, CARRY), SWEEP(1, DP),
 };
+#undef SWEEP
+constexpr int SWEEP_STAGE = Stage<SWEEP_H>::bytes(1);  // one band of dynamic shared memory, 8,720 bytes
+
+// The kernel of the sweep's (depth, skip), or nullptr.
+Kernel sweep_kernel(int depth, int skip) {
+  for (const Sweep& v : SWEEPS) {
+    if (v.depth == depth && v.skip == skip) return v.kernel;
+  }
+  return nullptr;
+}
 
 struct Wave {
   int height, block, stage_max;
@@ -401,8 +441,8 @@ extern "C" {
 // Launch a variant on `stream` of `device`; return cudaGetLastError() (0 =
 // launched), or cudaErrorInvalidValue for a variant that is not compiled.
 // g > 0: K4's wavefront at (height, block) with g bands a pass (depth 1,
-// skip NONE); g = 0: the band sweep at (height, block) = (32, 64) with the
-// (depth, skip) of K5 or K6.
+// skip NONE); g = 0: K1's band sweep at (height, block) = (64, 64) with the
+// (depth, skip) of K5 or K6, n_bands counting K1's 32-row bands.
 int sw_wave_lab_launch(const void* profile, const void* subjT, void* carry, void* out, int n_bands, int B,
                        int n_segs, int seg_cols, int gap, int height, int block, int depth, int skip, int g,
                        int device, void* stream) {
@@ -416,27 +456,31 @@ int sw_wave_lab_launch(const void* profile, const void* subjT, void* carry, void
     return static_cast<int>(launch_wave(k, device, s, profile, subjT, carry, out, n_bands, B, n_segs, seg_cols, gap,
                                         g));
   }
-  if (height != 32 || block != 64) return static_cast<int>(cudaErrorInvalidValue);
-  for (const Sweep& v : SWEEPS) {
-    if (v.depth != depth || v.skip != skip) continue;
-    const long long threads = static_cast<long long>(B) * n_segs;
-    const unsigned grid = static_cast<unsigned>((threads + block - 1) / block);
-    v.kernel<<<grid, block, 0, s>>>(static_cast<const int8_t*>(profile), static_cast<const int8_t*>(subjT),
-                                     static_cast<int32_t*>(carry), static_cast<int32_t*>(out), n_bands, B, n_segs,
-                                     seg_cols, gap);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel kernel = sweep_kernel(depth, skip);
+  if (height != SWEEP_H || block != BAND_BLOCK || kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = static_cast<long long>(B) * n_segs;
+  const unsigned grid = static_cast<unsigned>((threads + BAND_BLOCK - 1) / BAND_BLOCK);
+  kernel<<<grid, BAND_BLOCK, SWEEP_STAGE, s>>>(static_cast<const int8_t*>(profile), static_cast<const int8_t*>(subjT),
+                                               static_cast<int32_t*>(carry), static_cast<int32_t*>(out), n_bands, B,
+                                               n_segs, seg_cols, gap);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks an SM of K4's (height, block) wavefront with g bands a pass, at
-// its stage of g bands (the runtime's occupancy for its registers, threads
-// and shared memory) into *blocks.
-int sw_wave_lab_blocks_per_sm(int height, int block, int g, int device, int* blocks) {
+// Blocks an SM (the runtime's occupancy for its registers, threads and
+// shared memory) into *blocks: for g > 0, of K4's (height, block) wavefront
+// with g bands a pass at its stage of g bands (depth 1, skip NONE); for
+// g = 0, of the band sweep's (depth, skip) at (height, block) = (64, 64).
+int sw_wave_lab_blocks_per_sm(int height, int block, int depth, int skip, int g, int device, int* blocks) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (g == 0) {
+    const Kernel kernel = sweep_kernel(depth, skip);
+    if (height != SWEEP_H || block != BAND_BLOCK || kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, BAND_BLOCK, SWEEP_STAGE));
+  }
   const int k = wave_index(height, block);
-  if (k < 0 || g < 1 || g > MAX_G || (g & (g - 1))) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 0 || g < 1 || g > MAX_G || (g & (g - 1)) || depth != 1 || skip != NONE)
+    return static_cast<int>(cudaErrorInvalidValue);
   err = allow_stage(k, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(

@@ -7,6 +7,10 @@ card, as ``wave_ab.py`` takes them: 27 buckets for P01008.  A bucket is
 "mid" between: at this scale that is PERF.md's 5 narrow, 11 mid and 11 full
 buckets, the full ones 71% of the cells.  ``main`` is the wavefront lab
 tools' run (``wave_lab``, ``probe_breakdown``): each names its variants.
+K4 takes the profile padded to its band height; K1, K5 and K6 take K1's
+own 32-row-band profile, K5 and K6 sweeping it in bands of
+``wave_lab.SWEEP_HEIGHT``.  ``run`` times every variant in ``ROUNDS``
+rounds; a bucket's time is the median of its rounds.
 
 The row path's groups (``swissprot_rows``) are the ladder groups of the
 engine's row-path pack (``use_wave=False``): 13 (chunks, rows, width) stacks
@@ -18,6 +22,7 @@ way, K2 first (``pallas_lab``).
 from __future__ import annotations
 
 import dataclasses
+import statistics
 import sys
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -39,6 +44,7 @@ N_SEQS = 559_228
 QUERY = "P01008"
 NARROW_THREADS, FULL_THREADS = 1024, 20_000
 GROUPS = ("narrow", "mid", "full")
+ROUNDS = 3  # timed rounds of every variant on every bucket: a bucket's time is their median
 
 
 @dataclasses.dataclass
@@ -86,8 +92,15 @@ Variants = Dict[str, Tuple[Callable[..., torch.Tensor], dict]]  # name: (ops/wav
 
 
 def height(kw: dict) -> int:
-    """A variant's band height: its ``height`` keyword, else K1's."""
-    return kw.get("height", wave_lab.K1_HEIGHT)
+    """A variant's band height, as its plain version takes it: K4's
+    ``height`` keyword, else K1's band sweep's (K5, K6)."""
+    return kw.get("height", wave_lab.SWEEP_HEIGHT)
+
+
+def pad(kw: dict) -> int:
+    """The multiple a variant's profile rows are padded to: K4's height,
+    else K1's 32-row bands (K1 and its forced schedules, K5, K6)."""
+    return kw.get("height", wave_sw.W)
 
 
 def skip(kw: dict) -> str:
@@ -97,31 +110,48 @@ def skip(kw: dict) -> str:
 
 def launches(b: Buckets, variants: Variants) -> Dict[str, Callable[[WaveGroup], torch.Tensor]]:
     """K1, then every variant, each a launch on one bucket (a variant's
-    profile padded to its height)."""
+    profile padded as ``pad`` says)."""
     prof = {h: b.profile(h) for h in wave_lab.HEIGHTS}
     out = {"K1": lambda g: wave_sw.sw_wave(prof[wave_sw.W], g.stack, gap=b.gap, n_segs=g.n_segs)}
     for name, (fn, kw) in variants.items():
-        out[name] = lambda g, fn=fn, kw=kw: fn(prof[height(kw)], g.stack, gap=b.gap, n_segs=g.n_segs, **kw)
+        out[name] = lambda g, fn=fn, kw=kw: fn(prof[pad(kw)], g.stack, gap=b.gap, n_segs=g.n_segs, **kw)
     return out
 
 
-def run(groups: Sequence, launches: Dict[str, Callable]) -> Dict[str, Dict]:
-    """{"flats": {name: one score array a bucket}, "times": {name: ms a
-    bucket}}: bucket by bucket, an untimed launch of the first name (the
-    production kernel, K1 or K2) brings the bucket into L2, then every named
-    launch runs once in turns, timed with CUDA events, so the variants of a
-    bucket are timed at nearly the same moment.  The scores kept are the
-    timed launches': a variant launches once a bucket."""
-    flats: Dict[str, List[torch.Tensor]] = {name: [] for name in launches}
-    times: Dict[str, List[float]] = {name: [] for name in launches}
-    warm = next(iter(launches.values()))
-    for g in groups:
-        warm(g)
-        for name, launch in launches.items():
-            ms, out = events_ms(lambda: launch(g))
-            flats[name].append(out)
-            times[name].append(ms)
-    return {"flats": flats, "times": times}
+def run(groups: Sequence, launches: Dict[str, Callable]) -> Dict:
+    """Every named launch on every bucket in ``ROUNDS`` rounds.  In a round,
+    bucket by bucket, an untimed launch of the first name (the production
+    kernel, K1 or K2) brings the bucket into L2, then every named launch
+    runs once in turns, timed with CUDA events, so the variants of a bucket
+    are timed at nearly the same moment; a variant launches ``ROUNDS`` times
+    a bucket.  Returns {"rounds": [{name: one score array a bucket}] a
+    round, "times": {name: the median ms of a bucket's rounds, a bucket},
+    "round_ms": {name: [ms of all buckets] a round}, "spread_ms": {name: the
+    largest round sum minus the smallest}}: a host stall inside one event
+    pair shows as spread, not as a time."""
+    names = list(launches)
+    warm = launches[names[0]]
+    per_round: List[Dict[str, List[torch.Tensor]]] = []
+    ms: Dict[str, List[List[float]]] = {name: [[] for _ in groups] for name in names}  # [bucket][round]
+    for _ in range(ROUNDS):
+        flats: Dict[str, List[torch.Tensor]] = {name: [] for name in names}
+        for k, g in enumerate(groups):
+            warm(g)
+            for name, launch in launches.items():
+                t, out = events_ms(lambda: launch(g))
+                flats[name].append(out)
+                ms[name][k].append(t)
+        per_round.append(flats)
+    round_ms = {name: [sum(b[r] for b in ms[name]) for r in range(ROUNDS)] for name in names}
+    return {"rounds": per_round, "times": {name: [statistics.median(b) for b in ms[name]] for name in names},
+            "round_ms": round_ms, "spread_ms": {name: max(v) - min(v) for name, v in round_ms.items()}}
+
+
+def unequal_rounds(res: Dict, names: Sequence[str], base: str) -> List[str]:
+    """The ``names`` whose scores differ from ``base``'s, bit for bit, in
+    any round of ``run``'s result ``res``."""
+    return [n for n in names
+            if not all(torch.equal(a, b) for rnd in res["rounds"] for a, b in zip(rnd[n], rnd[base]))]
 
 
 def main(tool: str, variants: Variants) -> int:
@@ -137,18 +167,21 @@ def main(tool: str, variants: Variants) -> int:
     for launch in fns.values():  # load every kernel before anything is timed
         launch(small)
     res = run(b.groups, fns)
-    k1 = torch.cat(res["flats"]["K1"])
     keep_dp = [name for name, (_, kw) in variants.items() if skip(kw) == "none"]
-    unequal = [name for name in keep_dp if not torch.equal(torch.cat(res["flats"][name]), k1)]
-    print(f"device: {card()}; {b.query.name} ({b.query.length} aa), {len(b.groups)} buckets")
-    print("\n".join(table(b.groups, res["times"], "K1")))
-    print(f"bit-equal to K1 ({', '.join(keep_dp)}): {not unequal}" + (f" (not: {unequal})" if unequal else ""))
+    unequal = unequal_rounds(res, keep_dp, "K1")
+    print(f"device: {card()}; {b.query.name} ({b.query.length} aa), {len(b.groups)} buckets, "
+          f"medians of {len(res['rounds'])} rounds")
+    print("\n".join(table(b.groups, res["times"], "K1", res["spread_ms"])))
+    print(f"bit-equal to K1 in every round ({', '.join(keep_dp)}): {not unequal}"
+          + (f" (not: {unequal})" if unequal else ""))
     return 0 if not unequal else 1
 
 
-def table(groups: Sequence[WaveGroup], times: Dict[str, List[float]], base: str) -> List[str]:
+def table(groups: Sequence[WaveGroup], times: Dict[str, List[float]], base: str,
+          spread: Dict[str, float]) -> List[str]:
     """Lines of a per-bucket table of ``times`` (ms, and each variant over
-    ``base``'s ms), then the narrow, mid and full sums and the whole search."""
+    ``base``'s ms), then the narrow, mid and full sums and the whole search,
+    and each variant's ``spread`` across rounds (ms)."""
     names = list(times)
     lines = ["bucket  width  segs  lanes  threads  group   " + "  ".join(f"{n:>12}" for n in names)]
     for k, g in enumerate(groups):
@@ -162,6 +195,7 @@ def table(groups: Sequence[WaveGroup], times: Dict[str, List[float]], base: str)
                          + "  ".join(f"{sums[n][grp]:12.4f}" for n in names))
             lines.append(f"{grp:>6s} / {base:<21s}  "
                          + "  ".join(f"{sums[n][grp] / sums[base][grp]:12.3f}" for n in names))
+    lines.append(f"{'spread (ms, rounds)':<30s}  " + "  ".join(f"{spread[n]:12.4f}" for n in names))
     return lines
 
 
@@ -215,9 +249,11 @@ def swissprot_rows(db: Optional[Database] = None, engine: Optional[SearchEngine]
                      packed=engine._resident_packed(db))
 
 
-def row_table(groups: Sequence[PackedGroup], times: Dict[str, List[float]], base: str) -> List[str]:
+def row_table(groups: Sequence[PackedGroup], times: Dict[str, List[float]], base: str,
+              spread: Dict[str, float]) -> List[str]:
     """Lines of a per-group table of ``times`` (ms), then the whole pass's
-    ms and each variant's ratio to ``base``, group by group and in all."""
+    ms and each variant's ratio to ``base``, group by group and in all, and
+    each variant's ``spread`` across rounds (ms)."""
     names = list(times)
     lines = ["group  chunks   rows  width  " + "  ".join(f"{n:>12}" for n in names)
              + "  " + "  ".join(f"{n + '/' + base:>14}" for n in names if n != base)]
@@ -228,4 +264,5 @@ def row_table(groups: Sequence[PackedGroup], times: Dict[str, List[float]], base
     sums = {n: sum(ms) for n, ms in times.items()}
     lines.append(f"  all ({len(groups):2d} groups)      " + "  ".join(f"{sums[n]:12.4f}" for n in names) + "  "
                  + "  ".join(f"{sums[n] / sums[base]:14.3f}" for n in names if n != base))
+    lines.append(f"{'spread (ms, rounds)':<23s}" + "  ".join(f"{spread[n]:12.4f}" for n in names))
     return lines

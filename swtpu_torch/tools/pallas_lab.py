@@ -14,10 +14,11 @@ and power limit:
   instantiation, v4 included (the JAX tool never calls it): ms, padded
   GCUPS, and every mismatch against the plain scores;
 * ``--swissprot``: P01008's 13 row-path ladder groups of the SwissProt-shaped
-  database (``buckets.swissprot_rows``), group by group an untimed K2 launch
-  then one timed launch of K2 and of each instantiation (``buckets.run``):
-  a table of ms a group with each variant's ratio to K2, and whether every
-  variant gives K2's scores bit for bit.
+  database (``buckets.swissprot_rows``), in ``buckets.ROUNDS`` rounds group
+  by group an untimed K2 launch then one timed launch of K2 and of each
+  instantiation (``buckets.run``): a table of the median ms a group with
+  each variant's ratio to K2 and its spread across rounds, and whether
+  every variant gives K2's scores bit for bit in every round.
 
 Exits 1 without a CUDA device, or on a mismatch.
 
@@ -59,12 +60,11 @@ def launches(rg: buckets.RowGroups) -> Dict[str, Callable[[PackedGroup], torch.T
 
 
 def swissprot(rg: buckets.RowGroups) -> Dict[str, Dict]:
-    """The ``--swissprot`` run on ``rg``'s groups: ``buckets.run``'s flats
-    and times, K2 the base, and "unequal": the variants whose scores are not
-    K2's bit for bit."""
+    """The ``--swissprot`` run on ``rg``'s groups: ``buckets.run``'s result,
+    K2 the base, and "unequal": the variants whose scores are not K2's bit
+    for bit in some round."""
     res = buckets.run(rg.groups, launches(rg))
-    k2 = res["flats"]["K2"]
-    res["unequal"] = [n for n in VARIANTS if not all(torch.equal(a, b) for a, b in zip(res["flats"][n], k2))]
+    res["unequal"] = buckets.unequal_rounds(res, list(VARIANTS), "K2")
     return res
 
 
@@ -121,9 +121,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         for launch in launches(rg).values():  # load every kernel before anything is timed
             launch(small)
         res = swissprot(rg)
-        print(f"{rg.query.name} ({rg.query.length} aa), {len(rg.groups)} row-path ladder groups")
-        print("\n".join(buckets.row_table(rg.groups, res["times"], "K2")))
-        print(f"bit-equal to K2 ({len(VARIANTS)} instantiations): {not res['unequal']}"
+        print(f"{rg.query.name} ({rg.query.length} aa), {len(rg.groups)} row-path ladder groups, "
+              f"medians of {len(res['rounds'])} rounds")
+        print("\n".join(buckets.row_table(rg.groups, res["times"], "K2", res["spread_ms"])))
+        print(f"bit-equal to K2 in every round ({len(VARIANTS)} instantiations): {not res['unequal']}"
               + (f" (not: {res['unequal']})" if res["unequal"] else ""))
         return 0 if not res["unequal"] else 1
     B, L, Q = (int(a) for a in (args + ["4096", "512", "512"][len(args):])[:3])

@@ -1,18 +1,20 @@
-"""K4 and K5 on the card: the wavefront sweep's band height, block size and prefetch depth.
+"""K4 and K5 on the card: the wavefront's band height and block size, the band sweep's prefetch depth.
 
 The counterpart of ``tools/pallas_wave.py`` (K4, the V5 wavefront and its
 knobs) and ``tools/pallas_wave2.py`` (K5, staging pipelined under the DP),
-on the port's kernels: ``swtpu_torch.ops.wave_lab.sw_wave_band`` at every
-(height, block) and ``sw_wave_prefetch`` at every depth, beside K1
-(``wave_sw.sw_wave``), on P01008's 27 buckets of the SwissProt-shaped
-database, timed bucket by bucket in turns with CUDA events
-(``buckets.main``), and beside K1 (its own choice of schedule a bucket)
-K1 forced to its warp wavefront and to its band sweep on every bucket.
-Prints a table of milliseconds a bucket with each variant's ratio to K1 for
-the narrow, mid and full buckets, whether every variant gives K1's scores
-bit for bit, and each K4 variant's schedule for the query (bands a pass,
-passes, shared stage, blocks and warps an SM).  Exits 1 without a CUDA
-device.
+on the port's kernels: ``swtpu_torch.ops.wave_lab.sw_wave_band`` (K1's warp
+wavefront) at every (height, block) and ``sw_wave_prefetch`` at every
+depth, which runs K1's linear band sweep at H = 64 rows a band on K1's own
+32-row-band profile, beside K1 (``wave_sw.sw_wave``), on P01008's 27
+buckets of the SwissProt-shaped database, timed bucket by bucket in turns
+with CUDA events in 3 rounds, a bucket's time the median of its rounds
+(``buckets.main``), and beside K1 (its own choice of schedule a bucket) K1
+forced to its warp wavefront and to its band sweep on every bucket.  Prints
+a table of milliseconds a bucket with each variant's ratio to K1 for the
+narrow, mid and full buckets and its spread across rounds, whether every
+variant gives K1's scores bit for bit in every round, each K4 variant's
+schedule for the query (bands a pass, passes, shared stage, blocks and
+warps an SM) and each K5 variant's shape.  Exits 1 without a CUDA device.
 
 Run: ``python -m swtpu_torch.tools.wave_lab``
 """
@@ -57,11 +59,27 @@ def k4_schedules(n_rows: int, device="cuda") -> Dict[str, dict]:
     return out
 
 
+def sweep_shapes(variants: buckets.Variants, device="cuda") -> Dict[str, dict]:
+    """Each K5 or K6 variant of ``variants``: K1's band sweep's height and
+    block, its shared stage, and blocks and warps an SM by the runtime's
+    occupancy calculator on ``device``."""
+    out = {}
+    for name, (fn, kw) in variants.items():
+        if fn not in (wave_lab.sw_wave_prefetch, wave_lab.sw_wave_skip):
+            continue
+        per_sm = wave_lab.blocks_per_sm(wave_lab.SWEEP_HEIGHT, wave_lab.K1_BLOCK, 0, device,
+                                        depth=kw.get("depth", 1), skip=kw.get("skip", "none"))
+        out[name] = dict(height=wave_lab.SWEEP_HEIGHT, block=wave_lab.K1_BLOCK,
+                         stage_bytes=wave_lab.SWEEP_STAGE_BYTES, blocks_per_sm=per_sm,
+                         warps_per_sm=per_sm * wave_lab.K1_BLOCK // 32)
+    return out
+
+
 def main() -> int:
     n_rows = buckets.swissprot_query().length
     code = buckets.main("wave_lab", {**k1_schedules(n_rows), **VARIANTS})
     if code == 0:
-        for name, sched in k4_schedules(n_rows).items():
+        for name, sched in {**k4_schedules(n_rows), **sweep_shapes(VARIANTS)}.items():
             print(f"{name}: {sched}")
     return code
 

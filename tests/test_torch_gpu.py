@@ -15,8 +15,9 @@ by rung, carry and scores, and the composed engine to the fused one.  The
 int8 kernels of K7 (coarse counts, the MAC-rate probe) and K8's chain are
 held to their plain versions, and the prefiltered engine on the card to the
 one on the CPU.  The wavefront lab kernels (K4's heights and blocks, K5's
-prefetch depths, K6's stage switches) and K9's int16 tiles and chains are
-held to their plain versions, and the lab variants that keep the DP to K1.
+prefetch depths, K6's stage switches, both on K1's band sweep) and K9's
+int16 tiles and chains are held to their plain versions, the lab variants
+that keep the DP to K1, and K5's copy of K1's sweep to K1's registers.
 Every instantiation of the row-parallel lab kernel (K10: v2, v3, v4, v41) is
 held to its plain version and to K2, at gap 2 and at a gap past JAX's int8
 fold.  Every function of the card fuzz (``swtpu_torch.tools.card_fuzz``)
@@ -32,6 +33,8 @@ shapes of a 3- and 4-way split; and a 2-process gloo fleet of the launcher,
 both processes on the one card, prints the single-device top-K.
 """
 
+import re
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -43,7 +46,7 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import Query, parse_database, parse_query
 from swtpu_torch.matrices import blosum50_ref
 from swtpu_torch.models.search import SearchEngine, SearchResult
-from swtpu_torch.ops import bucket_sw, i16_probe, int8_mma, row_sw, rows_lab, vpu_chain, wave_lab, wave_sw
+from swtpu_torch.ops import _build, bucket_sw, i16_probe, int8_mma, row_sw, rows_lab, vpu_chain, wave_lab, wave_sw
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -457,9 +460,13 @@ def test_prefiltered_engine_on_card_matches_cpu(cuda, evalue):
 @pytest.mark.parametrize(
     "qlen,ws,S,B",
     [(20, 32, 1, 64), (33, 48, 2, 77), (100, 96, 3, 130), (1000, 160, 4, 515), (464, 4100, 1, 129),
-     (300, 40, 3, 129), (1100, 24, 2, 65), (4548, 16, 1, 33)],
+     (300, 40, 3, 129), (1100, 24, 2, 65), (4548, 16, 1, 33), (464, 7, 5, 97)],
 )
 def test_wave_lab_kernels_match_plain(cuda, qlen, ws, S, B):
+    """K4 at every height and block on the profile padded to its height; K5
+    and K6 (K1's band sweep at H = 64) on K1's unpadded profile, odd band
+    counts ending in a 32-row tail, and 7-column segments that run only the
+    D ring's remainder."""
     prof, stack = _bucket(np.random.default_rng(qlen * 3 + S), qlen, ws, S, B)
     stack = stack.to(cuda)
     k1 = wave_sw.sw_wave(prof.to(cuda), stack, gap=2, n_segs=S)
@@ -474,7 +481,8 @@ def test_wave_lab_kernels_match_plain(cuda, qlen, ws, S, B):
             torch.cuda.synchronize()
             assert wave_lab.sw_wave_band.launches == before + 1
             assert torch.equal(got, want), (h, blk, sched)
-    p = prof.to(cuda)
+    p, h = prof.to(cuda), wave_lab.SWEEP_HEIGHT
+    assert torch.equal(wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=S, height=h), k1)
     for d in wave_lab.DEPTHS:
         before = wave_lab.sw_wave_prefetch.launches
         assert torch.equal(wave_lab.sw_wave_prefetch(p, stack, gap=2, n_segs=S, depth=d), k1), d
@@ -484,7 +492,29 @@ def test_wave_lab_kernels_match_plain(cuda, qlen, ws, S, B):
         got = wave_lab.sw_wave_skip(p, stack, gap=2, n_segs=S, skip=skip)
         torch.cuda.synchronize()
         assert wave_lab.sw_wave_skip.launches == before + 1
-        assert torch.equal(got, wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=S, skip=skip)), skip
+        assert torch.equal(got, wave_lab.sw_wave_lab_plain(p, stack, gap=2, n_segs=S, height=h, skip=skip)), skip
+        if skip == "none":
+            assert torch.equal(got, k1)
+
+
+def test_k5_copy_of_k1_sweep_has_its_registers(cuda):
+    """K5 at D = 1 with no stage skipped is a copy of K1's linear band sweep
+    at H = 64: ``cuobjdump -res-usage`` of the built libraries reports the
+    same registers, and neither uses local memory."""
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+
+    def usage(name, kernel):  # (registers, local bytes) of the one kernel matching ``kernel``
+        dump = subprocess.run([str(cuobjdump), "-res-usage", str(_build.build(name)[name]["path"])],
+                              capture_output=True, text=True, check=True).stdout
+        (found,) = [(int(m[2]), int(m[3])) for m in
+                    re.finditer(r"Function (\S+?):\s+REG:(\d+) STACK:\d+ SHARED:\d+ LOCAL:(\d+)", dump)
+                    if re.search(kernel, m[1])]
+        return found
+
+    k1 = usage("sw_wave", r"sw_band_kernelILb0ELb0ELi64E")
+    k5 = usage("sw_wave_lab", rf"sw_band_lab_kernelILi{wave_lab.SWEEP_HEIGHT}ELi1ELi0E")
+    assert k5[0] == k1[0], (k5, k1)
+    assert k5[1] == k1[1] == 0, (k5, k1)
 
 
 def test_i16_tiles_and_chains_match_plain(cuda):

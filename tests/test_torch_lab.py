@@ -11,7 +11,10 @@ wavefront kernel.  ``pallas_wave2`` imports swtpu's current ``G`` and
 reshape, so the K5 case sets that module's ``G``, ``KPAD`` and
 ``build_lhs_banded`` to K4's g = 8 values for the call; nothing under
 ``tools/`` changes.  K6's other variants are held to numpy statements of
-their definitions.  The CUDA kernels are held to these plain versions on
+their definitions, at K4's heights and at K5's and K6's sweep height (64
+rows over K1's 32-row bands, a tail band where their count is odd); K5 and
+K6 take K1's unpadded profile and refuse rows off its 32-row bands; the
+lab tools' ``buckets.run`` times in rounds.  The CUDA kernels are held to these plain versions on
 the card (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
@@ -227,10 +230,14 @@ def _skip_numpy(prof, stack, S, height, skip):
 
 
 @pytest.mark.parametrize("skip", wave_lab.SKIPS)
-@pytest.mark.parametrize("height", [16, 32])
+@pytest.mark.parametrize("height", [16, 32, 64])
 def test_k6_skip_plain_matches_definition(skip, height):
-    q, stack = _chained_bucket(np.random.default_rng(7), 40, 24, 2, 5)
-    prof = make_profile(q, MAT, pad_rows_to=64)
+    """At height 64 (K5's and K6's sweep) on K1's profile of three 32-row
+    bands: the 64-row split ends in a 32-row band."""
+    qlen, pad = (80, 32) if height == 64 else (40, 64)
+    q, stack = _chained_bucket(np.random.default_rng(7), qlen, 24, 2, 5)
+    prof = make_profile(q, MAT, pad_rows_to=pad)
+    assert height != 64 or prof.shape[0] == 96
     got = wave_lab.sw_wave_lab_plain(torch.from_numpy(prof), torch.from_numpy(stack), gap=GAP, n_segs=2,
                                      height=height, skip=skip)
     assert got.dtype == torch.int32 and got.tolist() == _skip_numpy(prof, stack, 2, height, skip).tolist()
@@ -248,7 +255,8 @@ def test_lab_wrappers_run_plain_on_cpu_and_check_inputs():
     assert torch.equal(wave_lab.sw_wave_prefetch(prof, st, gap=GAP, n_segs=3, depth=8), want)
     for skip in wave_lab.SKIPS:
         assert torch.equal(wave_lab.sw_wave_skip(prof, st, gap=GAP, n_segs=3, skip=skip),
-                           wave_lab.sw_wave_lab_plain(prof, st, gap=GAP, n_segs=3, skip=skip))
+                           wave_lab.sw_wave_lab_plain(prof, st, gap=GAP, n_segs=3, height=wave_lab.SWEEP_HEIGHT,
+                                                      skip=skip))
     assert (wave_lab.sw_wave_band.launches, wave_lab.sw_wave_prefetch.launches,
             wave_lab.sw_wave_skip.launches) == before  # the CPU never launches
     assert wave_lab.pad_profile(prof[:32], 64).shape == (64, 32)
@@ -266,6 +274,69 @@ def test_lab_wrappers_run_plain_on_cpu_and_check_inputs():
     for call, match in bad:
         with pytest.raises(ValueError, match=match):
             call()
+
+
+@pytest.mark.parametrize("n_bands", [1, 3, 15])
+def test_k5_k6_take_k1_profile_unpadded(n_bands):
+    """K5 and K6 take K1's profile, rows a multiple of 32: an odd band count
+    ends their 64-row sweep in a 32-row band, and every wrapper equals the
+    plain version at height 64 on the CPU."""
+    rng = np.random.default_rng(n_bands)
+    q, stack = _chained_bucket(rng, 32 * n_bands - 5, 20, 2, 4)
+    prof, st = torch.from_numpy(make_profile(q, MAT, pad_rows_to=32)), torch.from_numpy(stack)
+    assert prof.shape[0] == 32 * n_bands
+    want = {skip: wave_lab.sw_wave_lab_plain(prof, st, gap=GAP, n_segs=2, height=wave_lab.SWEEP_HEIGHT, skip=skip)
+            for skip in wave_lab.SKIPS}
+    assert torch.equal(want["none"], wave_lab.sw_wave_lab_plain(prof, st, gap=GAP, n_segs=2))  # K1's scores
+    for d in wave_lab.DEPTHS:
+        assert torch.equal(wave_lab.sw_wave_prefetch(prof, st, gap=GAP, n_segs=2, depth=d), want["none"]), d
+    for skip in wave_lab.SKIPS:
+        assert torch.equal(wave_lab.sw_wave_skip(prof, st, gap=GAP, n_segs=2, skip=skip), want[skip]), skip
+
+
+def test_k5_k6_refuse_rows_off_k1_bands():
+    """A profile whose rows are not a multiple of 32 is refused by K5, K6
+    and the plain version at height 64; K4 at height 64 still wants whole
+    64-row bands."""
+    q, stack = _chained_bucket(np.random.default_rng(3), 40, 20, 1, 4)
+    prof, st = torch.from_numpy(make_profile(q, MAT, pad_rows_to=32)), torch.from_numpy(stack)
+    for call in (lambda p: wave_lab.sw_wave_prefetch(p, st, gap=GAP), lambda p: wave_lab.sw_wave_skip(p, st, gap=GAP),
+                 lambda p: wave_lab.sw_wave_lab_plain(p, st, gap=GAP, height=wave_lab.SWEEP_HEIGHT)):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            call(prof[:48])
+        assert call(prof).shape == (4,)
+    with pytest.raises(ValueError, match="multiple of the height 64"):
+        wave_lab.sw_wave_band(prof[:32], st, gap=GAP, height=64)
+
+
+def test_buckets_run_times_in_rounds(monkeypatch):
+    """``buckets.run``: every round warms each bucket with the first launch,
+    then times every launch once in turns; a bucket's time is the median of
+    its rounds, the spread the largest round sum minus the smallest, and
+    ``unequal_rounds`` names a variant that differs from the base in any
+    round."""
+    from swtpu_torch.tools import buckets
+
+    clock = iter([1.0, 2.0, 10.0, 20.0, 3.0, 4.0, 30.0, 40.0, 2.0, 9.0, 20.0, 30.0])  # (bucket, name) in turns
+    calls = []
+    monkeypatch.setattr(buckets, "events_ms", lambda fn: (next(clock), fn()))
+
+    def launch(name):
+        def go(g):
+            calls.append((name, g))
+            bad = name == "odd" and g == 1 and sum(c == ("odd", 1) for c in calls) == 3  # round 3, bucket 1
+            return torch.tensor([g + (1 if bad else 0)])
+        return go
+
+    assert buckets.ROUNDS == 3
+    res = buckets.run([0, 1], {"base": launch("base"), "odd": launch("odd")})
+    assert calls[:5] == [("base", 0), ("base", 0), ("odd", 0), ("base", 1), ("base", 1)]  # warm, then in turns
+    assert len(calls) == 3 * 2 * 3
+    assert res["times"] == {"base": [2.0, 20.0], "odd": [4.0, 30.0]}
+    assert res["round_ms"] == {"base": [11.0, 33.0, 22.0], "odd": [22.0, 44.0, 39.0]}
+    assert res["spread_ms"] == {"base": 22.0, "odd": 22.0}
+    assert len(res["rounds"]) == 3 and [r["base"] for r in res["rounds"]] == [[torch.tensor([0]), torch.tensor([1])]] * 3
+    assert buckets.unequal_rounds(res, ["base", "odd"], "base") == ["odd"]
 
 
 @pytest.mark.parametrize("tool", ["probe_i16", "probe_breakdown", "wave_lab"])
@@ -299,7 +370,7 @@ def test_lab_tools_launch_every_variant_at_its_knobs():
     assert list(fns) == ["K1", *variants]
     k1 = fns["K1"](g)
     for name, (_, kw) in variants.items():
-        want = wave_lab.sw_wave_lab_plain(b.profile(buckets.height(kw)), g.stack, gap=b.gap, n_segs=g.n_segs,
+        want = wave_lab.sw_wave_lab_plain(b.profile(buckets.pad(kw)), g.stack, gap=b.gap, n_segs=g.n_segs,
                                           height=buckets.height(kw), skip=buckets.skip(kw))
         got = fns[name](g)
         assert torch.equal(got, want), name
