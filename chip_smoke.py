@@ -11,7 +11,12 @@ Phases (one line each; any failure exits non-zero with no result line):
               spills and SASS opcode counts of each kernel instantiation,
               and the loop-body opcodes of K1's linear band sweep at H = 64
               and of every K5/K6 instantiation beside it (K5 D1 none is a
-              copy of that sweep: registers, spills and loop body compared)
+              copy of that sweep: registers, spills and loop body compared);
+              build.rows_lab: K10 v4's and v41's instantiations (K2's warp
+              wavefront): registers, spills, their launch on
+              P01008's profile (G, passes, stage bytes, blocks and warps an
+              SM by the runtime's occupancy) and their column loop's
+              instructions a cell beside K2's
   3. kernel   each kernel against its plain PyTorch version on seeded random
               buckets (chain factors 1/2/3/8, odd lane counts, one and many
               bands, widths 32 to 4100; K1's shapes: the suite's longest
@@ -48,8 +53,11 @@ Phases (one line each; any failure exits non-zero with no result line):
               inputs and random ones whose sums wrap) and short chains of
               every op: exact equality; then K10, every instantiation of
               the row-parallel lab kernel (v2, v3, v4, v41) on the row
-              kernel cases and widths 1 and 31, at gap 2 and gap 120,
-              against its plain version: exact equality
+              kernel cases, widths 1 and 31, and v4's and v41's edge
+              cases (pass boundaries at 16- and 32-row bands, query tails,
+              B off the rows a block at ILP 2 and 4), at gap 2 and gap 120,
+              against its plain version: exact equality; v4's and v41's
+              launches are the kernel's own schedule (wave_schedule)
  3b. roofline K7's int8 MAC rate and K8's int32 chain rate at full
               occupancy (swtpu_torch.tools.roofline; counts zeroed just
               before, read just after) beside the data-sheet and derived
@@ -184,7 +192,9 @@ Phases (one line each; any failure exits non-zero with no result line):
               segment groups' scores, to the wavefront path's scores of all
               559,228 sequences; one plain pass for all; a per-group table
               of milliseconds with each instantiation's ratio to K2 and its
-              spread across rounds
+              spread across rounds; v4's and v41's launch on each group
+              (G, passes, rows a block, blocks, stage, blocks an SM) and
+              carry bytes, from their schedule
  14. mesh     the port's single-host mesh (swtpu_torch.parallel) on meshes
               that name the one card n times (and on distinct cards where the
               machine has n or more): every shard's kernels, the lane split,
@@ -260,6 +270,7 @@ OPS_PER_CELL = 6  # add, max, subtract, max, clamp at 0, running-best max
 # included); the running best.
 OPS_PER_CELL_AFFINE = 11
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak of an H100 SXM (data sheet): 989.5e12 MACs
+K2_WAVE_LABEL = "K2/K3 sw_rows_kernel G16 H32 wavefront"  # K2's shape on P01008's row-path groups
 SASS_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX", "IMNMX", "IADD3", "IMMA", "S2UR", "LDG", "STG", "LDS", "LDL", "STL")
 AFFINE = dict(gap_open=10, gap_extend=2)  # the affine cell's gaps
 GAP_PAIRS = ((10, 2), (10, 1), (5, 5))  # the affine kernel phase's (open, extend)
@@ -289,6 +300,11 @@ ROW_CASES = (
 )
 # kernel.rows_lab's cases: ROW_CASES (their gap replaced by 2 and by ROWS_LAB_WIDE_GAP) and widths 1 and 31
 ROWS_LAB_CASES = ROW_CASES + ((40, 2, 19, 1, 2), (70, 3, 100, 31, 2))
+# and, for v4 and v41 on K2's wavefront, (query length, C, B, L, profile rows padded to): pass
+# boundaries at both band heights (34 16-row and 17 32-row bands; 38 and 19 from 600 unpadded rows), query
+# tails that are no whole band, and B off the rows a block at ILP 2 (16) and 4 (32)
+ROWS_LAB_EDGE_CASES = ((520, 2, 37, 96, 32), (600, 1, 50, 200, 1), (37, 3, 33, 64, 1), (530, 2, 17, 130, 8),
+                       (100, 1, 1, 40, 1))
 ROWS_LAB_WIDE_GAP = 120  # past 112: JAX's int8 gap fold (15 + gap <= 127) wraps there, the kernel's int32 fold not
 ROW_QUERIES = ("P02232", "P05013", "P14942")  # the row phase's search_many and search_queued
 # kernel.mma's coarse-count cases: every (subjects n, queries Q, signature width) combination.
@@ -356,6 +372,11 @@ def phase_build():
         if lab:
             h, d, skip = lab.groups()
             return f"K5/K6 sw_band_lab_kernel H{h} D{d} {LAB_SKIPS[int(skip)]}"
+        k10w = re.search(r"sw_rows_wave_lab_kernelILi(\d+)ELi(\d)ELb([01])E", mangled)
+        if k10w:  # K10 v4 and v41: sw_rows_wave_lab_kernel<H, ILP, ROLL>
+            h, ilp, roll = k10w.groups()
+            return f"K10 sw_rows_wave_lab_kernel {'v41' if roll == '1' else 'v4'} S{h}" + (
+                f" ILP{ilp}" if ilp != "1" else "")
         k10 = re.search(r"sw_rows_lab_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELb([01])E", mangled)
         if k10:
             stage, scan, strip, ilp, _ = k10.groups()
@@ -402,6 +423,9 @@ def phase_build():
                 if "chain_kernel" in mangled or "sw_band_lab_kernel" in mangled or label(mangled) == SWEEP_LABELS[0]:
                     # K9's chains (K8's among them), K1's linear sweep and K5/K6: the rolled loops' bodies
                     kernels[label(mangled)]["loop_body_opcodes"] = loop_body_opcodes(body)
+                if "sw_rows_wave_lab_kernel" in mangled or label(mangled) == K2_WAVE_LABEL:
+                    # K10 v4/v41 and the K2 they copy: the column loop's body (4 columns of H x ILP cells)
+                    kernels[label(mangled)]["column_loop_opcodes"] = innermost_loop_opcodes(body, "VIADDMNMX")
         say("build", source=f"swtpu_torch/csrc/{name}.cu", seconds=round(time.perf_counter() - t0, 3),
             kernels=kernels, cuobjdump=cuobjdump.exists())
         out[name] = kernels
@@ -413,13 +437,49 @@ def phase_build():
         loop_body_differences={op: b.get(op, 0) - a.get(op, 0) for op in sorted(set(a) | set(b))
                                if a.get(op, 0) != b.get(op, 0)},
         spills_k5_k6={k: v.get("spill_bytes") for k, v in out["sw_wave_lab"].items() if k.startswith("K5/K6")})
+    phase_build_rows_lab(out)
     return out
 
 
-def loop_body_opcodes(sass):
-    """Opcode counts of the instructions of a kernel's SASS (cuobjdump) that
-    lie between a backward branch's target and the branch: its rolled
-    loops' bodies."""
+def phase_build_rows_lab(out):
+    """K10 v4 and v41 (copies of K2's warp wavefront): each
+    instantiation's registers and spills (ptxas), its launch on P01008's
+    profile over a 64-row and a 1,408-row group (G, passes, rows a block,
+    stage bytes, blocks and warps an SM by the runtime's occupancy), and
+    its column loop's instructions a cell (cuobjdump -sass) beside K2's
+    G16 wavefront: VIADDMNMX, IADD3 and VIMNMX a cell show where the gap
+    terms go, which is what the TPU kernels' gap fold moved."""
+    from swtpu_torch.ops import rows_lab
+    from swtpu_torch.tools.buckets import swissprot_query
+
+    qpad = -(-swissprot_query().length // 32) * 32
+
+    def per_cell(label, cells):
+        ops = out["sw_rows"].get(label, {}) if label == K2_WAVE_LABEL else out["sw_rows_lab"].get(label, {})
+        loop = ops.get("column_loop_opcodes") or {}
+        return {"instructions": sum(loop.values()) / cells if loop else None,
+                **{op: loop.get(op, 0) / cells for op in ("VIADDMNMX", "IADD3", "VIMNMX", "VIMNMX3", "SHFL")}}
+
+    inst = {}
+    for v, strip, ilp in rows_lab.INSTANCES:
+        if v not in rows_lab.WAVE_VARIANTS:
+            continue
+        label = f"K10 sw_rows_wave_lab_kernel {v} S{strip}" + (f" ILP{ilp}" if ilp != 1 else "")
+        ptxas = out["sw_rows_lab"].get(label, {})
+        launches = {}
+        for rows in (64, 1408):
+            g, passes, per_block, blocks, stage, per_sm = rows_lab.card_schedule(v, qpad, strip, ilp, rows, "cuda")
+            launches[rows] = dict(g=g, passes=passes, rows_per_block=per_block, blocks=blocks, stage_bytes=stage,
+                                  blocks_per_sm=per_sm, warps_per_sm=per_sm * rows_lab.WAVE_BLOCK[strip] // 32)
+        inst[label] = dict(registers=ptxas.get("registers"), spill_bytes=ptxas.get("spill_bytes"),
+                           p01008_launch=launches, column_loop_per_cell=per_cell(label, 4 * strip * ilp))
+    say("build.rows_lab", profile_rows=qpad, instances=inst, k2=K2_WAVE_LABEL,
+        k2_column_loop_per_cell=per_cell(K2_WAVE_LABEL, 4 * 32))
+
+
+def sass_loops(sass):
+    """The rolled loops of a kernel's SASS (cuobjdump): for each backward
+    branch, the opcodes of the instructions between its target and it."""
     import re
 
     ins = []
@@ -427,14 +487,32 @@ def loop_body_opcodes(sass):
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*\s*(.*)", ln)
         if m:
             ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    counts = {}
+    loops = []
     for addr, op, rest in ins:
         target = re.match(r"(0x[0-9a-f]+)", rest) if op == "BRA" else None
         if target and int(target.group(1), 16) < addr:
-            for a, o, _ in ins:
-                if int(target.group(1), 16) <= a < addr:
-                    counts[o] = counts.get(o, 0) + 1
+            loops.append([o for a, o, _ in ins if int(target.group(1), 16) <= a < addr])
+    return loops
+
+
+def loop_body_opcodes(sass):
+    """Opcode counts of the instructions of a kernel's SASS that lie in its
+    rolled loops' bodies, a nested loop's once for each loop around it."""
+    counts = {}
+    for body in sass_loops(sass):
+        for o in body:
+            counts[o] = counts.get(o, 0) + 1
     return counts
+
+
+def innermost_loop_opcodes(sass, opcode):
+    """Opcode counts of the shortest rolled loop of a kernel's SASS that
+    holds at least 90% of the most ``opcode`` any loop holds: its inner
+    column loop, not the pass loop around it."""
+    loops = sass_loops(sass)
+    most = max((body.count(opcode) for body in loops), default=0)
+    inner = min((body for body in loops if most and body.count(opcode) >= 0.9 * most), key=len, default=[])
+    return {o: inner.count(o) for o in set(inner)}
 
 
 def random_bucket(rng, qlen, ws, n_segs, lanes, n_queries=None):
@@ -1252,7 +1330,9 @@ def phase_align(db, linear_engine, affine_engine):
 def phase_kernel_rows_lab():
     """K10: every instantiation of the row-parallel lab kernel (v2, v3, v4,
     v41 at their strips and ILPs) against its plain version (rows_lab_plain)
-    on seeded random stacks, at gap 2 and at a gap past JAX's int8 fold."""
+    on seeded random stacks, at gap 2 and at a gap past JAX's int8 fold; on
+    the edge cases every v4 and v41 launch's schedule is the kernel's own
+    (rows_lab.card_schedule against rows_lab.wave_schedule)."""
     import numpy as np
     import torch
 
@@ -1262,8 +1342,8 @@ def phase_kernel_rows_lab():
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(5)
-    worst, launches, best = 0, 0, 0
-    for qlen, C, B, L, _ in ROWS_LAB_CASES:
+    worst, launches, best, passes = 0, 0, 0, {}
+    for qlen, C, B, L, pad in [(*case[:4], 32) for case in ROWS_LAB_CASES] + list(ROWS_LAB_EDGE_CASES):
         q = rng.integers(0, 25, qlen).astype(np.int8)
         if qlen > 4000:  # as kernel.rows: the planted self-alignment passes 32,767 at gap 2
             q = rng.choice(np.array([4, 8, 14, 17], dtype=np.int8), qlen)
@@ -1274,8 +1354,16 @@ def phase_kernel_rows_lab():
                 stack[c, b, :n] = rng.integers(0, 25, n)
         if qlen > 4000 and L >= qlen:
             stack[C // 2, 0, :qlen] = q
-        prof = torch.from_numpy(make_profile(q, blosum50_ref(), pad_rows_to=32)).cuda()
+        prof = torch.from_numpy(make_profile(q, blosum50_ref(), pad_rows_to=pad)).cuda()
         stack = torch.from_numpy(stack).cuda()
+        for v, strip, ilp in rows_lab.INSTANCES:
+            if v in rows_lab.WAVE_VARIANTS:
+                want = rows_lab.wave_schedule(v, prof.shape[0], strip, ilp, B)
+                card = rows_lab.card_schedule(v, prof.shape[0], strip, ilp, B, "cuda")
+                if card[:5] != (want.g, want.passes, want.rows_per_block, want.blocks, want.stage_bytes):
+                    raise AssertionError(f"K10 {v} strip {strip} ilp {ilp}: the kernel's launch {card[:5]} is "
+                                         f"not wave_schedule's {want} at qlen={qlen} B={B}")
+                passes.setdefault(f"{v} strip {strip} ilp {ilp}", set()).add(want.passes)
         for gap in (2, ROWS_LAB_WIDE_GAP):
             want = rows_lab.rows_lab_plain(prof, stack, gap=gap)
             best = max(best, int(want.max()))
@@ -1293,8 +1381,11 @@ def phase_kernel_rows_lab():
                                          f"L={L} gap={gap}: max err {err}")
     if best <= 32767:
         raise AssertionError(f"the planted self-alignment scored {best}, within int16")
-    say("kernel.rows_lab", cases=len(ROWS_LAB_CASES), gaps=[2, ROWS_LAB_WIDE_GAP],
+    if any(max(p) < 2 for p in passes.values()):
+        raise AssertionError(f"some v4 or v41 instantiation crossed no pass boundary: {passes}")
+    say("kernel.rows_lab", cases=len(ROWS_LAB_CASES) + len(ROWS_LAB_EDGE_CASES), gaps=[2, ROWS_LAB_WIDE_GAP],
         instances=[f"{v} strip {s} ilp {i}" for v, s, i in rows_lab.INSTANCES], launches=launches, max_score=best,
+        wave_passes={k: sorted(v) for k, v in passes.items()}, wave_schedules_equal_card=True,
         max_abs_err=worst, tolerance="exact", seconds=round(time.perf_counter() - t0, 3))
     return worst
 
@@ -2266,8 +2357,14 @@ def phase_lab_rows(db, engine, row_engine):
     cells = qpad * sum(g.chunks * g.rows * g.width for g in rg.groups)
     bound_ms, bound_by = row_bound(cells, sum(g.stack.numel() + qpad * 32 + 4 * g.chunks * g.rows for g in rg.groups))
     sums = {name: sum(ms) for name, ms in res["times"].items()}
-    carry = {name: sum(rows_lab.carry_bytes(-(-qpad // kw["strip"]), g.chunks, g.rows, g.width) for g in rg.groups)
-             for name, (_, kw) in pallas_lab.VARIANTS.items()}
+    carry = {name: sum(rows_lab.carry_bytes(next(v for v, f in rows_lab.WRAPPERS.items() if f is fn), qpad,
+                                            kw["strip"], g.chunks, g.rows, g.width, ilp=kw.get("ilp", 1))
+                       for g in rg.groups)
+             for name, (fn, kw) in pallas_lab.VARIANTS.items()}
+    shapes = [(g.chunks, g.rows, g.width) for g in rg.groups]
+    sched = pallas_lab.schedules(qpad, shapes)
+    print("\n".join(pallas_lab.schedule_lines(sched, shapes)), flush=True)
+    k2 = res["times"]["K2"]
     say("lab.rows", query=MAIN_QUERY, groups=len(rg.groups), rounds=rounds, launches=launched,
         launches_cover=f"{rounds} rounds of one timed launch an instantiation a group (an untimed K2 launch warms "
                        "each group in each round); a group's ms is the median of its rounds",
@@ -2276,7 +2373,9 @@ def phase_lab_rows(db, engine, row_engine):
         ms=sums, ratio_to_k2={n: sums[n] / sums["K2"] for n in pallas_lab.VARIANTS},
         round_ms=res["round_ms"], spread_ms=res["spread_ms"], bit_equal_k2_every_round=True,
         scores_equal_wavefront=int(wave_scores.shape[0]), plain_ms_one_pass=plain_ms,
-        bound_ms_a_pass=bound_ms, bound_by=bound_by, carry_bytes=carry, seconds=round(time.perf_counter() - t0, 3))
+        bound_ms_a_pass=bound_ms, bound_by=bound_by, carry_bytes=carry,
+        wave_ratio_to_k2_by_group={n: [t / b for t, b in zip(res["times"][n], k2)] for n in sched},
+        wave_launches={n: x["launches"] for n, x in sched.items()}, seconds=round(time.perf_counter() - t0, 3))
     entries = []
     for v, line in zip(rows_lab.VARIANTS, (102, 206, 304, 389)):
         mine = [name for name, (fn, _) in pallas_lab.VARIANTS.items() if fn is rows_lab.WRAPPERS[v]]

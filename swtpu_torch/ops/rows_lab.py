@@ -1,25 +1,29 @@
 """K10: the row-parallel lab kernels of ``tools/pallas_lab.py`` on the card.
 
-Counterparts of the four TPU lab kernels, as compile-time variants of one
-CUDA kernel (``csrc/sw_rows_lab.cu``, whose note defines each one), one warp
-a subject row, its lanes 32 columns, the horizontal gap as a max-scan over
-the lanes in u-space:
+Counterparts of the four TPU lab kernels behind one CUDA entry point
+(``csrc/sw_rows_lab.cu``, whose note defines each one), in two designs:
 
-* ``sw_rows_v2`` (``sw_v2``, ``tools/pallas_lab.py:102``): each warp stages
-  its own subject's scores on the tensor cores; ``strip`` 16 or 32;
-* ``sw_rows_v3`` (``sw_v3``, :206): a block of 8 warps stages one column of
-  its 8 subjects an mma; ``strip`` 16 or 32;
-* ``sw_rows_v4`` (``sw_v4``, :304): v3 with ``ilp`` (2 or 4) subjects a
-  warp, their chains interleaved, the gap folded into the staging; ``strip``
-  32;
-* ``sw_rows_v41`` (``sw_v41``, :389): v3 with the gap folded and the scan's
-  shifts as rotations under hoisted lane masks; ``strip`` 16 or 32.
+* ``sw_rows_v2`` (``sw_v2``, ``tools/pallas_lab.py:102``) and ``sw_rows_v3``
+  (``sw_v3``, :206) run the warp-scan design, one warp a subject row, its
+  lanes 32 columns, the horizontal gap as a max-scan over the lanes in
+  u-space: v2's warps each stage their own subject's scores on the tensor
+  cores, v3's block of 8 warps stages one column of its 8 subjects an mma;
+  ``strip`` 16 or 32;
+* ``sw_rows_v4`` (``sw_v4``, :304) and ``sw_rows_v41`` (``sw_v41``, :389)
+  run a copy of K2's warp wavefront (``csrc/sw_rows.cu``: G threads a
+  subject row, thread g holding band g of ``strip`` query rows, the carry
+  through device memory only between passes), with the TPU knobs as knobs
+  of that schedule: v4's interleaved chains as ``ilp`` (2 or 4) rows a
+  thread group at ``strip`` 32; v41's rotate as the hand-off
+  ``shfl.sync.idx`` from a hoisted source lane, at ``strip`` 16 (16-row
+  bands, up to 32 a pass) or 32 (K2's shape).  ``wave_schedule`` gives their
+  launch: G, passes, rows a block, blocks and the shared stage.
 
 They take K2's contract (``bucket_sw.sw_score_bucket_fused``): a (qpad, 32)
 int8 profile, a (B, L) bucket or (C, B, L) stack of int8 subjects (pads
 PAD_SUBJECT) and a linear ``gap``, and return (B,) or (C, B) exact int32
-Smith-Waterman maxima.  ``strip`` is the kernel's query rows a strip (the
-TPU kernels' strip 8 is 16 here: an mma's M); no strip changes a score.
+Smith-Waterman maxima.  ``strip`` is the kernel's query rows a strip or band
+(the TPU kernels' strip 8 is 16 here: an mma's M); no strip changes a score.
 
 For tensors on the card each wrapper launches its variant and counts it on
 its own ``launches``; for tensors on the CPU it runs ``rows_lab_plain``.  A
@@ -30,6 +34,7 @@ first, on either device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -39,13 +44,72 @@ from .wave_lab import pad_profile
 
 VARIANTS = ("v2", "v3", "v4", "v41")  # sw_rows_lab.cu's variant codes, in order
 STRIPS = {"v2": (16, 32), "v3": (16, 32), "v4": (32,), "v41": (16, 32)}
-ILPS = (2, 4)  # v4's subjects a warp
+ILPS = (2, 4)  # v4's rows a thread group
 # Every instantiation of the kernel: (variant, strip, ilp).
 INSTANCES = tuple((v, s, ilp) for v in VARIANTS for s in STRIPS[v] for ilp in (ILPS if v == "v4" else (1,)))
+WAVE_VARIANTS = ("v4", "v41")  # on K2's warp wavefront (csrc: sw_rows_wave_lab_kernel)
+# The wavefront's threads a block and most bands a pass, by band height: K2's
+# 128 and 16 at 32 rows; at 16 rows 256 and 32, so the widest pass's block
+# still holds 8 rows.
+WAVE_BLOCK = {16: 256, 32: 128}
+WAVE_MAX_G = {16: 32, 32: 16}
+STAGE_INTS = {h: 32 * (h + 4) + 4 for h in WAVE_BLOCK}  # int32 a band of the shared stage (csrc: Stage<H>::BAND)
+SM_SHARED_BYTES = 233_472  # an H100 SM's shared memory, 228 KB
+BLOCK_RESERVED_BYTES = 1_024  # shared memory the runtime reserves a block
 
 
 _kernel_lib = _build.Library("sw_rows_lab",
-                             sw_rows_lab_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                             sw_rows_lab_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+                             sw_rows_lab_schedule=[ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+
+
+class WaveSchedule(NamedTuple):
+    """A v4 or v41 launch on one bucket: ``g`` bands a pass in ``g``
+    threads a row group, ``pass_bands`` bands in the first pass, ``passes``
+    passes (the carry goes through device memory between passes only),
+    ``rows_per_block`` rows a block, ``blocks`` blocks a bucket,
+    ``stage_bytes`` of dynamic shared memory a block, and the blocks an SM
+    that shared memory alone allows."""
+
+    g: int
+    pass_bands: int
+    passes: int
+    rows_per_block: int
+    blocks: int
+    stage_bytes: int
+    smem_blocks_per_sm: int
+
+
+def wave_schedule(variant: str, n_rows: int, strip: int, ilp: int, B: int) -> WaveSchedule:
+    """The launch of rebuilt ``variant`` (v4 or v41) for a profile of
+    ``n_rows`` rows (padded to whole bands of ``strip`` rows) on a bucket of
+    ``B`` rows: G is the fewest power of two at least the bands, at most
+    ``WAVE_MAX_G[strip]`` (K2's rule, ``bucket_sw.rows_shape``, at 32-row
+    bands), a block holds ``WAVE_BLOCK[strip] / G`` groups of ``ilp`` rows.
+    ``sw_rows_lab.cu``'s launch computes the same (``card_schedule``)."""
+    if variant not in WAVE_VARIANTS or (variant, strip, ilp) not in INSTANCES or n_rows < 1 or B < 0:
+        raise ValueError(f"no wavefront schedule for {variant} n_rows={n_rows} strip={strip} ilp={ilp} B={B}")
+    n_bands = -(-n_rows // strip)
+    g = min(WAVE_MAX_G[strip], 1 << (n_bands - 1).bit_length())
+    per_block = WAVE_BLOCK[strip] // g * ilp
+    stage = 4 * g * STAGE_INTS[strip]
+    return WaveSchedule(g=g, pass_bands=min(g, n_bands), passes=-(-n_bands // g), rows_per_block=per_block,
+                        blocks=-(-B // per_block), stage_bytes=stage,
+                        smem_blocks_per_sm=SM_SHARED_BYTES // (stage + BLOCK_RESERVED_BYTES))
+
+
+def card_schedule(variant: str, n_rows: int, strip: int, ilp: int, B: int, device) -> Tuple[int, ...]:
+    """The kernel's own launch on ``device`` (a CUDA device) for the same
+    arguments as ``wave_schedule``: (G, passes, rows a block, blocks a
+    bucket, stage bytes, blocks an SM by the runtime's occupancy calculator:
+    registers, threads and stage)."""
+    wave_schedule(variant, n_rows, strip, ilp, B)  # the same checks
+    lib = _kernel_lib()
+    sched = (ctypes.c_int * 6)()
+    rc = lib.sw_rows_lab_schedule(VARIANTS.index(variant), strip, ilp, -(-n_rows // strip), B,
+                                  _build.where(torch.device(device))[0], sched)
+    _build.check(rc, lib.sw_rows_lab_error_string, f"sw_rows_lab {variant} strip {strip} ilp {ilp} schedule")
+    return tuple(sched)
 
 
 def _check(variant: str, profile: torch.Tensor, subjects: torch.Tensor, gap: int, strip: int, ilp: int) -> None:
@@ -85,7 +149,11 @@ def _launch(variant, profile, stack, gap, strip, ilp, counter) -> torch.Tensor:
     prof = pad_profile(profile, strip).contiguous()
     stack = stack.contiguous()
     n_strips = prof.shape[0] // strip
-    carry = torch.empty(C * B * L if n_strips > 1 else 1, dtype=torch.int32, device=dev)
+    if variant in WAVE_VARIANTS:
+        multi = wave_schedule(variant, prof.shape[0], strip, ilp, B).passes > 1
+    else:
+        multi = n_strips > 1
+    carry = torch.empty(C * B * L if multi else 1, dtype=torch.int32, device=dev)
     lib = _kernel_lib()
     rc = lib.sw_rows_lab_launch(prof.data_ptr(), stack.data_ptr(), carry.data_ptr(), out.data_ptr(), C, n_strips, B,
                                 L, gap, VARIANTS.index(variant), strip, ilp, *_build.where(dev))
@@ -94,10 +162,15 @@ def _launch(variant, profile, stack, gap, strip, ilp, counter) -> torch.Tensor:
     return out
 
 
-def carry_bytes(n_strips: int, chunks: int, rows: int, width: int) -> int:
-    """Carry traffic of one launch: every strip but the last writes its
-    bottom row of u (an int32 a column) and the next strip reads it."""
-    return 8 * (n_strips - 1) * chunks * rows * width
+def carry_bytes(variant: str, n_rows: int, strip: int, chunks: int, rows: int, width: int, ilp: int = 1) -> int:
+    """Carry traffic of one launch on a profile of ``n_rows`` rows: every
+    strip (v2, v3) or pass (v4, v41: ``wave_schedule``) but the last writes
+    its bottom row (an int32 a column) and the next one reads it."""
+    if variant in WAVE_VARIANTS:
+        steps = wave_schedule(variant, n_rows, strip, ilp, rows).passes
+    else:
+        steps = -(-n_rows // strip)
+    return 8 * (steps - 1) * chunks * rows * width
 
 
 def sw_rows_v2(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32) -> torch.Tensor:
@@ -112,12 +185,12 @@ def sw_rows_v3(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip
 
 def sw_rows_v4(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32,
                ilp: int = 2) -> torch.Tensor:
-    """K10 v4: v3 with ``ilp`` interleaved subjects a warp, the gap folded."""
+    """K10 v4: K2's warp wavefront with ``ilp`` interleaved rows a thread group."""
     return _run("v4", profile, subjects, gap, strip, ilp, sw_rows_v4)
 
 
 def sw_rows_v41(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32) -> torch.Tensor:
-    """K10 v41: v3 with the gap folded and the scan as masked rotations."""
+    """K10 v41: K2's warp wavefront with the hand-off as a rotate, bands of ``strip`` rows."""
     return _run("v41", profile, subjects, gap, strip, 1, sw_rows_v41)
 
 

@@ -621,13 +621,17 @@ def test_i16_tile_launches_on_the_callers_stream(cuda):
 
 
 @pytest.mark.parametrize(
-    "qlen,C,B,L",
-    [(1, 1, 1, 8), (20, 3, 77, 40), (33, 2, 129, 1), (100, 3, 333, 31), (464, 1, 9, 4100), (300, 3, 31, 6000)],
+    "qlen,C,B,L,pad",
+    [(1, 1, 1, 8, 32), (20, 3, 77, 40, 32), (33, 2, 129, 1, 32), (100, 3, 333, 31, 32), (464, 1, 9, 4100, 32),
+     (300, 3, 31, 6000, 32),
+     # v4's and v41's pass boundaries (34 16-row, 17 32-row bands; 38 and 19 unpadded), query tails that are
+     # no whole band, and B off the rows a block at ILP 2 (16) and 4 (32)
+     (520, 2, 37, 96, 32), (600, 1, 50, 200, 1), (37, 3, 33, 64, 1), (530, 2, 17, 130, 8)],
 )
 @pytest.mark.parametrize("gap", [2, 120])
-def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, gap):
+def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, pad, gap):
     rng = np.random.default_rng(qlen + C + L)
-    prof = make_profile(rng.integers(0, 25, qlen).astype(np.int8), blosum50_ref(), pad_rows_to=32)
+    prof = make_profile(rng.integers(0, 25, qlen).astype(np.int8), blosum50_ref(), pad_rows_to=pad)
     stack = np.full((C, B, L), PAD_SUBJECT, dtype=np.int8)
     for c in range(C):
         for b in range(B - (c == C - 1)):  # the last row of the last chunk stays empty
@@ -635,7 +639,7 @@ def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, gap):
             stack[c, b, :n] = rng.integers(0, 25, n)
     prof, stack = torch.from_numpy(prof).to(cuda), torch.from_numpy(stack).to(cuda)
     want = rows_lab.rows_lab_plain(prof, stack, gap=gap)
-    assert torch.equal(want, bucket_sw.sw_score_bucket_fused(prof, stack, gap=gap))
+    assert torch.equal(want, bucket_sw.sw_score_bucket_fused(rows_lab.pad_profile(prof, 32), stack, gap=gap))
     for v, s, ilp in rows_lab.INSTANCES:
         fn = rows_lab.WRAPPERS[v]
         before = fn.launches
@@ -643,6 +647,11 @@ def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, gap):
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert got.shape == (C, B) and torch.equal(got, want), (v, s, ilp)
+        if v in rows_lab.WAVE_VARIANTS:  # the kernel's launch is the schedule the wrapper sized its carry by
+            sched = rows_lab.wave_schedule(v, prof.shape[0], s, ilp, B)
+            card = rows_lab.card_schedule(v, prof.shape[0], s, ilp, B, cuda)
+            assert card[:5] == (sched.g, sched.passes, sched.rows_per_block, sched.blocks, sched.stage_bytes)
+            assert 1 <= card[5] <= sched.smem_blocks_per_sm
 
 
 def test_cli_and_native_packed_streaming_on_card(cuda, tmp_path):
