@@ -12,11 +12,11 @@ Phases (one line each; any failure exits non-zero with no result line):
               and the loop-body opcodes of K1's linear band sweep at H = 64
               and of every K5/K6 instantiation beside it (K5 D1 none is a
               copy of that sweep: registers, spills and loop body compared);
-              build.rows_lab: K10 v4's and v41's instantiations (K2's warp
+              build.rows_lab: K10's eight instantiations (K2's warp
               wavefront): registers, spills, their launch on
-              P01008's profile (G, passes, stage bytes, blocks and warps an
-              SM by the runtime's occupancy) and their column loop's
-              instructions a cell beside K2's
+              P01008's profile (G, passes, rows a block, stage bytes, blocks
+              and warps an SM by the runtime's occupancy) and their column
+              loop's instructions a cell beside K2's
   3. kernel   each kernel against its plain PyTorch version on seeded random
               buckets (chain factors 1/2/3/8, odd lane counts, one and many
               bands, widths 32 to 4100; K1's shapes: the suite's longest
@@ -53,11 +53,12 @@ Phases (one line each; any failure exits non-zero with no result line):
               inputs and random ones whose sums wrap) and short chains of
               every op: exact equality; then K10, every instantiation of
               the row-parallel lab kernel (v2, v3, v4, v41) on the row
-              kernel cases, widths 1 and 31, and v4's and v41's edge
-              cases (pass boundaries at 16- and 32-row bands, query tails,
-              B off the rows a block at ILP 2 and 4), at gap 2 and gap 120,
-              against its plain version: exact equality; v4's and v41's
-              launches are the kernel's own schedule (wave_schedule)
+              kernel cases, widths 1 and 31, and the edge cases (pass
+              boundaries at 16- and 32-row bands, query tails, B off the
+              rows a block at ILP 2 and 4 and off v3's 16, v2's one-row
+              blocks at B = 1), at gap 2 and gap 120, against its plain
+              version: exact equality; every launch is the kernel's own
+              schedule (wave_schedule)
  3b. roofline K7's int8 MAC rate and K8's int32 chain rate at full
               occupancy (swtpu_torch.tools.roofline; counts zeroed just
               before, read just after) beside the data-sheet and derived
@@ -192,9 +193,12 @@ Phases (one line each; any failure exits non-zero with no result line):
               segment groups' scores, to the wavefront path's scores of all
               559,228 sequences; one plain pass for all; a per-group table
               of milliseconds with each instantiation's ratio to K2 and its
-              spread across rounds; v4's and v41's launch on each group
-              (G, passes, rows a block, blocks, stage, blocks an SM) and
-              carry bytes, from their schedule
+              spread across rounds; every instantiation's launch on each
+              group (G, passes, rows a block, blocks, stage, blocks and
+              warps an SM, the SMs the group fills, K2's beside them) and
+              carry bytes, from its schedule; on the largest group each
+              instantiation at width 1 against its full width (the share of
+              a launch that staging and the launch take)
  14. mesh     the port's single-host mesh (swtpu_torch.parallel) on meshes
               that name the one card n times (and on distinct cards where the
               machine has n or more): every shard's kernels, the lane split,
@@ -300,11 +304,12 @@ ROW_CASES = (
 )
 # kernel.rows_lab's cases: ROW_CASES (their gap replaced by 2 and by ROWS_LAB_WIDE_GAP) and widths 1 and 31
 ROWS_LAB_CASES = ROW_CASES + ((40, 2, 19, 1, 2), (70, 3, 100, 31, 2))
-# and, for v4 and v41 on K2's wavefront, (query length, C, B, L, profile rows padded to): pass
-# boundaries at both band heights (34 16-row and 17 32-row bands; 38 and 19 from 600 unpadded rows), query
-# tails that are no whole band, and B off the rows a block at ILP 2 (16) and 4 (32)
+# and (query length, C, B, L, profile rows padded to): pass boundaries at both band heights (34 16-row and
+# 17 32-row bands; 38 and 19 from 600 unpadded rows), query tails that are no whole band, B off the rows a
+# block at ILP 2 (16) and 4 (32) and off v3's 16, and P01008's length at B = 23 (v3: two 16-row blocks,
+# 9 rows idle) and B = 1 (v2: one one-row block)
 ROWS_LAB_EDGE_CASES = ((520, 2, 37, 96, 32), (600, 1, 50, 200, 1), (37, 3, 33, 64, 1), (530, 2, 17, 130, 8),
-                       (100, 1, 1, 40, 1))
+                       (100, 1, 1, 40, 1), (464, 2, 23, 64, 32), (464, 1, 1, 300, 32))
 ROWS_LAB_WIDE_GAP = 120  # past 112: JAX's int8 gap fold (15 + gap <= 127) wraps there, the kernel's int32 fold not
 ROW_QUERIES = ("P02232", "P05013", "P14942")  # the row phase's search_many and search_queued
 # kernel.mma's coarse-count cases: every (subjects n, queries Q, signature width) combination.
@@ -347,10 +352,15 @@ def phase_card():
     return smi
 
 
+def k10_label(v, strip, ilp):
+    """phase_build's name of K10 instantiation (variant, strip, ilp)."""
+    return f"K10 sw_rows_wave_lab_kernel {v} S{strip}" + (f" ILP{ilp}" if ilp != 1 else "")
+
+
 def phase_build():
     import re
 
-    from swtpu_torch.ops import _build
+    from swtpu_torch.ops import _build, rows_lab
 
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     host = sorted(p.stem for p in _build.CSRC.glob("*.cpp"))  # the native host runtime, built by g++
@@ -372,16 +382,13 @@ def phase_build():
         if lab:
             h, d, skip = lab.groups()
             return f"K5/K6 sw_band_lab_kernel H{h} D{d} {LAB_SKIPS[int(skip)]}"
-        k10w = re.search(r"sw_rows_wave_lab_kernelILi(\d+)ELi(\d)ELb([01])E", mangled)
-        if k10w:  # K10 v4 and v41: sw_rows_wave_lab_kernel<H, ILP, ROLL>
-            h, ilp, roll = k10w.groups()
-            return f"K10 sw_rows_wave_lab_kernel {'v41' if roll == '1' else 'v4'} S{h}" + (
-                f" ILP{ilp}" if ilp != "1" else "")
-        k10 = re.search(r"sw_rows_lab_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELb([01])E", mangled)
-        if k10:
-            stage, scan, strip, ilp, _ = k10.groups()
-            variant = "v41" if scan == "1" else "v2" if stage == "0" else "v4" if ilp != "1" else "v3"
-            return f"K10 sw_rows_lab_kernel {variant} S{strip}" + (f" ILP{ilp}" if ilp != "1" else "")
+        k10 = re.search(r"sw_rows_wave_lab_kernelILi(\d+)ELi(\d)ELb([01])ELi(\d+)E", mangled)
+        if k10:  # K10: sw_rows_wave_lab_kernel<H, ILP, ROLL, BLOCK>, named by rows_lab's table
+            h, ilp, roll, block = (int(x) for x in k10.groups())
+            for v, strip, i in rows_lab.INSTANCES:
+                if (strip, i, v == "v41", rows_lab.BLOCK_THREADS[v, strip]) == (h, ilp, roll == 1, block):
+                    return k10_label(v, strip, i)
+            return mangled
         i16 = re.search(r"i16_(chain|tile)_kernelINS_\d+(I32|I16x2)E(?:Li(\d)E)?", mangled)
         if i16:
             kind, typ, op = i16.groups()
@@ -424,7 +431,7 @@ def phase_build():
                     # K9's chains (K8's among them), K1's linear sweep and K5/K6: the rolled loops' bodies
                     kernels[label(mangled)]["loop_body_opcodes"] = loop_body_opcodes(body)
                 if "sw_rows_wave_lab_kernel" in mangled or label(mangled) == K2_WAVE_LABEL:
-                    # K10 v4/v41 and the K2 they copy: the column loop's body (4 columns of H x ILP cells)
+                    # K10 and the K2 it copies: the column loop's body (4 columns of H x ILP cells)
                     kernels[label(mangled)]["column_loop_opcodes"] = innermost_loop_opcodes(body, "VIADDMNMX")
         say("build", source=f"swtpu_torch/csrc/{name}.cu", seconds=round(time.perf_counter() - t0, 3),
             kernels=kernels, cuobjdump=cuobjdump.exists())
@@ -442,13 +449,14 @@ def phase_build():
 
 
 def phase_build_rows_lab(out):
-    """K10 v4 and v41 (copies of K2's warp wavefront): each
-    instantiation's registers and spills (ptxas), its launch on P01008's
-    profile over a 64-row and a 1,408-row group (G, passes, rows a block,
-    stage bytes, blocks and warps an SM by the runtime's occupancy), and
-    its column loop's instructions a cell (cuobjdump -sass) beside K2's
-    G16 wavefront: VIADDMNMX, IADD3 and VIMNMX a cell show where the gap
-    terms go, which is what the TPU kernels' gap fold moved."""
+    """K10 (copies of K2's warp wavefront): each instantiation's threads a
+    block, registers and spills (ptxas; raises if ptxas named none of it),
+    its launch on P01008's profile over a 64-row and a 1,408-row group (G,
+    passes, rows a block, blocks, stage bytes, blocks and warps an SM by the
+    runtime's occupancy), and its column loop's instructions a cell
+    (cuobjdump -sass) beside K2's G16 wavefront: VIADDMNMX, IADD3 and VIMNMX
+    a cell show where the gap terms go, which is what the TPU kernels' gap
+    fold moved."""
     from swtpu_torch.ops import rows_lab
     from swtpu_torch.tools.buckets import swissprot_query
 
@@ -462,16 +470,17 @@ def phase_build_rows_lab(out):
 
     inst = {}
     for v, strip, ilp in rows_lab.INSTANCES:
-        if v not in rows_lab.WAVE_VARIANTS:
-            continue
-        label = f"K10 sw_rows_wave_lab_kernel {v} S{strip}" + (f" ILP{ilp}" if ilp != 1 else "")
+        label = k10_label(v, strip, ilp)
         ptxas = out["sw_rows_lab"].get(label, {})
+        if ptxas.get("registers") is None:
+            raise AssertionError(f"{label}: ptxas named no such kernel (BLOCK_THREADS against the source?)")
+        block = rows_lab.BLOCK_THREADS[v, strip]
         launches = {}
         for rows in (64, 1408):
             g, passes, per_block, blocks, stage, per_sm = rows_lab.card_schedule(v, qpad, strip, ilp, rows, "cuda")
             launches[rows] = dict(g=g, passes=passes, rows_per_block=per_block, blocks=blocks, stage_bytes=stage,
-                                  blocks_per_sm=per_sm, warps_per_sm=per_sm * rows_lab.WAVE_BLOCK[strip] // 32)
-        inst[label] = dict(registers=ptxas.get("registers"), spill_bytes=ptxas.get("spill_bytes"),
+                                  blocks_per_sm=per_sm, warps_per_sm=per_sm * block // 32)
+        inst[label] = dict(block_threads=block, registers=ptxas["registers"], spill_bytes=ptxas.get("spill_bytes"),
                            p01008_launch=launches, column_loop_per_cell=per_cell(label, 4 * strip * ilp))
     say("build.rows_lab", profile_rows=qpad, instances=inst, k2=K2_WAVE_LABEL,
         k2_column_loop_per_cell=per_cell(K2_WAVE_LABEL, 4 * 32))
@@ -1330,9 +1339,9 @@ def phase_align(db, linear_engine, affine_engine):
 def phase_kernel_rows_lab():
     """K10: every instantiation of the row-parallel lab kernel (v2, v3, v4,
     v41 at their strips and ILPs) against its plain version (rows_lab_plain)
-    on seeded random stacks, at gap 2 and at a gap past JAX's int8 fold; on
-    the edge cases every v4 and v41 launch's schedule is the kernel's own
-    (rows_lab.card_schedule against rows_lab.wave_schedule)."""
+    on seeded random stacks, at gap 2 and at a gap past JAX's int8 fold;
+    every launch's schedule is the kernel's own (rows_lab.card_schedule
+    against rows_lab.wave_schedule)."""
     import numpy as np
     import torch
 
@@ -1357,13 +1366,12 @@ def phase_kernel_rows_lab():
         prof = torch.from_numpy(make_profile(q, blosum50_ref(), pad_rows_to=pad)).cuda()
         stack = torch.from_numpy(stack).cuda()
         for v, strip, ilp in rows_lab.INSTANCES:
-            if v in rows_lab.WAVE_VARIANTS:
-                want = rows_lab.wave_schedule(v, prof.shape[0], strip, ilp, B)
-                card = rows_lab.card_schedule(v, prof.shape[0], strip, ilp, B, "cuda")
-                if card[:5] != (want.g, want.passes, want.rows_per_block, want.blocks, want.stage_bytes):
-                    raise AssertionError(f"K10 {v} strip {strip} ilp {ilp}: the kernel's launch {card[:5]} is "
-                                         f"not wave_schedule's {want} at qlen={qlen} B={B}")
-                passes.setdefault(f"{v} strip {strip} ilp {ilp}", set()).add(want.passes)
+            want = rows_lab.wave_schedule(v, prof.shape[0], strip, ilp, B)
+            card = rows_lab.card_schedule(v, prof.shape[0], strip, ilp, B, "cuda")
+            if card[:5] != (want.g, want.passes, want.rows_per_block, want.blocks, want.stage_bytes):
+                raise AssertionError(f"K10 {v} strip {strip} ilp {ilp}: the kernel's launch {card[:5]} is "
+                                     f"not wave_schedule's {want} at qlen={qlen} B={B}")
+            passes.setdefault(f"{v} strip {strip} ilp {ilp}", set()).add(want.passes)
         for gap in (2, ROWS_LAB_WIDE_GAP):
             want = rows_lab.rows_lab_plain(prof, stack, gap=gap)
             best = max(best, int(want.max()))
@@ -1382,7 +1390,7 @@ def phase_kernel_rows_lab():
     if best <= 32767:
         raise AssertionError(f"the planted self-alignment scored {best}, within int16")
     if any(max(p) < 2 for p in passes.values()):
-        raise AssertionError(f"some v4 or v41 instantiation crossed no pass boundary: {passes}")
+        raise AssertionError(f"some K10 instantiation crossed no pass boundary: {passes}")
     say("kernel.rows_lab", cases=len(ROWS_LAB_CASES) + len(ROWS_LAB_EDGE_CASES), gaps=[2, ROWS_LAB_WIDE_GAP],
         instances=[f"{v} strip {s} ilp {i}" for v, s, i in rows_lab.INSTANCES], launches=launches, max_score=best,
         wave_passes={k: sorted(v) for k, v in passes.items()}, wave_schedules_equal_card=True,
@@ -2319,10 +2327,15 @@ def phase_lab_rows(db, engine, row_engine):
     segment groups' scores, through the engine's _reduce_flat to the
     wavefront path's scores of all 559,228 sequences; one pass of the plain
     version on the same groups; a per-group table of milliseconds with each
-    instantiation's ratio to K2 and its spread across rounds."""
+    instantiation's ratio to K2 and its spread across rounds; the SMs each
+    group's blocks fill, K2's beside each instantiation's; on the largest
+    group each instantiation at width 1 (the same blocks and stage, a
+    column a row) against its full width: the share of the launch that its
+    staging and the launch itself take."""
     import numpy as np
+    import torch
 
-    from swtpu_torch.ops import rows_lab
+    from swtpu_torch.ops import bucket_sw, rows_lab
     from swtpu_torch.tools import buckets as lb
     from swtpu_torch.tools import pallas_lab
 
@@ -2362,9 +2375,29 @@ def phase_lab_rows(db, engine, row_engine):
                        for g in rg.groups)
              for name, (fn, kw) in pallas_lab.VARIANTS.items()}
     shapes = [(g.chunks, g.rows, g.width) for g in rg.groups]
-    sched = pallas_lab.schedules(qpad, shapes)
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    sched = pallas_lab.schedules(qpad, shapes, sms)
     print("\n".join(pallas_lab.schedule_lines(sched, shapes)), flush=True)
     k2 = res["times"]["K2"]
+    k2_sms = []
+    for c, rows, _ in shapes:  # K2's grid: (blocks, C), 128 / G rows a wavefront block, 64 rows a sweep block
+        g_k2, _ = bucket_sw.rows_shape(qpad // bucket_sw.W, c * rows)
+        k2_sms.append(min(sms, c * -(-rows // (128 // g_k2 if g_k2 > 1 else 64))))
+    group_sms = {"K2": k2_sms, **{n: [x["sms"] for x in sched[n]["launches"]] for n in sched}}
+    print("SMs a group fills: " + "; ".join(f"{n} {v}" for n, v in group_sms.items()), flush=True)
+    big_k = max(range(len(rg.groups)), key=lambda k: rg.groups[k].stack.numel())
+    big = rg.groups[big_k]
+    narrow = big.stack[..., :1].contiguous()
+    want1 = rows_lab.rows_lab_plain(prof, narrow, gap=rg.gap)
+    width1 = {}
+    for name, (fn, kw) in pallas_lab.VARIANTS.items():
+        if not torch.equal(fn(prof, narrow, gap=rg.gap, **kw), want1):  # the warm launch, checked
+            raise AssertionError(f"K10 {name} differs from its plain version on the largest group at width 1")
+        width1[name], _ = events_ms(lambda fn=fn, kw=kw: fn(prof, narrow, gap=rg.gap, **kw), 3)
+    staging = {n: width1[n] / res["times"][n][big_k] for n in width1}
+    print(f"largest group {big.chunks}x{big.rows}x{big.width}: width-1 ms / full-width ms "
+          + "; ".join(f"{n} {width1[n]:.4f} / {res['times'][n][big_k]:.4f} = {staging[n]:.3f}" for n in width1),
+          flush=True)
     say("lab.rows", query=MAIN_QUERY, groups=len(rg.groups), rounds=rounds, launches=launched,
         launches_cover=f"{rounds} rounds of one timed launch an instantiation a group (an untimed K2 launch warms "
                        "each group in each round); a group's ms is the median of its rounds",
@@ -2375,7 +2408,9 @@ def phase_lab_rows(db, engine, row_engine):
         scores_equal_wavefront=int(wave_scores.shape[0]), plain_ms_one_pass=plain_ms,
         bound_ms_a_pass=bound_ms, bound_by=bound_by, carry_bytes=carry,
         wave_ratio_to_k2_by_group={n: [t / b for t, b in zip(res["times"][n], k2)] for n in sched},
-        wave_launches={n: x["launches"] for n, x in sched.items()}, seconds=round(time.perf_counter() - t0, 3))
+        wave_launches={n: x["launches"] for n, x in sched.items()}, sms=sms, group_sms=group_sms,
+        largest_group=[big.chunks, big.rows, big.width], width1_ms_largest_group=width1,
+        staging_share_largest_group=staging, seconds=round(time.perf_counter() - t0, 3))
     entries = []
     for v, line in zip(rows_lab.VARIANTS, (102, 206, 304, 389)):
         mine = [name for name, (fn, _) in pallas_lab.VARIANTS.items() if fn is rows_lab.WRAPPERS[v]]

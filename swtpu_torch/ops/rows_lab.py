@@ -1,29 +1,31 @@
 """K10: the row-parallel lab kernels of ``tools/pallas_lab.py`` on the card.
 
 Counterparts of the four TPU lab kernels behind one CUDA entry point
-(``csrc/sw_rows_lab.cu``, whose note defines each one), in two designs:
+(``csrc/sw_rows_lab.cu``, whose note defines each one), in one design: a
+copy of K2's warp wavefront (``csrc/sw_rows.cu``: G threads a subject row,
+thread g holding band g of ``strip`` query rows, a block staging each pass
+of the profile once for its rows, the carry through device memory only
+between passes), with each TPU knob as a knob of that schedule:
 
-* ``sw_rows_v2`` (``sw_v2``, ``tools/pallas_lab.py:102``) and ``sw_rows_v3``
-  (``sw_v3``, :206) run the warp-scan design, one warp a subject row, its
-  lanes 32 columns, the horizontal gap as a max-scan over the lanes in
-  u-space: v2's warps each stage their own subject's scores on the tensor
-  cores, v3's block of 8 warps stages one column of its 8 subjects an mma;
-  ``strip`` 16 or 32;
-* ``sw_rows_v4`` (``sw_v4``, :304) and ``sw_rows_v41`` (``sw_v41``, :389)
-  run a copy of K2's warp wavefront (``csrc/sw_rows.cu``: G threads a
-  subject row, thread g holding band g of ``strip`` query rows, the carry
-  through device memory only between passes), with the TPU knobs as knobs
-  of that schedule: v4's interleaved chains as ``ilp`` (2 or 4) rows a
-  thread group at ``strip`` 32; v41's rotate as the hand-off
+* ``sw_rows_v2`` (``sw_v2``, ``tools/pallas_lab.py:102``): each subject's own
+  copy of the profile as a block of one warp that stages its own pass (2
+  rows a stage at ``strip`` 32, 1 at 16);
+* ``sw_rows_v3`` (``sw_v3``, :206): one profile shared by 16 subjects as 16
+  rows a stage (256-thread blocks at ``strip`` 32, 512 at 16);
+* ``sw_rows_v4`` (``sw_v4``, :304): the interleaved chains as ``ilp`` (2 or
+  4) rows a thread group at ``strip`` 32;
+* ``sw_rows_v41`` (``sw_v41``, :389): the rotate as the hand-off
   ``shfl.sync.idx`` from a hoisted source lane, at ``strip`` 16 (16-row
-  bands, up to 32 a pass) or 32 (K2's shape).  ``wave_schedule`` gives their
-  launch: G, passes, rows a block, blocks and the shared stage.
+  bands, up to 32 a pass) or 32 (K2's shape).
+
+``wave_schedule`` gives each launch: G, passes, rows a block, blocks and the
+shared stage.
 
 They take K2's contract (``bucket_sw.sw_score_bucket_fused``): a (qpad, 32)
 int8 profile, a (B, L) bucket or (C, B, L) stack of int8 subjects (pads
 PAD_SUBJECT) and a linear ``gap``, and return (B,) or (C, B) exact int32
-Smith-Waterman maxima.  ``strip`` is the kernel's query rows a strip or band
-(the TPU kernels' strip 8 is 16 here: an mma's M); no strip changes a score.
+Smith-Waterman maxima.  ``strip`` is the kernel's query rows a band (the TPU
+kernels' strip 8 is 16 here); no band height changes a score.
 
 For tensors on the card each wrapper launches its variant and counts it on
 its own ``launches``; for tensors on the CPU it runs ``rows_lab_plain``.  A
@@ -47,13 +49,12 @@ STRIPS = {"v2": (16, 32), "v3": (16, 32), "v4": (32,), "v41": (16, 32)}
 ILPS = (2, 4)  # v4's rows a thread group
 # Every instantiation of the kernel: (variant, strip, ilp).
 INSTANCES = tuple((v, s, ilp) for v in VARIANTS for s in STRIPS[v] for ilp in (ILPS if v == "v4" else (1,)))
-WAVE_VARIANTS = ("v4", "v41")  # on K2's warp wavefront (csrc: sw_rows_wave_lab_kernel)
-# The wavefront's threads a block and most bands a pass, by band height: K2's
-# 128 and 16 at 32 rows; at 16 rows 256 and 32, so the widest pass's block
-# still holds 8 rows.
-WAVE_BLOCK = {16: 256, 32: 128}
-WAVE_MAX_G = {16: 32, 32: 16}
-STAGE_INTS = {h: 32 * (h + 4) + 4 for h in WAVE_BLOCK}  # int32 a band of the shared stage (csrc: Stage<H>::BAND)
+# Threads a block of each (variant, strip), as csrc/sw_rows_lab.cu instantiates it: v2 one warp, staging its
+# own pass; v3 16 rows a stage at the widest pass; v4 K2's 128; v41 8 rows a stage at the widest pass, as K2.
+BLOCK_THREADS = {("v2", 16): 32, ("v2", 32): 32, ("v3", 16): 512, ("v3", 32): 256, ("v4", 32): 128,
+                 ("v41", 16): 256, ("v41", 32): 128}
+WAVE_MAX_G = {16: 32, 32: 16}  # most bands a pass, by band height: K2's 16 at 32 rows
+STAGE_INTS = {h: 32 * (h + 4) + 4 for h in WAVE_MAX_G}  # int32 a band of the shared stage (csrc: Stage<H>::BAND)
 SM_SHARED_BYTES = 233_472  # an H100 SM's shared memory, 228 KB
 BLOCK_RESERVED_BYTES = 1_024  # shared memory the runtime reserves a block
 
@@ -64,9 +65,9 @@ _kernel_lib = _build.Library("sw_rows_lab",
 
 
 class WaveSchedule(NamedTuple):
-    """A v4 or v41 launch on one bucket: ``g`` bands a pass in ``g``
-    threads a row group, ``pass_bands`` bands in the first pass, ``passes``
-    passes (the carry goes through device memory between passes only),
+    """A K10 launch on one bucket: ``g`` bands a pass in ``g`` threads a
+    row group, ``pass_bands`` bands in the first pass, ``passes`` passes
+    (the carry goes through device memory between passes only),
     ``rows_per_block`` rows a block, ``blocks`` blocks a bucket,
     ``stage_bytes`` of dynamic shared memory a block, and the blocks an SM
     that shared memory alone allows."""
@@ -81,17 +82,17 @@ class WaveSchedule(NamedTuple):
 
 
 def wave_schedule(variant: str, n_rows: int, strip: int, ilp: int, B: int) -> WaveSchedule:
-    """The launch of rebuilt ``variant`` (v4 or v41) for a profile of
-    ``n_rows`` rows (padded to whole bands of ``strip`` rows) on a bucket of
-    ``B`` rows: G is the fewest power of two at least the bands, at most
-    ``WAVE_MAX_G[strip]`` (K2's rule, ``bucket_sw.rows_shape``, at 32-row
-    bands), a block holds ``WAVE_BLOCK[strip] / G`` groups of ``ilp`` rows.
+    """The launch of ``variant`` for a profile of ``n_rows`` rows (padded
+    to whole bands of ``strip`` rows) on a bucket of ``B`` rows: G is the
+    fewest power of two at least the bands, at most ``WAVE_MAX_G[strip]``
+    (K2's rule, ``bucket_sw.rows_shape``, at 32-row bands), a block holds
+    ``BLOCK_THREADS[variant, strip] / G`` groups of ``ilp`` rows.
     ``sw_rows_lab.cu``'s launch computes the same (``card_schedule``)."""
-    if variant not in WAVE_VARIANTS or (variant, strip, ilp) not in INSTANCES or n_rows < 1 or B < 0:
+    if (variant, strip, ilp) not in INSTANCES or n_rows < 1 or B < 0:
         raise ValueError(f"no wavefront schedule for {variant} n_rows={n_rows} strip={strip} ilp={ilp} B={B}")
     n_bands = -(-n_rows // strip)
     g = min(WAVE_MAX_G[strip], 1 << (n_bands - 1).bit_length())
-    per_block = WAVE_BLOCK[strip] // g * ilp
+    per_block = BLOCK_THREADS[variant, strip] // g * ilp
     stage = 4 * g * STAGE_INTS[strip]
     return WaveSchedule(g=g, pass_bands=min(g, n_bands), passes=-(-n_bands // g), rows_per_block=per_block,
                         blocks=-(-B // per_block), stage_bytes=stage,
@@ -149,10 +150,7 @@ def _launch(variant, profile, stack, gap, strip, ilp, counter) -> torch.Tensor:
     prof = pad_profile(profile, strip).contiguous()
     stack = stack.contiguous()
     n_strips = prof.shape[0] // strip
-    if variant in WAVE_VARIANTS:
-        multi = wave_schedule(variant, prof.shape[0], strip, ilp, B).passes > 1
-    else:
-        multi = n_strips > 1
+    multi = wave_schedule(variant, prof.shape[0], strip, ilp, B).passes > 1
     carry = torch.empty(C * B * L if multi else 1, dtype=torch.int32, device=dev)
     lib = _kernel_lib()
     rc = lib.sw_rows_lab_launch(prof.data_ptr(), stack.data_ptr(), carry.data_ptr(), out.data_ptr(), C, n_strips, B,
@@ -164,22 +162,18 @@ def _launch(variant, profile, stack, gap, strip, ilp, counter) -> torch.Tensor:
 
 def carry_bytes(variant: str, n_rows: int, strip: int, chunks: int, rows: int, width: int, ilp: int = 1) -> int:
     """Carry traffic of one launch on a profile of ``n_rows`` rows: every
-    strip (v2, v3) or pass (v4, v41: ``wave_schedule``) but the last writes
-    its bottom row (an int32 a column) and the next one reads it."""
-    if variant in WAVE_VARIANTS:
-        steps = wave_schedule(variant, n_rows, strip, ilp, rows).passes
-    else:
-        steps = -(-n_rows // strip)
-    return 8 * (steps - 1) * chunks * rows * width
+    pass (``wave_schedule``) but the last writes its bottom row (an int32 a
+    column) and the next one reads it."""
+    return 8 * (wave_schedule(variant, n_rows, strip, ilp, rows).passes - 1) * chunks * rows * width
 
 
 def sw_rows_v2(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32) -> torch.Tensor:
-    """K10 v2: each warp stages its own subject's scores."""
+    """K10 v2: K2's wavefront in one-warp blocks, each staging its own pass."""
     return _run("v2", profile, subjects, gap, strip, 1, sw_rows_v2)
 
 
 def sw_rows_v3(profile: torch.Tensor, subjects: torch.Tensor, *, gap: int, strip: int = 32) -> torch.Tensor:
-    """K10 v3: 8 subjects a block share the staging."""
+    """K10 v3: K2's wavefront with one staged pass shared by 16 rows."""
     return _run("v3", profile, subjects, gap, strip, 1, sw_rows_v3)
 
 

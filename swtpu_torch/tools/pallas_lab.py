@@ -1,15 +1,15 @@
 """K10 on the card: the row-parallel lab kernels beside K2.
 
 The counterpart of ``tools/pallas_lab.py``'s ``main``, on the port's kernels
-(``swtpu_torch.ops.rows_lab``: every instantiation of v2, v3, v4 and v41;
-``csrc/sw_rows_lab.cu`` holds two designs: v2 and v3 a warp a subject row,
-the warp-scan design; v4 and v41 a copy of K2's warp wavefront with v4's
-``ilp`` rows a thread group and v41's rotate hand-off at 16- or 32-row
-bands).  Both runs print, for each v4 and v41 instantiation, its launch on
-each bucket (``schedules``: G, passes, rows a block, blocks, stage bytes and
-blocks an SM, the kernel's own, checked against ``rows_lab.wave_schedule``)
-and its carry bytes.  Two runs, each timed with CUDA events and printed
-beside the card's name and power limit:
+(``swtpu_torch.ops.rows_lab``: every instantiation of v2, v3, v4 and v41,
+one design in ``csrc/sw_rows_lab.cu``: a copy of K2's warp wavefront with
+v2's one-warp blocks, v3's 16 rows a stage, v4's ``ilp`` rows a thread
+group and v41's rotate hand-off at 16- or 32-row bands).  Both runs print,
+for each instantiation, its launch on each bucket (``schedules``: G,
+passes, rows a block, blocks, stage bytes, blocks and warps an SM, the
+kernel's own, checked against ``rows_lab.wave_schedule``, and the SMs the
+bucket's blocks fill) and its carry bytes.  Two runs, each timed with CUDA
+events and printed beside the card's name and power limit:
 
 * synthetic (the default): ``tools/pallas_lab.py``'s bucket, made the same
   way (``default_rng(0)``; B subjects of L columns, each L/4 to L-1 residues,
@@ -65,26 +65,28 @@ def launches(rg: buckets.RowGroups) -> Dict[str, Callable[[PackedGroup], torch.T
     return out
 
 
-def schedules(profile_rows: int, shapes: Sequence[tuple]) -> Dict[str, Dict]:
-    """For each v4 and v41 instantiation, on each (chunks, rows, width)
-    bucket shape: the kernel's launch (``rows_lab.card_schedule``: G,
-    passes, rows a block, blocks a bucket, stage bytes, blocks an SM), its
-    warps an SM, and the carry bytes of all the shapes.  Raises if the
+def schedules(profile_rows: int, shapes: Sequence[tuple], sms: Optional[int] = None) -> Dict[str, Dict]:
+    """For each instantiation, on each (chunks, rows, width) bucket shape:
+    the kernel's launch (``rows_lab.card_schedule``: G, passes, rows a
+    block, blocks a bucket, stage bytes, blocks an SM), its warps an SM, the
+    SMs its chunks x blocks fill of the card's ``sms`` (the current card's
+    when None), and the carry bytes of all the shapes.  Raises if the
     kernel's launch is not ``rows_lab.wave_schedule``'s."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
     out = {}
     for name, (fn, kw) in VARIANTS.items():
         v = next(v for v, f in rows_lab.WRAPPERS.items() if f is fn)
-        if v not in rows_lab.WAVE_VARIANTS:
-            continue
         strip, ilp = kw["strip"], kw.get("ilp", 1)
         launches = []
-        for _, rows, _ in shapes:
+        for chunks, rows, _ in shapes:
             card = rows_lab.card_schedule(v, profile_rows, strip, ilp, rows, "cuda")
             want = rows_lab.wave_schedule(v, profile_rows, strip, ilp, rows)
             if card[:5] != (want.g, want.passes, want.rows_per_block, want.blocks, want.stage_bytes):
                 raise AssertionError(f"{name}: the kernel's launch {card[:5]} is not wave_schedule's {want}")
             launches.append(dict(zip(("g", "passes", "rows_per_block", "blocks", "stage_bytes", "blocks_per_sm"),
-                                     card), warps_per_sm=card[5] * rows_lab.WAVE_BLOCK[strip] // 32))
+                                     card), warps_per_sm=card[5] * rows_lab.BLOCK_THREADS[v, strip] // 32,
+                                 sms=min(sms, chunks * card[3])))
         out[name] = {"launches": launches, "carry_bytes": sum(
             rows_lab.carry_bytes(v, profile_rows, strip, c, r, w, ilp=ilp) for c, r, w in shapes)}
     return out
@@ -92,16 +94,16 @@ def schedules(profile_rows: int, shapes: Sequence[tuple]) -> Dict[str, Dict]:
 
 def schedule_lines(sched: Dict[str, Dict], shapes: Sequence[tuple]) -> list:
     """Lines of ``schedules``' result: an instantiation a line, its launch on
-    each distinct shape's rows."""
+    each distinct (chunks, rows) of the shapes, in their order."""
     lines = []
     for name, s in sched.items():
         seen = {}
-        for (_, rows, _), x in zip(shapes, s["launches"]):
-            seen.setdefault(rows, x)
+        for (chunks, rows, _), x in zip(shapes, s["launches"]):
+            seen.setdefault((chunks, rows), x)
         lines.append(f"{name:16s} carry {s['carry_bytes']} B; " + "; ".join(
-            f"{rows} rows: G{x['g']} x{x['passes']} {x['rows_per_block']} rows/block {x['blocks']} blocks "
-            f"{x['stage_bytes']} B stage {x['blocks_per_sm']} blocks ({x['warps_per_sm']} warps)/SM"
-            for rows, x in sorted(seen.items())))
+            f"{chunks}x{rows} rows: G{x['g']} x{x['passes']} {x['rows_per_block']} rows/block {x['blocks']} blocks "
+            f"{x['stage_bytes']} B stage {x['blocks_per_sm']} blocks ({x['warps_per_sm']} warps)/SM, {x['sms']} SMs"
+            for (chunks, rows), x in seen.items()))
     return lines
 
 

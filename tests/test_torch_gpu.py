@@ -624,9 +624,11 @@ def test_i16_tile_launches_on_the_callers_stream(cuda):
     "qlen,C,B,L,pad",
     [(1, 1, 1, 8, 32), (20, 3, 77, 40, 32), (33, 2, 129, 1, 32), (100, 3, 333, 31, 32), (464, 1, 9, 4100, 32),
      (300, 3, 31, 6000, 32),
-     # v4's and v41's pass boundaries (34 16-row, 17 32-row bands; 38 and 19 unpadded), query tails that are
-     # no whole band, and B off the rows a block at ILP 2 (16) and 4 (32)
-     (520, 2, 37, 96, 32), (600, 1, 50, 200, 1), (37, 3, 33, 64, 1), (530, 2, 17, 130, 8)],
+     # pass boundaries (34 16-row, 17 32-row bands; 38 and 19 unpadded), query tails that are no whole band,
+     # B off the rows a block at ILP 2 (16) and 4 (32) and off v3's 16, and P01008's length at B = 23 (v3:
+     # two 16-row blocks) and B = 1 (v2: one one-row block)
+     (520, 2, 37, 96, 32), (600, 1, 50, 200, 1), (37, 3, 33, 64, 1), (530, 2, 17, 130, 8), (464, 2, 23, 64, 32),
+     (464, 1, 1, 300, 32)],
 )
 @pytest.mark.parametrize("gap", [2, 120])
 def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, pad, gap):
@@ -647,11 +649,11 @@ def test_rows_lab_kernels_match_plain(cuda, qlen, C, B, L, pad, gap):
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert got.shape == (C, B) and torch.equal(got, want), (v, s, ilp)
-        if v in rows_lab.WAVE_VARIANTS:  # the kernel's launch is the schedule the wrapper sized its carry by
-            sched = rows_lab.wave_schedule(v, prof.shape[0], s, ilp, B)
-            card = rows_lab.card_schedule(v, prof.shape[0], s, ilp, B, cuda)
-            assert card[:5] == (sched.g, sched.passes, sched.rows_per_block, sched.blocks, sched.stage_bytes)
-            assert 1 <= card[5] <= sched.smem_blocks_per_sm
+        # the kernel's launch is the schedule the wrapper sized its carry by
+        sched = rows_lab.wave_schedule(v, prof.shape[0], s, ilp, B)
+        card = rows_lab.card_schedule(v, prof.shape[0], s, ilp, B, cuda)
+        assert card[:5] == (sched.g, sched.passes, sched.rows_per_block, sched.blocks, sched.stage_bytes)
+        assert 1 <= card[5] <= sched.smem_blocks_per_sm
 
 
 def test_cli_and_native_packed_streaming_on_card(cuda, tmp_path):

@@ -74,8 +74,8 @@ def _jax(variant, prof, subj, gap, strip, ilp):
 
 
 def _port(variant, prof, subj, gap, strip, ilp):
-    """The port's wrapper at its own strip: the JAX strip 8 is 16 here (an
-    mma's M), 16 is 32; v4 runs at 32."""
+    """The port's wrapper at its own band height: the JAX strip 8 is 16
+    here, 16 is 32; v4 runs at 32."""
     kw = dict(gap=gap, strip=32 if variant == "v4" or strip == 16 else 16)
     if variant == "v4":
         kw["ilp"] = ilp

@@ -1,17 +1,18 @@
-"""K10 v4's and v41's schedule on K2's warp wavefront, on the CPU.
+"""K10's schedule on K2's warp wavefront, on the CPU.
 
-``sw_rows_v4`` and ``sw_rows_v41`` (``ops/rows_lab.py``) run a
-copy of K2's warp wavefront (``csrc/sw_rows_lab.cu``:
-``sw_rows_wave_lab_kernel<H, ILP, ROLL>``).  Their launch follows a pure
-function, ``wave_schedule``: G bands a pass (the fewest power of two at
-least the bands, at most 16 at 32-row bands and 32 at 16-row bands), passes,
-rows a block, blocks and the shared stage.  These cases pin that function,
+``sw_rows_v2``, ``sw_rows_v3``, ``sw_rows_v4`` and ``sw_rows_v41``
+(``ops/rows_lab.py``) run a copy of K2's warp wavefront
+(``csrc/sw_rows_lab.cu``: ``sw_rows_wave_lab_kernel<H, ILP, ROLL, BLOCK>``).
+Their launch follows a pure function, ``wave_schedule``: G bands a pass (the
+fewest power of two at least the bands, at most 16 at 32-row bands and 32
+at 16-row bands), passes, rows a block (the variant's threads a block over
+G, times ILP), blocks and the shared stage.  These cases pin that function,
 and hold ``_wave_rows`` -- the schedule run step by step in PyTorch: G bands
 of 16 or 32 rows a pass, ILP rows a thread group, the carry only between
 passes -- exactly to ``rows_lab_plain`` and to ``tools/pallas_lab.py``'s
-``sw_v4`` and ``sw_v41`` in interpret mode.  The CUDA kernel is held to the
-plain version, and its launch to ``wave_schedule``, on the card
-(tests/test_torch_gpu.py, chip_smoke.py).
+``sw_v2``, ``sw_v3``, ``sw_v4`` and ``sw_v41`` in interpret mode.  The CUDA
+kernel is held to the plain version, and its launch to ``wave_schedule``,
+on the card (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
 import ctypes
@@ -28,7 +29,7 @@ from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 from tools import pallas_lab
 
 MAT = blosum50_ref()
-WAVE_INSTANCES = [inst for inst in rows_lab.INSTANCES if inst[0] in rows_lab.WAVE_VARIANTS]
+WAVE_INSTANCES = list(rows_lab.INSTANCES)  # every instantiation runs the wavefront
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -61,6 +62,15 @@ def _one_torch_thread():
         ("v41", 4548, 16, 1, 19, (32, 32, 9, 8, 3)),  # the suite's longest query: 285 bands
         ("v41", 4548, 32, 1, 19, (16, 16, 9, 8, 3)),
         ("v4", 100, 32, 2, 0, (4, 4, 1, 64, 0)),
+        ("v2", 480, 32, 1, 64, (16, 15, 1, 2, 32)),  # P01008, a 64-row group: one-warp blocks on 32 SMs
+        ("v2", 480, 16, 1, 64, (32, 30, 1, 1, 64)),  # at 16-row bands a row a block: 64 SMs
+        ("v2", 480, 16, 1, 1, (32, 30, 1, 1, 1)),
+        ("v2", 20, 32, 1, 40, (1, 1, 1, 32, 2)),  # one band: a thread a row
+        ("v3", 480, 16, 1, 1408, (32, 30, 1, 16, 88)),  # 16 rows a stage: 512 threads at G = 32
+        ("v3", 480, 32, 1, 1408, (16, 15, 1, 16, 88)),  # 256 threads at G = 16
+        ("v3", 480, 32, 1, 64, (16, 15, 1, 16, 4)),
+        ("v3", 480, 16, 1, 17, (32, 30, 1, 16, 2)),  # one row past a whole block
+        ("v3", 528, 16, 1, 9, (32, 32, 2, 16, 1)),  # 33 16-row bands: a last pass of one band
     ],
 )
 def test_wave_schedule(variant, n_rows, strip, ilp, B, want):
@@ -68,7 +78,7 @@ def test_wave_schedule(variant, n_rows, strip, ilp, B, want):
     assert (sched.g, sched.pass_bands, sched.passes, sched.rows_per_block, sched.blocks) == want
     n_bands = -(-n_rows // strip)
     assert (sched.passes - 1) * sched.g < n_bands <= sched.passes * sched.g
-    assert sched.rows_per_block == rows_lab.WAVE_BLOCK[strip] // sched.g * ilp
+    assert sched.rows_per_block == rows_lab.BLOCK_THREADS[variant, strip] // sched.g * ilp
     assert (sched.blocks - 1) * sched.rows_per_block < B <= sched.blocks * sched.rows_per_block or B == 0
     assert sched.stage_bytes == 4 * sched.g * (32 * (strip + 4) + 4)
 
@@ -79,12 +89,14 @@ def test_wave_schedule_follows_k2s_rule_and_records_the_stage():
     for n in range(2, 200):  # K2's wavefront rule at 32-row bands (rows_shape below its band-sweep threshold)
         assert rows_lab.wave_schedule("v41", 32 * n, 32, 1, 8).g == bucket_sw.rows_shape(n, 8)[0]
     stages = {(v, s, i): rows_lab.wave_schedule(v, 480, s, i, 64) for v, s, i in WAVE_INSTANCES}
-    assert {k: (x.stage_bytes, x.smem_blocks_per_sm) for k, x in stages.items()} == {
-        ("v4", 32, 2): (73_984, 3), ("v4", 32, 4): (73_984, 3),  # K2's 74 KB stage at G = 16
-        ("v41", 16, 1): (82_432, 2), ("v41", 32, 1): (73_984, 3)}
-    assert all(x.rows_per_block == 8 * i for (_, _, i), x in stages.items())  # K2's 8 rows a stage, times ILP
-    for bad in [("v2", 480, 16, 1, 8), ("v3", 480, 32, 1, 8), ("v4", 480, 16, 2, 8), ("v4", 480, 32, 1, 8),
-                ("v41", 480, 32, 2, 8), ("v41", 0, 16, 1, 8), ("v41", 480, 16, 1, -1)]:
+    assert {k: (x.stage_bytes, x.smem_blocks_per_sm, x.rows_per_block) for k, x in stages.items()} == {
+        ("v2", 16, 1): (82_432, 2, 1), ("v2", 32, 1): (73_984, 3, 2),  # a warp a block: 32 / G rows a stage
+        ("v3", 16, 1): (82_432, 2, 16), ("v3", 32, 1): (73_984, 3, 16),  # 16 rows a stage
+        ("v4", 32, 2): (73_984, 3, 16), ("v4", 32, 4): (73_984, 3, 32),  # K2's 74 KB stage at G = 16, 8 x ILP rows
+        ("v41", 16, 1): (82_432, 2, 8), ("v41", 32, 1): (73_984, 3, 8)}  # K2's 8 rows a stage
+    for bad in [("v2", 480, 16, 2, 8), ("v2", 480, 64, 1, 8), ("v3", 480, 32, 4, 8), ("v3", 480, 8, 1, 8),
+                ("v4", 480, 16, 2, 8), ("v4", 480, 32, 1, 8), ("v41", 480, 32, 2, 8), ("v41", 0, 16, 1, 8),
+                ("v41", 480, 16, 1, -1), ("v3", 0, 32, 1, 8), ("v2", 480, 32, 1, -1)]:
         with pytest.raises(ValueError, match="no wavefront schedule"):
             rows_lab.wave_schedule(*bad)
 
@@ -93,7 +105,8 @@ def test_wave_schedule_follows_k2s_rule_and_records_the_stage():
     "variant,n_rows,strip,ilp,want",
     [("v41", 480, 16, 1, 0), ("v41", 480, 32, 1, 0), ("v4", 480, 32, 4, 0),  # P01008: one pass at either height
      ("v41", 528, 16, 1, 8 * 3 * 64 * 100), ("v4", 544, 32, 2, 8 * 3 * 64 * 100),  # two passes: one carry
-     ("v3", 480, 16, 1, 8 * 29 * 3 * 64 * 100), ("v2", 480, 32, 1, 8 * 14 * 3 * 64 * 100)],  # the warp-scan design: every strip
+     ("v3", 480, 16, 1, 0), ("v2", 480, 32, 1, 0),  # P01008 on the wavefront: one pass, no carry
+     ("v2", 528, 16, 1, 8 * 3 * 64 * 100), ("v3", 544, 32, 1, 8 * 3 * 64 * 100)],  # two passes: one carry
 )
 def test_carry_bytes_follow_the_schedule(variant, n_rows, strip, ilp, want):
     assert rows_lab.carry_bytes(variant, n_rows, strip, 3, 64, 100, ilp=ilp) == want
@@ -124,7 +137,7 @@ def _wave_rows(profile: torch.Tensor, stack: torch.Tensor, *, gap: int, variant:
     C, B, L = stack.shape
     sched = rows_lab.wave_schedule(variant, prof.shape[0], strip, ilp, B)
     g, n_bands = sched.g, prof.shape[0] // strip
-    groups = rows_lab.WAVE_BLOCK[strip] // g
+    groups = rows_lab.BLOCK_THREADS[variant, strip] // g
     k, j, i = torch.meshgrid(torch.arange(sched.blocks), torch.arange(groups), torch.arange(ilp), indexing="ij")
     slot = ((k * groups + j) * ilp + i).reshape(-1)  # the kernel's b0 + i, block by block, group by group
     assert torch.equal(slot.sort().values, torch.arange(slot.numel()))  # every slot once
@@ -216,16 +229,22 @@ def _jax_inputs(B, L, Q, seed):
 
 @pytest.mark.parametrize("variant,strip,ilp", WAVE_INSTANCES)
 def test_schedule_run_step_by_step_equals_pallas_lab(variant, strip, ilp):
-    """``sw_v4`` (its ILP the port's) and ``sw_v41`` in interpret mode at
-    JAX strip 8, tile_b 16, the gap folded into the int8 lhs, on a 16-row
-    bucket of 64 columns and a 40-residue query: the same scores as the
-    port's schedule at its own band height."""
+    """``sw_v2`` (tile_b 8) and ``sw_v3`` (tile_b 16) on the block-diagonal
+    lhs, ``sw_v4`` (its ILP the port's) and ``sw_v41`` (tile_b 16) with the
+    gap folded into the int8 lhs, in interpret mode at JAX strip 8, on a
+    16-row bucket of 64 columns and a 40-residue query: the same scores as
+    the port's schedule at its own band height."""
     B, L, Q, gap = 16, 64, 40, 2
     q, subj = _jax_inputs(B, L, Q, seed=B + L + Q)
     prof = xla_sw.make_profile(q, MAT, pad_rows_to=8)
     reb = jnp.broadcast_to((jnp.arange(L, dtype=jnp.int32) * gap)[None, :], (B, L))
     lhs = jnp.asarray(pallas_lab.expand_profile_blockdiag(prof + np.int8(gap), 8, 8))
-    if variant == "v4":
+    plain_lhs = jnp.asarray(pallas_lab.expand_profile_blockdiag(prof, 8, 8))
+    if variant == "v2":
+        want = pallas_lab.sw_v2(plain_lhs, jnp.asarray(subj), reb, gap=gap, strip=8, tile_b=8, interpret=True)
+    elif variant == "v3":
+        want = pallas_lab.sw_v3(plain_lhs, jnp.asarray(subj), reb, gap=gap, strip=8, tile_b=16, interpret=True)
+    elif variant == "v4":
         want = pallas_lab.sw_v4(lhs, jnp.asarray(subj), reb, gap=gap, strip=8, tile_b=16, n_ilp=ilp, interpret=True)
     else:
         want = pallas_lab.sw_v41(lhs, jnp.asarray(subj), reb, gap=gap, strip=8, tile_b=16, interpret=True)
@@ -235,9 +254,9 @@ def test_schedule_run_step_by_step_equals_pallas_lab(variant, strip, ilp):
 
 
 def test_pallas_lab_tool_reads_the_kernels_launch(monkeypatch):
-    """``--swissprot``'s schedule lines: each v4 and v41 instantiation's
-    launch on each group as the kernel reports it, which must be
-    ``wave_schedule``'s, and its carry bytes."""
+    """``--swissprot``'s schedule lines: each instantiation's launch on each
+    group as the kernel reports it, which must be ``wave_schedule``'s, the
+    SMs the group's blocks fill, and its carry bytes."""
     from swtpu_torch.tools import pallas_lab as tool
 
     def card(v, n_rows, strip, ilp, B, device):  # the card's report, without a card: the schedule, 2 blocks an SM
@@ -246,13 +265,16 @@ def test_pallas_lab_tool_reads_the_kernels_launch(monkeypatch):
 
     monkeypatch.setattr(rows_lab, "card_schedule", card)
     shapes = [(1, 64, 6144), (4, 8192, 896)]
-    sched = tool.schedules(480, shapes)
-    assert list(sched) == [n for n, (fn, _) in tool.VARIANTS.items()
-                           if fn in (rows_lab.sw_rows_v4, rows_lab.sw_rows_v41)]
+    sched = tool.schedules(480, shapes, sms=132)
+    assert list(sched) == list(tool.VARIANTS) and len(sched) == 8
     assert sched["v41/S16"]["launches"][0] == dict(g=32, passes=1, rows_per_block=8, blocks=8, stage_bytes=82_432,
-                                                   blocks_per_sm=2, warps_per_sm=16)
+                                                   blocks_per_sm=2, warps_per_sm=16, sms=8)
+    assert sched["v2/S16"]["launches"][0] == dict(g=32, passes=1, rows_per_block=1, blocks=64, stage_bytes=82_432,
+                                                  blocks_per_sm=2, warps_per_sm=2, sms=64)  # a warp a block
+    assert sched["v3/S32"]["launches"][1] == dict(g=16, passes=1, rows_per_block=16, blocks=512,
+                                                  stage_bytes=73_984, blocks_per_sm=2, warps_per_sm=16, sms=132)
     assert all(s["carry_bytes"] == 0 for s in sched.values())  # P01008: one pass at either height
-    assert len(tool.schedule_lines(sched, shapes)) == 4
+    assert len(tool.schedule_lines(sched, shapes)) == 8
     monkeypatch.setattr(rows_lab, "card_schedule", lambda *a: (8,) + card(*a)[1:])
     with pytest.raises(AssertionError, match="not wave_schedule's"):
-        tool.schedules(480, shapes)
+        tool.schedules(480, shapes, sms=132)
