@@ -182,7 +182,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             result = engine.search(query, db)
         summary = trace_summary(path)
         print(f"swtpu_torch: profile: {path}: {summary['events']} events, {summary['device_events']} on the device, "
-              f"kernels {sorted(summary['kernel_ms'])}", file=sys.stderr)
+              f"kernels {sorted(summary['kernel_ms'])}, window {summary['window_ms']:.3f} ms, "
+              f"busy share {summary['busy_share']}", file=sys.stderr)
         if engine.device.type == "cuda" and not summary["device_events"]:
             print("swtpu_torch: profile: the trace holds no device events", file=sys.stderr)
 

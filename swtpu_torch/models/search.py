@@ -90,6 +90,7 @@ from ..utils.bucketing import (
 )
 from ..utils.memory import reraise_oom, resident_cell_budget, scratch_budget_bytes
 from ..utils.metrics import PhaseTimer, SearchMetrics
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -142,39 +143,41 @@ class SearchResult:
         The Gumbel null is fitted to this query's score distribution
         (swtpu_torch.stats), from the engine-collected ``null_stats`` when
         present, else from the full score array.  Returns
-        ``List[swtpu_torch.stats.HitStat]``.
+        ``List[swtpu_torch.stats.HitStat]``.  The fit is the span
+        ``swtpu.evalues``.
         """
-        from ..stats import hit_significance, null_stats_from_scores
+        with span("swtpu.evalues"):
+            from ..stats import hit_significance, null_stats_from_scores
 
-        hits = self.top_k(k)
-        if self.null_stats is not None:
-            ns = self.null_stats
-            needed = int(np.ceil(trim * ns.count)) if trim > 0 else 0
-            if needed > np.asarray(ns.top_vals).size:
-                # A larger trim than the engine collected for cannot be
-                # honoured: fail rather than fit at a smaller effective trim.
+            hits = self.top_k(k)
+            if self.null_stats is not None:
+                ns = self.null_stats
+                needed = int(np.ceil(trim * ns.count)) if trim > 0 else 0
+                if needed > np.asarray(ns.top_vals).size:
+                    # A larger trim than the engine collected for cannot be
+                    # honoured: fail rather than fit at a smaller effective trim.
+                    raise ValueError(
+                        f"trim={trim} needs the top {needed} scores but the "
+                        f"engine collected {np.asarray(ns.top_vals).size}; "
+                        "use the engine-default trim, or fit from the full "
+                        "score array (swtpu_torch.stats.null_stats_from_scores)"
+                    )
+                return hit_significance(ns, hits, trim=trim)
+            if self.scores is None:
                 raise ValueError(
-                    f"trim={trim} needs the top {needed} scores but the "
-                    f"engine collected {np.asarray(ns.top_vals).size}; "
-                    "use the engine-default trim, or fit from the full "
-                    "score array (swtpu_torch.stats.null_stats_from_scores)"
+                    "top_k_stats needs the full score array (or engine-collected "
+                    "null statistics: run with SWConfig.evalue=True) to fit the "
+                    "null distribution"
                 )
-            return hit_significance(ns, hits, trim=trim)
-        if self.scores is None:
-            raise ValueError(
-                "top_k_stats needs the full score array (or engine-collected "
-                "null statistics: run with SWConfig.evalue=True) to fit the "
-                "null distribution"
+            m = self.metrics
+            null = null_stats_from_scores(
+                self.scores,
+                n_subjects=int(np.asarray(self.scores).size),
+                query_length=m.query_length,
+                mean_subject_length=m.residue_sum / max(m.n_subjects, 1),
+                trim=trim,
             )
-        m = self.metrics
-        null = null_stats_from_scores(
-            self.scores,
-            n_subjects=int(np.asarray(self.scores).size),
-            query_length=m.query_length,
-            mean_subject_length=m.residue_sum / max(m.n_subjects, 1),
-            trim=trim,
-        )
-        return hit_significance(null, hits, trim=trim)
+            return hit_significance(null, hits, trim=trim)
 
 
 def _null_moments(flat: torch.Tensor, bins: torch.Tensor, nb: int) -> torch.Tensor:
@@ -528,12 +531,13 @@ class SearchEngine:
         max(seg_widths), each packed on the host and its row shards placed
         on the devices as soon as it is packed (``_place_rows``; one device
         holds one shard)."""
-        if self._wave_enabled:
-            if plan is None:
-                plan = self._wave_plan(db)
-            packed = pack_database_wave(db, device=self.device, plan=plan)
-            return dataclasses.replace(packed, wave_groups=tuple(self._place(g) for g in packed.wave_groups))
-        return self._pack_rows(db, plan)
+        with span("swtpu.pack"):
+            if self._wave_enabled:
+                if plan is None:
+                    plan = self._wave_plan(db)
+                packed = pack_database_wave(db, device=self.device, plan=plan)
+                return dataclasses.replace(packed, wave_groups=tuple(self._place(g) for g in packed.wave_groups))
+            return self._pack_rows(db, plan)
 
     def _pack_rows(self, db: Database, plan: Optional[BatchPlan]) -> PackedDatabase:
         """The row path's ladder and segment groups of ``db``, placed on the
@@ -1002,15 +1006,21 @@ class SearchEngine:
         order = np.lexsort((cand_ids, -vals))[:k]
         return [(int(cand_ids[i]), int(vals[i])) for i in order]
 
-    def _topk_result(self, q, db, packed, setup, vals, ids, moms, metrics) -> SearchResult:
+    def _topk_result(self, q, db, packed, setup, vals, ids, moms, metrics, timer: PhaseTimer) -> SearchResult:
         """A hits-only result from one query's fetched candidates, or its
-        full-array search when boundary ties defeat the candidate set."""
+        full-array search when boundary ties defeat the candidate set (the
+        ``fallback`` phase, whose search goes on with ``timer``)."""
         total, kk, meta = setup[0], setup[1], setup[4]
-        cand_ids = np.where(ids == _ID_MASK, -1, ids)
-        hits = self._resolve_topk_hits(vals, cand_ids, self.config.top_k, kk, total, db)
+        with timer.phase("resolve"):
+            cand_ids = np.where(ids == _ID_MASK, -1, ids)
+            hits = self._resolve_topk_hits(vals, cand_ids, self.config.top_k, kk, total, db)
         if hits is None:
-            return self.search_packed(q, db, packed, skip_device_topk=True)
-        null = None if moms is None else self._build_null(q, db, vals, cand_ids, moms, *meta)
+            with timer.phase("fallback"):
+                return self.search_packed(q, db, packed, skip_device_topk=True, timer=timer)
+        null = None
+        if moms is not None:
+            with timer.phase("null"):
+                null = self._build_null(q, db, vals, cand_ids, moms, *meta)
         return SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
 
     # --- single search --------------------------------------------------------------
@@ -1023,59 +1033,70 @@ class SearchEngine:
         return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=rows))
 
     def search_packed(
-        self, query: Query, db: Database, packed: PackedDatabase, skip_device_topk: bool = False
+        self, query: Query, db: Database, packed: PackedDatabase, skip_device_topk: bool = False,
+        timer: Optional[PhaseTimer] = None,
     ) -> SearchResult:
         """Search a database already packed on the engine's device.
 
         With ``config.top_k`` the top-K reduces on the device and only
         candidate rows transfer, unless ``skip_device_topk`` asks for the
-        full array (the tie fallback of the top-K paths).
+        full array (the tie fallback of the top-K paths, which passes its
+        search's ``timer`` to go on with).  The result's ``metrics.phases``
+        is the timer's own dict: every phase of the search, those after the
+        accounting included.
         """
         cfg = self.config
-        timer = PhaseTimer()
+        timer = PhaseTimer() if timer is None else timer
         t_start = time.perf_counter()
+        # Under query_shard the full array comes back and the host takes the
+        # top-K, as in swtpu (whose collective top-K is lane sharding's).
+        device_topk = cfg.top_k is not None and not skip_device_topk and packed.wave_groups and not self._qshard
         with timer.phase("plan"):
             compose = self._compose_for(query, packed)
             profile = self._profile(query, compose)
-        qpad = profile.shape[0]
+            setup = self._topk_setup(db, packed) if device_topk else None
+        cells = profile.shape[0] * packed.total_cells
         launches0 = self._launches()
 
-        # Under query_shard the full array comes back and the host takes the
-        # top-K, as in swtpu (whose collective top-K is lane sharding's).
-        if cfg.top_k is not None and not skip_device_topk and packed.wave_groups and not self._qshard:
-            setup = self._topk_setup(db, packed)
+        if device_topk:
             with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells"):
-                t0 = self._mark()
-                vals, ids, moms = self._topk_of(self._scored(profile, packed, compose), setup)
-                t1 = self._mark()
-                vals, ids, moms = (None if x is None else self._to_host(x) for x in (vals, ids, moms))
-                self._sync()
-            metrics = self._metrics(
-                query, db, qpad * packed.total_cells, time.perf_counter() - t_start, self._seconds(t0, t1),
-                phases=dict(timer.phases), kernel_launches=self._launches() - launches0,
-            )
+                with timer.phase("enqueue"):
+                    t0 = self._mark()
+                    vals, ids, moms = self._topk_of(self._scored(profile, packed, compose), setup)
+                    t1 = self._mark()
+                with timer.phase("transfer"):
+                    vals, ids, moms = (None if x is None else self._to_host(x) for x in (vals, ids, moms))
+                    self._sync()
+            with timer.phase("metrics"):
+                metrics = self._metrics(
+                    query, db, cells, time.perf_counter() - t_start, self._seconds(t0, t1),
+                    phases=timer.phases, transfer_seconds=timer.phases["transfer"],
+                    kernel_launches=self._launches() - launches0,
+                )
             return self._topk_result(
-                query, db, packed, setup, vals.numpy(), ids.numpy(), None if moms is None else moms.numpy(), metrics
+                query, db, packed, setup, vals.numpy(), ids.numpy(), None if moms is None else moms.numpy(), metrics,
+                timer,
             )
 
         with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells (query length {query.length})"):
-            t0 = self._mark()
-            flat = self._flat(profile, packed, compose)
-            t1 = self._mark()
+            with timer.phase("enqueue"):
+                t0 = self._mark()
+                flat = self._flat(profile, packed, compose)
+                t1 = self._mark()
             self._wait(t1)
             device_seconds = self._seconds(t0, t1)
-        t_copy = time.perf_counter()
-        flat_all = flat.cpu().numpy()
-        transfer_seconds = time.perf_counter() - t_copy
+        with timer.phase("transfer"):
+            flat_all = flat.cpu().numpy()
 
         with timer.phase("reduce"):
             scores = self._reduce_flat(flat_all, packed, db, profile)
 
-        metrics = self._metrics(
-            query, db, qpad * packed.total_cells, time.perf_counter() - t_start, device_seconds,
-            phases=dict(timer.phases), transfer_seconds=transfer_seconds,
-            kernel_launches=self._launches() - launches0,
-        )
+        with timer.phase("metrics"):
+            metrics = self._metrics(
+                query, db, cells, time.perf_counter() - t_start, device_seconds,
+                phases=timer.phases, transfer_seconds=timer.phases["transfer"],
+                kernel_launches=self._launches() - launches0,
+            )
         return self._attach_null(SearchResult(scores=scores, metrics=metrics), query, db)
 
     def search(self, query: Query, db: Database, plan: Optional[BatchPlan] = None) -> SearchResult:
@@ -1083,24 +1104,26 @@ class SearchEngine:
         the budget, else streamed bucket by bucket (wave path) or batch by
         batch (row path) with exact query padding.  ``plan``: the row path's
         ladder plan (``_resident_packed``); with ``config.prefilter`` the
-        two-phase heuristic search runs instead (``_search_prefiltered``)."""
-        if self.config.prefilter is not None:
-            return self._search_prefiltered(query, db)
-        packed = self._resident_packed(db, plan)
-        if packed is not None:
-            return self.search_packed(query, db, packed)
-        if not self._wave_enabled or self._qshard:
-            # The row ladder, batch by batch on the primary device: the row
-            # path's stream, and swtpu's route for a database that cannot be
-            # resident under query_shard (its batches unsharded, on the
-            # default device).
-            if self._affine:
-                raise ValueError(
-                    "affine gaps under query_shard need a resident database: one that streams "
-                    "runs swtpu's row ladder, which scores linear gaps only; raise device_resident_cells"
-                )
-            return self._attach_null(self._search_rows_streaming(query, db, plan), query, db)
-        return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
+        two-phase heuristic search runs instead (``_search_prefiltered``).
+        The whole search is the span ``swtpu.search``."""
+        with span("swtpu.search"):
+            if self.config.prefilter is not None:
+                return self._search_prefiltered(query, db)
+            packed = self._resident_packed(db, plan)
+            if packed is not None:
+                return self.search_packed(query, db, packed)
+            if not self._wave_enabled or self._qshard:
+                # The row ladder, batch by batch on the primary device: the row
+                # path's stream, and swtpu's route for a database that cannot be
+                # resident under query_shard (its batches unsharded, on the
+                # default device).
+                if self._affine:
+                    raise ValueError(
+                        "affine gaps under query_shard need a resident database: one that streams "
+                        "runs swtpu's row ladder, which scores linear gaps only; raise device_resident_cells"
+                    )
+                return self._attach_null(self._search_rows_streaming(query, db, plan), query, db)
+            return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
 
     # --- batched serving ------------------------------------------------------------
 
@@ -1132,6 +1155,9 @@ class SearchEngine:
         """Batched serving on a resident pack: one launch per (bucket,
         piece), one host sync per piece.  Per-query times are
         cell-proportional shares of the piece (``SearchMetrics.attributed``).
+        Each piece is the span ``swtpu.piece``; each query's ``phases`` are
+        its piece's (plan, enqueue, transfer: the whole piece's seconds)
+        and its own.
 
         With ``wave_compose``, a piece whose (qpad, Q) shape
         ``warmup_many_background`` has not run yet is served per query
@@ -1146,33 +1172,53 @@ class SearchEngine:
                 for i, res in zip(piece, self.search_queued([queries[i] for i in piece], db, packed=packed)):
                     out[i] = res
                 continue
-            t_start = time.perf_counter()
-            launches0 = wave_sw.sw_wave.launches
+            with span("swtpu.piece"):
+                for i, res in zip(piece, self._serve_piece(queries, db, packed, qpad, piece, setup)):
+                    out[i] = res
+        return out  # type: ignore[return-value]
+
+    def _serve_piece(self, queries: List[Query], db: Database, packed: PackedDatabase, qpad: int,
+                     piece: List[int], setup) -> List[SearchResult]:
+        """One piece of ``_search_many_wave``: its launches, one sync, and
+        its queries' results in piece order (``setup``: the top-K set-up,
+        or None for full arrays)."""
+        topk = setup is not None
+        results = []
+        timer = PhaseTimer()
+        t_start = time.perf_counter()
+        launches0 = wave_sw.sw_wave.launches
+        with timer.phase("plan"):
             profiles = self._piece_profiles(queries, qpad, piece)
-            with self._oom_hint(f"batched scoring of {len(piece)} queries vs {packed.total_cells} packed cells"):
+        with self._oom_hint(f"batched scoring of {len(piece)} queries vs {packed.total_cells} packed cells"):
+            with timer.phase("enqueue"):
                 t0 = self._mark()
                 outs = self._packed_outs(profiles, packed.wave_groups)  # per shard, (Q, lanes) a bucket
                 fetched = self._topk_of(outs, setup) if topk else (self._gather(outs, profiles),)
                 t1 = self._mark()
+            with timer.phase("transfer"):
                 fetched = [None if x is None else self._to_host(x) for x in fetched]
                 self._sync()
-            device_seconds = self._seconds(t0, t1)
-            wall = time.perf_counter() - t_start
-            launches = wave_sw.sw_wave.launches - launches0
-            total_true = sum(queries[i].length for i in piece) * db.length_sum
-            for row, i in enumerate(piece):
-                share = (queries[i].length * db.length_sum) / max(total_true, 1)
+        device_seconds = self._seconds(t0, t1)
+        wall = time.perf_counter() - t_start
+        launches = wave_sw.sw_wave.launches - launches0
+        total_true = sum(queries[i].length for i in piece) * db.length_sum
+        for row, i in enumerate(piece):
+            share = (queries[i].length * db.length_sum) / max(total_true, 1)
+            own = PhaseTimer(dict(timer.phases), dict(timer.counts))
+            with own.phase("metrics"):
                 metrics = self._metrics(
                     queries[i], db, qpad * packed.total_cells, wall * share, device_seconds * share,
-                    attributed=True, kernel_launches=launches,
+                    phases=own.phases, attributed=True, transfer_seconds=timer.phases["transfer"],
+                    kernel_launches=launches,
                 )
-                if topk:
-                    vals, ids, moms = (None if x is None else x[row].numpy() for x in fetched)
-                    out[i] = self._topk_result(queries[i], db, packed, setup, vals, ids, moms, metrics)
-                else:
+            if topk:
+                vals, ids, moms = (None if x is None else x[row].numpy() for x in fetched)
+                results.append(self._topk_result(queries[i], db, packed, setup, vals, ids, moms, metrics, own))
+            else:
+                with own.phase("reduce"):
                     scores = self._reduce_flat(fetched[0][row].numpy(), packed)
-                    out[i] = self._attach_null(SearchResult(scores=scores, metrics=metrics), queries[i], db)
-        return out  # type: ignore[return-value]
+                results.append(self._attach_null(SearchResult(scores=scores, metrics=metrics), queries[i], db))
+        return results
 
     def search_many(
         self, queries: List[Query], db: Database, packed: Optional[PackedDatabase] = None
@@ -1192,26 +1238,27 @@ class SearchEngine:
         """
         if not queries:
             return []
-        if self.config.prefilter is not None:
-            return self._search_many_prefiltered(queries, db)
-        if not self._wave_enabled:
-            # The row kernels have no query axis: each query keeps its own
-            # launches, and the batch syncs once.
-            return self.search_queued(queries, db, packed=packed)
-        if packed is None:
-            packed = self._resident_packed(db)
+        with span("swtpu.search_many"):
+            if self.config.prefilter is not None:
+                return self._search_many_prefiltered(queries, db)
+            if not self._wave_enabled:
+                # The row kernels have no query axis: each query keeps its own
+                # launches, and the batch syncs once.
+                return self.search_queued(queries, db, packed=packed)
             if packed is None:
-                if self._qshard:  # the row ladder (search), a search a query, as swtpu
-                    return [self.search(q, db) for q in queries]
-                return [
-                    self._attach_null(r, q, db)
-                    for q, r in zip(queries, self._search_many_wave_streaming(queries, db))
-                ]
-        if not packed.wave_groups or self._qshard:
-            # Nothing to launch (every record is empty), or the band
-            # pipeline, which carries one query: a search a query.
-            return [self.search_packed(q, db, packed) for q in queries]
-        return self._search_many_wave(queries, db, packed)
+                packed = self._resident_packed(db)
+                if packed is None:
+                    if self._qshard:  # the row ladder (search), a search a query, as swtpu
+                        return [self.search(q, db) for q in queries]
+                    return [
+                        self._attach_null(r, q, db)
+                        for q, r in zip(queries, self._search_many_wave_streaming(queries, db))
+                    ]
+            if not packed.wave_groups or self._qshard:
+                # Nothing to launch (every record is empty), or the band
+                # pipeline, which carries one query: a search a query.
+                return [self.search_packed(q, db, packed) for q in queries]
+            return self._search_many_wave(queries, db, packed)
 
     # --- queued serving ---------------------------------------------------------------
 
@@ -1268,13 +1315,14 @@ class SearchEngine:
         total_true = sum(q.length for q in queries) * max(db.length_sum, 1)
         for q, (profile, fetched) in zip(queries, pending):
             share = (q.length * db.length_sum) / max(total_true, 1)
+            timer = PhaseTimer()
             metrics = self._metrics(
                 q, db, profile.shape[0] * packed.total_cells, (time.perf_counter() - t_start) * share,
-                device_seconds * share, attributed=True, kernel_launches=launches,
+                device_seconds * share, phases=timer.phases, attributed=True, kernel_launches=launches,
             )
             if topk:
                 vals, ids, moms = (None if x is None else x.numpy() for x in fetched)
-                results.append(self._topk_result(q, db, packed, setup, vals, ids, moms, metrics))
+                results.append(self._topk_result(q, db, packed, setup, vals, ids, moms, metrics, timer))
             else:
                 scores = self._reduce_flat(fetched[0].numpy(), packed, db, profile)
                 results.append(self._attach_null(SearchResult(scores=scores, metrics=metrics), q, db))

@@ -6,7 +6,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``swtpu_torch/build/`` on first use; the library name carries a hash of the
 source and flags, so an edited source rebuilds.  Nothing here runs at import
 time: the CPU tests import every module on machines with no CUDA toolkit,
-and build the host library with the system's g++.
+and build the host library with the system's g++.  ``load``'s first load
+of a library (its build included) is the span ``swtpu.build`` in a
+recording profiler's trace.
 """
 
 from __future__ import annotations
@@ -110,7 +112,9 @@ def load(name: str, **entries: list) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    with _load_lock:
+    from ..utils.profiling import span
+
+    with _load_lock, span("swtpu.build"):
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)[name]["path"]))

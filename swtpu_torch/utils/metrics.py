@@ -14,22 +14,26 @@ import json
 import time
 from typing import Dict, Optional
 
+from .profiling import span
+
 
 @dataclasses.dataclass
 class PhaseTimer:
-    """Accumulating wall-clock phase timer."""
+    """Accumulating wall-clock phase timer.  Each phase is also the span
+    ``swtpu.<name>`` in a recording profiler's trace (``profiling.span``)."""
 
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
     counts: Dict[str, int] = dataclasses.field(default_factory=dict)  # times each phase ran
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
-            self.counts[name] = self.counts.get(name, 0) + 1
+        with span("swtpu." + name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     def total(self) -> float:
         """Seconds over every phase."""
@@ -54,7 +58,7 @@ class SearchMetrics:
     # as this query's latency when attributed is set: every query of the
     # batch waited for the whole batch.
     attributed: bool = False
-    transfer_seconds: float = 0.0  # score array device -> host
+    transfer_seconds: float = 0.0  # the "transfer" phase: scores (or top-K candidates) device -> host
     kernel_launches: int = 0
 
     @property

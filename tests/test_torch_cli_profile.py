@@ -78,3 +78,21 @@ def test_kernel_label_and_busy_share(tmp_path):
     assert s["kernel_ms"] == {"sw_wave_kernel<false, false, 16>": 0.05}
     assert s["device_ms"] == pytest.approx(0.06) and s["window_ms"] == pytest.approx(0.1)
     assert s["busy_share"] == pytest.approx(0.6)
+
+
+def test_the_profile_span_is_the_window(tmp_path):
+    """With the profiled block's ``swtpu.profile`` span in the trace, the
+    window is that span and the busy share counts the device's time inside
+    it."""
+    events = [
+        {"ph": "X", "cat": "user_annotation", "name": profiling.PROFILE_SPAN, "ts": 50.0, "dur": 200.0},
+        {"ph": "X", "cat": "kernel", "name": "void sw_band_kernel<false, false, 64>(int*)", "ts": 100.0, "dur": 30.0},
+        {"ph": "X", "cat": "kernel", "name": "void sw_band_kernel<false, false, 64>(int*)", "ts": 240.0, "dur": 20.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 190.0, "dur": 10.0},
+    ]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    s = profiling.trace_summary(path)
+    assert s["device_events"] == 3 and s["device_ms"] == pytest.approx(0.06)
+    assert s["window_ms"] == pytest.approx(0.2)
+    assert s["busy_share"] == pytest.approx((30 + 10 + 10) / 200)  # the last kernel half inside
