@@ -563,8 +563,56 @@ def phase_kernel():
         worst = max(worst, err)
         if err or not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at qlen={qlen} ws={ws} n_segs={n_segs} lanes={lanes}: max err {err}")
-    say("kernel", cases=len(cases), max_abs_err=worst, tolerance="exact")
+    sat = phase_kernel_saturating()
+    say("kernel", cases=len(cases), max_abs_err=worst, tolerance="exact", saturating=sat)
     return worst
+
+
+def phase_kernel_saturating():
+    """K1's int16x2 kernel on lanes that pass its int16 ceiling: W-run copies
+    scoring 32,640 to 33,000 (synth.saturating_bucket) on a 2,400-row query,
+    one query and a 3-query stack on chained segments, linear and affine, at
+    every compiled (G, H): bit-equal to the plain version after the rescore,
+    exactly the entries over 32,640 at -1 without it, each rescore counted on
+    the device; the int32 kernel equal; a hand-off and a gap past
+    I16_GAP_MAX on the int32 kernel, without a rescore."""
+    import torch
+
+    from swtpu_torch import synth
+    from swtpu_torch.ops import wave_sw
+
+    dev = torch.device("cuda")
+    flagged = launches = 0
+    for n_q, n_segs in ((1, 1), (3, 2)):
+        profile, bucket = synth.saturating_bucket(7, n_segs=n_segs, lanes=8 // n_segs + 2, n_queries=n_q)
+        prof, stack = torch.from_numpy(profile).cuda(), torch.from_numpy(bucket).cuda()
+        for kw in (dict(gap=2), dict(gap_open=10, gap_extend=2)):
+            want = wave_sw.sw_wave_plain(prof, stack, n_segs=n_segs, **kw)
+            over = want > wave_sw.SAT16
+            for shape in wave_sw.SHAPES:
+                total, before = int(wave_sw.rescore_counter(dev)[0]), wave_sw.sw_wave.int16_launches
+                got = wave_sw.sw_wave(prof, stack, n_segs=n_segs, shape=shape, **kw)
+                raw = wave_sw._sw_wave_route(prof, stack, n_segs=n_segs, shape=shape, rescore=False, **kw)
+                int32 = wave_sw._sw_wave_route(prof, stack, n_segs=n_segs, shape=shape, int32=True, **kw)
+                where = f"Q={n_q} n_segs={n_segs} {kw} shape={shape}"
+                if not (torch.equal(got, want) and torch.equal(int32, want)):
+                    raise AssertionError(f"K1 on saturating lanes != plain at {where}")
+                if not (torch.equal(raw == -1, over) and torch.equal(raw[~over], want[~over])):
+                    raise AssertionError(f"the int16x2 kernel's flags are not the entries over 32,640 at {where}")
+                if (int(wave_sw.rescore_counter(dev)[0]) - total, wave_sw.sw_wave.int16_launches - before) != (
+                        int(over.sum()), 2):
+                    raise AssertionError(f"rescore count or int16x2 launches off at {where}")
+                flagged += int(over.sum())
+                launches += 1
+    before = (wave_sw.sw_wave.int16_launches, wave_sw.sw_wave.rescore_launches)
+    scores, carry = wave_sw.sw_wave(prof[0], stack, gap=2, n_segs=2, return_carry=True)
+    wide = wave_sw.sw_wave(prof, stack, gap=wave_sw.I16_GAP_MAX + 1, n_segs=2)
+    if (wave_sw.sw_wave.int16_launches, wave_sw.sw_wave.rescore_launches) != before or not (
+            torch.equal(scores, wave_sw.sw_wave_plain(prof[0], stack, gap=2, n_segs=2))
+            and torch.equal(wide, wave_sw.sw_wave_plain(prof, stack, gap=wave_sw.I16_GAP_MAX + 1, n_segs=2))):
+        raise AssertionError("a hand-off or a wide gap did not run the int32 kernel exactly")
+    return dict(launches=launches, shapes=[list(s) for s in wave_sw.SHAPES], flagged_entries=flagged,
+                hand_off_and_wide_gap_on_int32=True)
 
 
 def phase_kernel_multi():
@@ -874,7 +922,7 @@ def phase_scale():
     runs = []
     for _ in range(3):
         res = engine.search(query, db)
-        if res.metrics.kernel_launches != len(groups) or not np.array_equal(res.scores, first.scores):
+        if res.metrics.kernel_launches != 2 * len(groups) or not np.array_equal(res.scores, first.scores):
             raise AssertionError("timed search differs from the first one")
         runs.append(res.metrics)
     dev_s = [m.device_seconds for m in runs]
@@ -889,12 +937,18 @@ def phase_scale():
     gap = engine.config.gap_penalty
     profile = torch.from_numpy(make_profile(query.residues, engine.matrix, pad_rows_to=wave_sw.W)).cuda()
     kernel_all = lambda: [wave_sw.sw_wave(profile, g.stack, gap=gap, n_segs=g.n_segs) for g in groups]  # noqa: E731
+    int32_all = lambda: [wave_sw._sw_wave_route(profile, g.stack, gap=gap, n_segs=g.n_segs, int32=True)  # noqa: E731
+                         for g in groups]
     events_ms(kernel_all)  # warm
+    events_ms(int32_all)
     kernel_ms, _ = events_ms(kernel_all, reps=3)
+    int32_ms, _ = events_ms(int32_all, reps=3)
     per_bucket = []
     for g in groups:
         ms, _ = events_ms(lambda g=g: wave_sw.sw_wave(profile, g.stack, gap=gap, n_segs=g.n_segs))
-        per_bucket.append((g.width, g.n_segs, g.lanes, g.lanes * g.n_segs, g.cells * profile.shape[0], round(ms, 4)))
+        ms32, _ = events_ms(lambda g=g: wave_sw._sw_wave_route(profile, g.stack, gap=gap, n_segs=g.n_segs, int32=True))
+        per_bucket.append((g.width, g.n_segs, g.lanes, g.lanes * g.n_segs, g.cells * profile.shape[0], round(ms, 4),
+                           round(ms32, 4)))
     plain_ms, plain = events_ms(lambda: [wave_sw.sw_wave_plain(profile, g.stack, gap=gap, n_segs=g.n_segs) for g in groups])
     plain_scores = engine._reduce_flat(torch.cat(plain).cpu().numpy(), packed)
     err = int(np.abs(plain_scores.astype(np.int64) - first.scores.astype(np.int64)).max())
@@ -907,16 +961,17 @@ def phase_scale():
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / int32_ops_per_s
     bound_ms = max(bytes_ms, ops_ms)
     say("scale.kernel", kernel_ms_per_search=kernel_ms, kernel_ms_per_launch=kernel_ms / len(groups),
-        plain_ms_per_search=plain_ms, bound_ms=bound_ms, bound_share=bound_ms / kernel_ms,
+        int32_kernel_ms_per_search=int32_ms, plain_ms_per_search=plain_ms, bound_ms=bound_ms,
+        bound_share=bound_ms / kernel_ms, int32_bound_share=bound_ms / int32_ms,
         cells_per_search=cells, true_cells=query.length * db.length_sum, max_abs_err_vs_plain=err)
-    say("scale.buckets", columns=["width", "n_segs", "lanes", "threads", "cells", "ms"], rows=per_bucket)
+    say("scale.buckets", columns=["width", "n_segs", "lanes", "threads", "cells", "ms", "int32_ms"], rows=per_bucket)
     entry = {
         "name": "sw_wave", "route": "cuda", "source": "swtpu_torch/csrc/sw_wave.cu",
         "replaces": "swtpu/ops/wave_sw.py:815", "launches": launches["sw_wave"], "max_abs_err": err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
     }
-    return entry, db, engine, [row[-1] for row in per_bucket], first.scores
+    return entry, db, engine, [row[-2] for row in per_bucket], first.scores
 
 
 def phase_native_parse_and_cli(db, engine, tmp):
@@ -1037,6 +1092,10 @@ def phase_serving(db, engine, q1_bucket_ms):
     gap = engine.config.gap_penalty
     batch = lambda: [wave_sw.sw_wave(pr, g.stack, gap=gap, n_segs=g.n_segs) for pr, _ in stacks for g in groups]  # noqa: E731
     batch_ms, _ = events_ms(batch)  # warm: search_many just ran the same launches
+    batch32 = lambda: [wave_sw._sw_wave_route(pr, g.stack, gap=gap, n_segs=g.n_segs, int32=True)  # noqa: E731
+                       for pr, _ in stacks for g in groups]
+    events_ms(batch32)  # warm
+    batch32_ms, _ = events_ms(batch32)
     bound_ms, bound_by, cells = bound(groups, [(pr.shape[0], pr.shape[1]) for pr, _ in stacks])
     i_p = SUITE.index("P02232")
     prof_p = next(pr for pr, p in stacks if p == [i_p])
@@ -1046,8 +1105,9 @@ def phase_serving(db, engine, q1_bucket_ms):
     err = int(np.abs(plain_scores.astype(np.int64) - many[i_p].scores.astype(np.int64)).max())
     if err or not np.array_equal(plain_scores, many[i_p].scores):
         raise AssertionError(f"P02232's batched scores differ from the plain version: max err {err}")
-    say("serving.kernel", kernel_ms_per_batch=batch_ms, bound_ms=bound_ms, bound_by=bound_by,
-        bound_share=bound_ms / batch_ms, padded_cells=cells, true_cells=true_cells,
+    say("serving.kernel", kernel_ms_per_batch=batch_ms, int32_kernel_ms_per_batch=batch32_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bound_share=bound_ms / batch_ms, int32_bound_share=bound_ms / batch32_ms,
+        padded_cells=cells, true_cells=true_cells,
         sample="P02232 piece (Q=1, qpad %d), all buckets" % prof_p.shape[1], sample_kernel_ms=sample_ms,
         sample_plain_ms=plain_ms, max_abs_err_vs_plain=err)
 
@@ -1145,7 +1205,7 @@ def phase_goldens_affine():
         before = wave_sw.sw_wave.affine_launches
         res = eng.search(q, subset)
         buckets = len(eng._resident_packed(subset).wave_groups)
-        if wave_sw.sw_wave.affine_launches - before != buckets or res.metrics.kernel_launches != buckets:
+        if wave_sw.sw_wave.affine_launches - before != buckets or res.metrics.kernel_launches != 2 * buckets:
             raise AssertionError(f"affine subset search of {name} did not launch the affine kernel once per bucket")
         want = np.array([sw_affine_score_diag(q.residues, subset.sequence(i), eng.matrix, 10, 1) for i in range(subset.n)])
         if not np.array_equal(res.scores, want):
@@ -1185,7 +1245,7 @@ def phase_affine(db, linear_bucket_ms):
     runs = []
     for _ in range(3):
         res = engine.search(query, db)
-        if res.metrics.kernel_launches != len(groups) or not np.array_equal(res.scores, first.scores):
+        if res.metrics.kernel_launches != 2 * len(groups) or not np.array_equal(res.scores, first.scores):
             raise AssertionError("timed affine search differs from the first one")
         runs.append(res.metrics)
     say("affine.search", gaps=AFFINE, query=MAIN_QUERY, first_search_wall_s=first_wall,
@@ -1196,8 +1256,12 @@ def phase_affine(db, linear_bucket_ms):
     # --- the kernel alone, per search and per bucket, and its plain version on the card
     profile = torch.from_numpy(make_profile(query.residues, engine.matrix, pad_rows_to=wave_sw.W)).cuda()
     kernel_all = lambda: [wave_sw.sw_wave(profile, g.stack, n_segs=g.n_segs, **AFFINE) for g in groups]  # noqa: E731
+    int32_all = lambda: [wave_sw._sw_wave_route(profile, g.stack, n_segs=g.n_segs, int32=True, **AFFINE)  # noqa: E731
+                         for g in groups]
     events_ms(kernel_all)  # warm
+    events_ms(int32_all)
     kernel_ms, _ = events_ms(kernel_all, reps=3)
+    int32_ms, _ = events_ms(int32_all, reps=3)
     bucket_ms = [events_ms(lambda g=g: wave_sw.sw_wave(profile, g.stack, n_segs=g.n_segs, **AFFINE))[0] for g in groups]
     plain_ms, plain = events_ms(lambda: [wave_sw.sw_wave_plain(profile, g.stack, n_segs=g.n_segs, **AFFINE) for g in groups])
     plain_scores = engine._reduce_flat(torch.cat(plain).cpu().numpy(), packed)
@@ -1208,6 +1272,7 @@ def phase_affine(db, linear_bucket_ms):
     narrow = [k for k, g in enumerate(groups) if g.rows < 1024]
     share = lambda ms: sum(ms[k] for k in narrow) / sum(ms)  # noqa: E731
     say("affine.kernel", kernel_ms_per_search=kernel_ms, kernel_ms_per_launch=kernel_ms / len(groups),
+        int32_kernel_ms_per_search=int32_ms, int32_bound_share=bound_ms / int32_ms,
         plain_ms_per_search=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
         cells_per_search=cells, true_cells=query.length * db.length_sum, max_abs_err_vs_plain=err,
         narrow_buckets=len(narrow), narrow_share_linear=share(linear_bucket_ms), narrow_share_affine=share(bucket_ms))
@@ -2471,7 +2536,7 @@ def phase_prefilter(db, engine):
     packed = pf.coarse_candidates(sig, pop, qsig, n_cand).cpu().numpy()
     cand = pf.merge_candidates(packed[0], packed[1], n_cand)
     _, jobs, _, _ = eng._prefilter_exact_enqueue(query, db, cand, PhaseTimer())
-    if launched != {"coarse_counts": 1, "sw_wave": len(jobs)} or first.metrics.kernel_launches != 1 + len(jobs):
+    if launched != {"coarse_counts": 1, "sw_wave": len(jobs)} or first.metrics.kernel_launches != 1 + 2 * len(jobs):
         raise AssertionError(f"prefiltered search launched {launched} for 1 coarse pass and {len(jobs)} exact buckets")
     say("prefilter.signatures", sequences=db.n, dim=pf.DIM, k=pf.K, signature_bytes_on_card=sig.numel(),
         signatures_and_upload_host_s=first.metrics.phases["prefilter_signatures"], first_search_wall_s=first_wall)

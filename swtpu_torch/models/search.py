@@ -278,6 +278,11 @@ class SearchEngine:
         self._resident: Optional[Tuple[Database, PackedDatabase]] = None
         self._topk_cache = None
         self.rescored_rows = 0  # saturated rows rescored exactly, since last set to 0
+        # K1 (lane, segment) entries whose int16 best may have wrapped and that
+        # were rescored in int32 on the card, since last set to 0: the devices'
+        # running totals (wave_sw.rescore_counter) copied to the host before a
+        # path's launches and again before the sync it makes anyway.
+        self.rescored_lanes = 0
         # Composed serving: fused single-query profile rows (_fused_key) and
         # fused (qpad, Q) piece shapes that warmup_background and
         # warmup_many_background have run; those leave the composed route.
@@ -368,6 +373,23 @@ class SearchEngine:
             return t
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         return host.copy_(t, non_blocking=True)
+
+    def _rescore_fetch(self):
+        """Start copying each lane device's running total of K1 entries
+        rescored in int32 to the host, on the current streams; valid after
+        the path's sync (``_rescored``)."""
+        if not self._on_cuda:
+            return None
+        return [self._to_host(wave_sw.rescore_counter(dev)) for dev in self._lanes.distinct]
+
+    def _rescored(self, before, after) -> int:
+        """Entries rescored between two ``_rescore_fetch`` copies, read after
+        the sync; adds them to ``rescored_lanes``."""
+        if before is None:
+            return 0
+        n = sum(int(b[0]) for b in after) - sum(int(a[0]) for a in before)
+        self.rescored_lanes += n
+        return n
 
     def _sync(self) -> None:
         """Wait for every device's current stream (one host thread enqueued
@@ -490,10 +512,11 @@ class SearchEngine:
 
     @staticmethod
     def _launches() -> int:
-        """CUDA kernel launches of every wrapper of a search so far (K1, K2,
-        K3 and the coarse counts)."""
+        """CUDA kernel launches of every wrapper of a search so far (K1 and
+        its rescore, K2, K3 and the coarse counts)."""
         return (
             wave_sw.sw_wave.launches
+            + getattr(wave_sw.sw_wave, "rescore_launches", 0)  # a stand-in for sw_wave may not count them
             + bucket_sw.sw_score_bucket_fused.launches
             + bucket_sw.sw_score_bucket.launches
             + int8_mma.coarse_counts.launches
@@ -654,11 +677,14 @@ class SearchEngine:
         # Free memory is read once a call and device, not once a bucket.
         free = {dev: scratch_budget_bytes(dev) for dev in self._lanes.distinct} if multi else {}
         budgets = [free.get(dev) for dev in self._lanes.devices]
+        int16 = wave_sw.uses_int16(tuple(self._gaps.values()), hand_off=False)
 
         def launch(k, g, part):
             prof = profiles[k]
             budget = budgets[k]
             per_query = wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, part.shape[1], self._affine)
+            if not int16:  # gaps past the int16x2 kernel's: the int32 kernel's carry
+                per_query = wave_sw.carry_bytes(n_bands, g.n_segs, g.seg_cols, part.shape[1], self._affine, int16=False)
             if budget is not None and per_query * prof.shape[0] > budget:
                 step = max(1, budget // per_query)
                 return torch.cat([
@@ -1061,17 +1087,19 @@ class SearchEngine:
         if device_topk:
             with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells"):
                 with timer.phase("enqueue"):
+                    rescores0 = self._rescore_fetch()
                     t0 = self._mark()
                     vals, ids, moms = self._topk_of(self._scored(profile, packed, compose), setup)
                     t1 = self._mark()
                 with timer.phase("transfer"):
                     vals, ids, moms = (None if x is None else self._to_host(x) for x in (vals, ids, moms))
+                    rescores = self._rescore_fetch()
                     self._sync()
             with timer.phase("metrics"):
                 metrics = self._metrics(
                     query, db, cells, time.perf_counter() - t_start, self._seconds(t0, t1),
                     phases=timer.phases, transfer_seconds=timer.phases["transfer"],
-                    kernel_launches=self._launches() - launches0,
+                    kernel_launches=self._launches() - launches0, rescored_lanes=self._rescored(rescores0, rescores),
                 )
             return self._topk_result(
                 query, db, packed, setup, vals.numpy(), ids.numpy(), None if moms is None else moms.numpy(), metrics,
@@ -1080,12 +1108,14 @@ class SearchEngine:
 
         with self._oom_hint(f"scoring a packed database of {packed.total_cells} cells (query length {query.length})"):
             with timer.phase("enqueue"):
+                rescores0 = self._rescore_fetch()
                 t0 = self._mark()
                 flat = self._flat(profile, packed, compose)
                 t1 = self._mark()
             self._wait(t1)
             device_seconds = self._seconds(t0, t1)
         with timer.phase("transfer"):
+            rescores = self._rescore_fetch()
             flat_all = flat.cpu().numpy()
 
         with timer.phase("reduce"):
@@ -1095,7 +1125,7 @@ class SearchEngine:
             metrics = self._metrics(
                 query, db, cells, time.perf_counter() - t_start, device_seconds,
                 phases=timer.phases, transfer_seconds=timer.phases["transfer"],
-                kernel_launches=self._launches() - launches0,
+                kernel_launches=self._launches() - launches0, rescored_lanes=self._rescored(rescores0, rescores),
             )
         return self._attach_null(SearchResult(scores=scores, metrics=metrics), query, db)
 
@@ -1191,16 +1221,19 @@ class SearchEngine:
             profiles = self._piece_profiles(queries, qpad, piece)
         with self._oom_hint(f"batched scoring of {len(piece)} queries vs {packed.total_cells} packed cells"):
             with timer.phase("enqueue"):
+                rescores0 = self._rescore_fetch()
                 t0 = self._mark()
                 outs = self._packed_outs(profiles, packed.wave_groups)  # per shard, (Q, lanes) a bucket
                 fetched = self._topk_of(outs, setup) if topk else (self._gather(outs, profiles),)
                 t1 = self._mark()
             with timer.phase("transfer"):
                 fetched = [None if x is None else self._to_host(x) for x in fetched]
+                rescores = self._rescore_fetch()
                 self._sync()
         device_seconds = self._seconds(t0, t1)
         wall = time.perf_counter() - t_start
         launches = wave_sw.sw_wave.launches - launches0
+        rescored = self._rescored(rescores0, rescores)
         total_true = sum(queries[i].length for i in piece) * db.length_sum
         for row, i in enumerate(piece):
             share = (queries[i].length * db.length_sum) / max(total_true, 1)
@@ -1209,7 +1242,7 @@ class SearchEngine:
                 metrics = self._metrics(
                     queries[i], db, qpad * packed.total_cells, wall * share, device_seconds * share,
                     phases=own.phases, attributed=True, transfer_seconds=timer.phases["transfer"],
-                    kernel_launches=launches,
+                    kernel_launches=launches, rescored_lanes=rescored,
                 )
             if topk:
                 vals, ids, moms = (None if x is None else x[row].numpy() for x in fetched)
@@ -1298,6 +1331,7 @@ class SearchEngine:
         launches0 = self._launches()
         pending = []
         with self._oom_hint(f"queued scoring of {len(queries)} queries"):
+            rescores0 = self._rescore_fetch()
             t0 = self._mark()
             for q in queries:
                 compose = self._compose_for(q, packed)
@@ -1307,9 +1341,11 @@ class SearchEngine:
                 # Each query's copy streams while later queries compute.
                 pending.append((profile, [None if x is None else self._to_host(x) for x in fetched]))
             t1 = self._mark()
+            rescores = self._rescore_fetch()
             self._sync()  # the one sync of the batch
         device_seconds = self._seconds(t0, t1)
         launches = self._launches() - launches0
+        rescored = self._rescored(rescores0, rescores)
 
         results = []
         total_true = sum(q.length for q in queries) * max(db.length_sum, 1)
@@ -1319,6 +1355,7 @@ class SearchEngine:
             metrics = self._metrics(
                 q, db, profile.shape[0] * packed.total_cells, (time.perf_counter() - t_start) * share,
                 device_seconds * share, phases=timer.phases, attributed=True, kernel_launches=launches,
+                rescored_lanes=rescored,
             )
             if topk:
                 vals, ids, moms = (None if x is None else x.numpy() for x in fetched)

@@ -23,20 +23,31 @@ a TPU layout); ``virgin_carry`` makes the one a chain starts from.  A call
 overwrites ``top_in`` in place with the new carry, and with ``return_carry``
 returns that same tensor.
 
-``sw_wave`` launches the hand-written CUDA kernel (``csrc/sw_wave.cu``) for
+``sw_wave`` launches the hand-written CUDA kernels (``csrc/sw_wave.cu``) for
 tensors on the card and runs ``sw_wave_plain`` for tensors on the CPU.  It
-never swaps one for the other: a CUDA tensor either reaches the kernel or
-raises.  The kernel scores a launch's bands in passes of G bands of H rows
+never swaps one for the other: a CUDA tensor either reaches the kernels or
+raises.  The kernels score a launch's bands in passes of G bands of H rows
 (``wave_shape`` picks (G, H) per launch unless ``shape=`` forces one of
 ``SHAPES``; ``n_passes`` counts the passes): a warp wavefront with the
 band-to-band carry in registers, or, on a bucket of many (lane, segment)
 pairs and for a single band, a sweep of one band at a time (G = 1).  Only a pass boundary or a hand-off goes through the carry in
 device memory.
+
+A launch without a hand-off, whose gaps are at most ``I16_GAP_MAX``, runs
+the int16x2 kernel (two cells a 32-bit register, Hopper's DPX
+instructions), which flags every (query, lane, segment) whose int16 best
+passed 32,640 (below that nothing can have wrapped), and then the int32
+rescore of the flagged entries on the card, before anything reads the
+scores: no host sync, one launch more.  The rescore adds its count to a
+running total on the device (``rescore_counter``).  A hand-off, whose carry
+is an int32 contract with its caller, and larger gaps run the int32 kernel.
+Either way the scores are exact int32.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -224,11 +235,54 @@ sw_wave.affine_launches = 0  # of those, launches with affine gaps
 sw_wave.carry_launches = 0  # of those, launches with top_in or return_carry
 
 
+sw_wave.int16_launches = 0  # of those, launches of the int16x2 kernel (each followed by its rescore)
+sw_wave.rescore_launches = 0  # rescore launches after the int16x2 kernel, one each
+
+
 _kernel_lib = _build.Library(
     "sw_wave",
     sw_wave_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     sw_wave_affine_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+    sw_wave16_launch=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    sw_wave16_affine_launch=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 )
+
+# The int16x2 kernel's reach: gaps up to I16_GAP_MAX keep its E and F
+# sentinels (-16384) from wrapping; a best above SAT16 may have wrapped and
+# is rescored in int32 (csrc/sw_wave.cu).
+I16_GAP_MAX = 16383
+SAT16 = 32767 - 127
+# The rescore: a block scans RESCORE_SPAN (lane, segment) entries of a
+# query's output and scores what it finds RESCORE_SLOTS at a time, on the
+# int32 wavefront at RESCORE_G bands a pass.
+RESCORE_SPAN, RESCORE_SLOTS, RESCORE_G = 1024, 8, 16
+
+_counters: dict = {}
+_counters_lock = threading.Lock()
+
+
+def rescore_counter(device) -> torch.Tensor:
+    """The device's running total of entries the int16x2 path rescored in
+    int32: a one-element int64 tensor on ``device``, created at 0 on first
+    use, to which every rescore launch on that device adds its count."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _counters_lock:
+        if dev not in _counters:
+            _counters[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        return _counters[dev]
+
+
+def uses_int16(gaps: Gaps, hand_off: bool) -> bool:
+    """Whether a CUDA launch runs the int16x2 kernel: no hand-off, and every
+    gap penalty at most I16_GAP_MAX."""
+    return not hand_off and max(g for g in gaps if g is not None) <= I16_GAP_MAX
+
+
+def rescore_blocks(lanes: int, n_segs: int) -> int:
+    """Blocks a query of the rescore launch: one each RESCORE_SPAN entries."""
+    return max(1, -(-lanes * n_segs // RESCORE_SPAN))
 
 
 # (G, H) shapes of the kernel (csrc/sw_wave.cu SW_WAVE_SHAPES): G bands a
@@ -236,10 +290,18 @@ _kernel_lib = _build.Library(
 # segment) and every band a pass.
 SHAPES = ((16, 32), (8, 32), (4, 32), (2, 32), (1, 32), (1, 64))
 # From this many (lane, segment) pairs a launch takes the band sweep: the
-# midpoint of the interval, 12,288 to 17,408 pairs, in which the two
-# schedules crossed on P01008's fused linear buckets on an H100 (wave_ab.py
-# --buckets; PERF.md gives every bucket); the band sweep's H, (linear, affine).
-BAND_THREADS = 14_848
+# midpoint of the interval in which the two schedules of the int16x2 kernel
+# crossed on an H100, on SwissProt-shaped buckets (wave_ab.py --dtypes
+# --buckets; PERF.md gives every bucket): 11,776 to 12,288 pairs under
+# linear gaps (P01008's buckets; the suite's batch agrees), 12,288 to 17,408
+# under affine ones (the suite's batch and the 16 length strata of the
+# single searches; P01008 alone would put it past 29,696).  The int32
+# kernel's crossover, 12,288 to 17,408 pairs (linear), serves its launches:
+# the hand-offs and gaps past I16_GAP_MAX.  The band sweep's H, (linear,
+# affine).
+BAND_THREADS = 12_032
+BAND_THREADS_AFFINE = 14_848
+BAND_THREADS_INT32 = 14_848
 BAND_H = (64, 32)
 
 
@@ -251,12 +313,16 @@ def check_shape(shape: Optional[Tuple[int, int]], shapes: Tuple[Tuple[int, int],
 
 
 def wave_shape(n_bands: int, lanes: int, n_segs: int, affine: bool = False,
-               band_threads: int = BAND_THREADS) -> Tuple[int, int]:
+               band_threads: Optional[int] = None) -> Tuple[int, int]:
     """(G, H) of a launch of ``n_bands`` 32-row bands on a bucket of
     ``lanes`` lanes of ``n_segs`` segments: the band sweep (G = 1) on a
-    bucket of ``band_threads`` (lane, segment) pairs or more, else the warp
-    wavefront with the fewest power-of-two G >= n_bands (at most 16) bands
-    of 32 rows a pass, the band sweep for a single band."""
+    bucket of ``band_threads`` (lane, segment) pairs or more (None: the
+    int16x2 kernel's crossover for the gap model, ``BAND_THREADS`` or
+    ``BAND_THREADS_AFFINE``), else the warp wavefront with the fewest
+    power-of-two G >= n_bands (at most 16) bands of 32 rows a pass, the band
+    sweep for a single band."""
+    if band_threads is None:
+        band_threads = BAND_THREADS_AFFINE if affine else BAND_THREADS
     if lanes * n_segs >= band_threads:
         return 1, BAND_H[affine]
     g = min(16, 1 << max(n_bands - 1, 0).bit_length())
@@ -274,19 +340,85 @@ def n_passes(n_bands: int, g: int, h: int) -> int:
 
 def carry_bytes(
     n_bands: int, n_segs: int, seg_cols: int, lanes: int, affine: bool = False, hand_off: bool = False, *,
-    shape: Optional[Tuple[int, int]] = None,
+    shape: Optional[Tuple[int, int]] = None, int16: bool = True,
 ) -> int:
-    """Device bytes of one query's band carry in a launch at ``shape`` (G,
-    H), or at ``wave_shape``'s when None: the bottom H row of a pass, one
-    int32 per column and lane, and in affine mode the bottom F row beside
-    it.  A launch whose bands fit in one pass needs none unless it hands the
-    carry on (``hand_off``: top_in or return_carry)."""
+    """Device bytes of one query's scratch in a launch at ``shape`` (G, H),
+    or at ``wave_shape``'s when None.  A hand-off (``hand_off``: top_in or
+    return_carry) runs the int32 kernel: the bottom H row, one int32 per
+    column and lane, and in affine mode the bottom F row beside it.  Any
+    launch that runs the int16x2 kernel (``int16``, as ``uses_int16``
+    says) needs its carry, int16 H (and F), when the bands take more than
+    one pass, and its rescore's carry (``_rescore_bytes``); one that runs
+    the int32 kernel for its gaps, the int32 carry when they take more than
+    one pass."""
     planes = 2 if affine else 1
     passes = n_passes(n_bands, *(shape or wave_shape(n_bands, lanes, n_segs, affine)))
-    return 4 * planes * n_segs * seg_cols * lanes if passes > 1 or hand_off else 0
+    if hand_off or (not int16 and passes > 1):
+        return 4 * planes * n_segs * seg_cols * lanes
+    if not int16:
+        return 0
+    return _carry16_bytes(passes, n_segs, seg_cols, lanes, affine) + _rescore_bytes(n_bands, n_segs, seg_cols, lanes, affine)
 
 
-def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry, shape=None):
+def _carry16_bytes(passes: int, n_segs: int, seg_cols: int, lanes: int, affine: bool) -> int:
+    """One query's int16 carry: an int16 H (and F) a column and lane, when
+    the launch takes more than one pass."""
+    return 2 * (2 if affine else 1) * n_segs * seg_cols * lanes if passes > 1 else 0
+
+
+def _rescore_bytes(n_bands: int, n_segs: int, seg_cols: int, lanes: int, affine: bool) -> int:
+    """One query's rescore carry: an int32 H (and F) a column of a segment
+    for each of RESCORE_SLOTS entries a block, when a query of ``n_bands``
+    takes more than one pass of the rescore's wavefront."""
+    if n_passes(n_bands, RESCORE_G, W) == 1:
+        return 0
+    return 4 * (2 if affine else 1) * seg_cols * RESCORE_SLOTS * rescore_blocks(lanes, n_segs)
+
+
+def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry, shape=None, int32=False,
+                  rescore=True):
+    """Launch on the card: the int16x2 kernel and its rescore where
+    ``uses_int16`` allows and ``int32`` is False, else the int32 kernel.
+    ``rescore=False`` leaves the int16x2 kernel's flagged entries at -1."""
+    hand_off = top_in is not None or return_carry
+    if int32 or not uses_int16(gaps, hand_off):
+        return _sw_wave_int32_cuda(profile, subjT, gaps, n_segs, seg_cols, top_in, return_carry, shape)
+    lib = _kernel_lib()
+    dev = subjT.device
+    multi = profile.dim() == 3
+    affine = gaps[1] is not None
+    prof3 = profile if multi else profile[None]
+    n_q, n_bands = prof3.shape[0], prof3.shape[1] // W
+    B = subjT.shape[1]
+    shape = tuple(shape or wave_shape(n_bands, B, n_segs, affine))
+    out = torch.empty(n_q, B * n_segs, dtype=torch.int32, device=dev)
+    scores = out if multi else out[0]
+    if B == 0:
+        return scores
+    # One scratch buffer a launch: each query's int16 carry, then each
+    # query's rescore carry (int32 slots, 16-byte aligned).
+    carry16 = n_q * _carry16_bytes(n_passes(n_bands, *shape), n_segs, seg_cols, B, affine)
+    at = -(-carry16 // 16) * 16
+    scratch = torch.empty(at + n_q * _rescore_bytes(n_bands, n_segs, seg_cols, B, affine), dtype=torch.uint8,
+                          device=dev)
+    counter = rescore_counter(dev)
+    blocks = rescore_blocks(B, n_segs) if rescore else 0
+    args = (prof3.data_ptr(), subjT.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + at, out.data_ptr(),
+            counter.data_ptr(), n_q, n_bands, B, n_segs, seg_cols)
+    if affine:
+        rc = lib.sw_wave16_affine_launch(*args, gaps[0], gaps[1], *shape, blocks, *_build.where(dev))
+    else:
+        rc = lib.sw_wave16_launch(*args, gaps[0], *shape, blocks, *_build.where(dev))
+    _build.check(rc, lib.sw_wave_error_string, "sw_wave int16x2 kernel launch")
+    sw_wave.launches += 1
+    sw_wave.multi_launches += int(multi)
+    sw_wave.affine_launches += int(affine)
+    sw_wave.int16_launches += 1
+    sw_wave.rescore_launches += int(rescore)
+    return scores
+
+
+def _sw_wave_int32_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_carry, shape=None):
     lib = _kernel_lib()
     dev = subjT.device
     multi = profile.dim() == 3
@@ -295,7 +427,7 @@ def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_c
     prof3 = profile if multi else profile[None]
     n_q, n_bands = prof3.shape[0], prof3.shape[1] // W
     B = subjT.shape[1]
-    shape = tuple(shape or wave_shape(n_bands, B, n_segs, affine))
+    shape = tuple(shape or wave_shape(n_bands, B, n_segs, affine, BAND_THREADS_INT32))
     out = torch.empty(n_q, B * n_segs, dtype=torch.int32, device=dev)
     if top_in is not None:
         carry = top_in  # read as band 0's top, then overwritten in place
@@ -303,7 +435,7 @@ def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_c
         carry = torch.empty(_carry_shape(subjT, affine), dtype=torch.int32, device=dev)
     else:
         # Each query has its own carry slice: blocks of different queries run at once.
-        carry = torch.empty(n_q * carry_bytes(n_bands, n_segs, seg_cols, B, affine, shape=shape) // 4,
+        carry = torch.empty(n_q * carry_bytes(n_bands, n_segs, seg_cols, B, affine, shape=shape, int16=False) // 4,
                             dtype=torch.int32, device=dev)
     scores = out if multi else out[0]
     if B == 0:
@@ -321,6 +453,22 @@ def _sw_wave_cuda(profile, subjT, gaps: Gaps, n_segs, seg_cols, top_in, return_c
     sw_wave.affine_launches += int(affine)
     sw_wave.carry_launches += int(hand_off)
     return (scores, carry) if return_carry else scores
+
+
+def _sw_wave_route(profile, subjT, *, gap=None, n_segs=1, gap_open=None, gap_extend=None, shape=None, int32=False,
+                   rescore=True):
+    """sw_wave without a hand-off on the card, by a route the program does
+    not take by itself: ``int32=True`` runs the int32 kernel (the A/B lab's
+    and the card tests' counterpart), ``rescore=False`` the int16x2 kernel
+    alone, its flagged entries left at -1."""
+    gaps = gap_model(gap, gap_open, gap_extend)
+    seg_cols = _check(profile, subjT, n_segs)
+    check_shape(shape, SHAPES)
+    if subjT.device.type != "cuda":
+        raise ValueError(f"the kernel routes run on CUDA tensors, not {subjT.device}")
+    if not int32 and not uses_int16(gaps, False):
+        raise ValueError(f"gaps {gaps} are past the int16x2 kernel's {I16_GAP_MAX}")
+    return _sw_wave_cuda(profile, subjT, gaps, n_segs, seg_cols, None, False, shape, int32=int32, rescore=rescore)
 
 
 def sw_wave_plain(

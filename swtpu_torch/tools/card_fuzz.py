@@ -3,8 +3,8 @@
 The counterpart of ``tools/tpu_fuzz.py``, extended to the port's own
 launch shapes.  Every K1, K2 and K3 launch runs in one of six compiled
 (G, H) shapes (``wave_sw.SHAPES``, ``bucket_sw.SHAPES``), picked by
-thresholds measured on one database (``wave_sw.BAND_THREADS``,
-``bucket_sw.BAND_ROWS``); this tool draws the inputs that the fixed cases
+thresholds measured on one database (``wave_sw.BAND_THREADS`` and
+``BAND_THREADS_AFFINE``, ``bucket_sw.BAND_ROWS``); this tool draws the inputs that the fixed cases
 of ``chip_smoke.py`` do not.
 
 swtpu's five functions:
@@ -31,7 +31,8 @@ Added for the port:
   K2's fast16 clamp, every (G, H) of ``bucket_sw.SHAPES`` forced, widths 1
   to 6,000, and a self-alignment above 32,767;
 * ``main_thresholds``: the shapes the wrappers pick themselves, on buckets
-  of ``BAND_THREADS`` +- {1, 32} (lane, segment) pairs and stacks of
+  of ``BAND_THREADS`` (``BAND_THREADS_AFFINE`` under affine gaps) +- {1,
+  32} (lane, segment) pairs and stacks of
   ``BAND_ROWS`` +- {1, 32} rows x C, on one device and split into n = 2, 3, 4
   lane or row shards of those sizes (as a mesh launches them), so that both
   sides of each threshold run at every n.
@@ -579,12 +580,12 @@ def _shards(total: int, n: int) -> List[Tuple[int, int]]:
 
 
 def _threshold_k1(fz: Fuzz, where, rng, q, mat, n: int, d: int) -> None:
-    T = wave_sw.BAND_THREADS
+    affine = where[2] % 2 == 1
+    T = wave_sw.BAND_THREADS_AFFINE if affine else wave_sw.BAND_THREADS
     pairs = T + d  # a shard's (lane, segment) pairs
     S = 1 if pairs % 2 else 2
     lanes = n * (pairs // S)
     ws = int(rng.integers(8, 41))
-    affine = where[2] % 2 == 1
     gaps = dict(gap_open=10, gap_extend=2) if affine else dict(gap=2)
     subj, lens = random_subjects(rng, lanes * S, ws)
     prof = fz.tensor(make_profile(q, mat, pad_rows_to=W))

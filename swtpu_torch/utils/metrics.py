@@ -60,6 +60,9 @@ class SearchMetrics:
     attributed: bool = False
     transfer_seconds: float = 0.0  # the "transfer" phase: scores (or top-K candidates) device -> host
     kernel_launches: int = 0
+    # K1 (lane, segment) entries whose int16 best may have wrapped, rescored
+    # in int32 on the card (in a batch: its piece's, as kernel_launches).
+    rescored_lanes: int = 0
 
     @property
     def gcups(self) -> float:

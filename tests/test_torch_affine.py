@@ -168,7 +168,10 @@ def test_sw_wave_rejects_bad_gap_arguments(kw, match):
 def test_carry_bytes_counts_both_planes():
     # bands past one pass of either shape: the launch carries a pass boundary
     n = 17  # two passes of 16 bands, or 17 band sweeps
-    assert wave_sw.carry_bytes(n, 2, 100, 128, affine=True) == 2 * wave_sw.carry_bytes(n, 2, 100, 128) == 8 * 200 * 128
+    # The int16x2 kernel's carry (int16 slots) and its rescore's (int32, 8 entries, one block)
+    assert wave_sw.carry_bytes(n, 2, 100, 128, affine=True) == 2 * wave_sw.carry_bytes(n, 2, 100, 128) == (
+        4 * 200 * 128 + 8 * 100 * 8)
+    assert wave_sw.carry_bytes(n, 2, 100, 128, affine=True, int16=False) == 8 * 200 * 128
     assert wave_sw.carry_bytes(1, 2, 100, 128, affine=True) == 0
 
 

@@ -83,6 +83,7 @@ def test_function_on_cpu_matches_swtpu(name, n_cases):
 
 def test_thresholds_hit_both_sides(monkeypatch):
     monkeypatch.setattr(wave_sw, "BAND_THREADS", 96)
+    monkeypatch.setattr(wave_sw, "BAND_THREADS_AFFINE", 96)
     monkeypatch.setattr(bucket_sw, "BAND_ROWS", 64)
     fz = card_fuzz.Fuzz("cpu", keep=False)
     assert card_fuzz.main_thresholds(fuzz=fz) == 0, fz.failures

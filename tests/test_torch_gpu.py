@@ -4,6 +4,9 @@ These tests need an NVIDIA GPU with nvcc; elsewhere the ``cuda`` fixture
 skips them.  The wavefront kernel (one query and a query axis, every
 compiled (G, H) shape: the warp wavefront and the band sweep) is held
 exactly to its plain PyTorch version on the same card, linear and affine,
+its int16x2 route also on lanes past its int16 ceiling (the flags, the
+int32 rescore and its count, the engine's ``rescored_lanes``) and beside
+the int32 kernel, which hand-offs and wide gaps still run,
 and the engine's single, batched, queued, streaming and top-K paths to the
 committed goldens; align_top_k on the card gives the alignments it gives on
 the CPU.  The row kernels K2 and K3 are held to their plain versions, and
@@ -106,6 +109,104 @@ def test_every_kernel_shape_matches_plain(cuda, shape, gaps):
         assert torch.equal(scores, want) and torch.equal(carry, plain_carry)
 
 
+# --- K1's int16x2 kernel and its int32 rescore -------------------------------------------
+
+
+def _gap_kw(gaps, n_segs):
+    return dict(n_segs=n_segs, gap=2) if gaps is None else dict(n_segs=n_segs, gap_open=gaps[0], gap_extend=gaps[1])
+
+
+@pytest.mark.parametrize("shape", wave_sw.SHAPES, ids=[f"G{g}H{h}" for g, h in wave_sw.SHAPES])
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+@pytest.mark.parametrize("n_queries,n_segs", [(1, 1), (3, 2)], ids=["one-query", "stack-chained"])
+def test_int16_kernel_with_saturating_lanes_matches_plain(cuda, shape, gaps, n_queries, n_segs):
+    """Every compiled (G, H), one query and a 3-query stack on chained
+    segments, a 2,400-row query (75 bands: passes at every G, a 32-row tail
+    band at H = 64) against W-run copies scoring 32,640 to 33,000
+    (synth.saturating_bucket): bit-equal to the plain version after the
+    rescore; without it exactly the entries over 32,640 read -1 and the rest
+    are exact; the device's running total grows by the flagged count; the
+    int32 kernel gives the same scores."""
+    profile, bucket = synth.saturating_bucket(7, n_segs=n_segs, lanes=8 // n_segs + 2, n_queries=n_queries)
+    prof, stack = torch.from_numpy(profile).to(cuda), torch.from_numpy(bucket).to(cuda)
+    kw = _gap_kw(gaps, n_segs)
+    want = wave_sw.sw_wave_plain(prof, stack, **kw)
+    flagged = want > wave_sw.SAT16
+    assert int(flagged.sum()) >= 4 * (1 if n_queries == 1 else 2)
+    before = (wave_sw.sw_wave.int16_launches, wave_sw.sw_wave.rescore_launches)
+    total = int(wave_sw.rescore_counter(cuda)[0])
+    got = wave_sw.sw_wave(prof, stack, shape=shape, **kw)
+    assert (wave_sw.sw_wave.int16_launches, wave_sw.sw_wave.rescore_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert int(wave_sw.rescore_counter(cuda)[0]) - total == int(flagged.sum())
+    raw = wave_sw._sw_wave_route(prof, stack, shape=shape, rescore=False, **kw)
+    assert torch.equal(raw == -1, flagged) and torch.equal(raw[~flagged], want[~flagged])
+    assert torch.equal(wave_sw._sw_wave_route(prof, stack, shape=shape, int32=True, **kw), want)
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+def test_rescore_scores_more_entries_than_a_block_scans(cuda, gaps):
+    """1,100 lanes of W-run copies, every one over 32,640: more flagged
+    entries than a rescore block scans (1,024) and many rounds of 8 a block,
+    all rescored exactly, on the sweep and on the wavefront."""
+    profile, _ = synth.saturating_bucket(1)
+    lanes, seg_cols = 1100, 2240
+    bucket = np.full((seg_cols + 32, lanes), PAD_SUBJECT, dtype=np.int8)
+    for lane in range(lanes):
+        bucket[: 2177 + lane % 24, lane] = 17  # W
+    prof, stack = torch.from_numpy(profile).to(cuda), torch.from_numpy(bucket).to(cuda)
+    kw = _gap_kw(gaps, 1)
+    want = wave_sw.sw_wave_plain(prof, stack, **kw)
+    assert bool((want > wave_sw.SAT16).all())
+    for shape in ((1, wave_sw.BAND_H[gaps is not None]), (16, 32)):
+        total = int(wave_sw.rescore_counter(cuda)[0])
+        assert torch.equal(wave_sw.sw_wave(prof, stack, shape=shape, **kw), want), shape
+        assert int(wave_sw.rescore_counter(cuda)[0]) - total == lanes
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+def test_hand_off_and_wide_gaps_run_the_int32_kernel(cuda, gaps):
+    """A hand-off (top_in / return_carry) and gaps past I16_GAP_MAX launch
+    the int32 kernel: no int16x2 launch, no rescore, exact scores."""
+    prof, stack = _bucket(np.random.default_rng(3), 470, 40, 3, 99)
+    prof, stack = prof.to(cuda), stack.to(cuda)
+    kw = _gap_kw(gaps, 3)
+    before = (wave_sw.sw_wave.int16_launches, wave_sw.sw_wave.rescore_launches, wave_sw.sw_wave.carry_launches)
+    scores, carry = wave_sw.sw_wave(prof, stack, return_carry=True, **kw)
+    want, plain_carry = wave_sw.sw_wave_plain(prof, stack, return_carry=True, **kw)
+    assert torch.equal(scores, want) and torch.equal(carry, plain_carry)
+    wide = dict(n_segs=3, gap=wave_sw.I16_GAP_MAX + 1) if gaps is None else dict(
+        n_segs=3, gap_open=wave_sw.I16_GAP_MAX + 1, gap_extend=1)
+    assert torch.equal(wave_sw.sw_wave(prof, stack, **wide), wave_sw.sw_wave_plain(prof, stack, **wide))
+    after = (wave_sw.sw_wave.int16_launches, wave_sw.sw_wave.rescore_launches, wave_sw.sw_wave.carry_launches)
+    assert after == (before[0], before[1], before[2] + 1)
+    wave_sw.sw_wave(prof, stack, **kw)
+    assert wave_sw.sw_wave.int16_launches == before[0] + 1
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+def test_engine_counts_rescored_lanes(cuda, gaps):
+    """A database holding one W-run copy over 32,640 (and one at 32,640):
+    a search and a batch each rescore exactly that entry, report it in
+    ``SearchMetrics.rescored_lanes`` and on the engine, and score it exactly."""
+    rng = np.random.default_rng(11)
+    seqs = [np.full(2177, 17, dtype=np.int8), np.full(2176, 17, dtype=np.int8)]
+    seqs += [rng.integers(0, 25, int(rng.integers(50, 600))).astype(np.int8) for _ in range(300)]
+    db = synth.database_from_arrays(seqs)
+    residues = np.concatenate([np.full(2200, 17), rng.integers(0, 25, 100)]).astype(np.int8)
+    query = Query(name="w2200", residues=residues, raw="")
+    cfg = SWConfig() if gaps is None else SWConfig(gap_open=gaps[0], gap_extend=gaps[1], top_k=5)
+    eng = SearchEngine(cfg, device="cuda")
+    res = eng.search(query, db)
+    assert res.metrics.rescored_lanes == 1 and eng.rescored_lanes == 1
+    if gaps is None:
+        assert (int(res.scores[0]), int(res.scores[1])) == (32655, 32640)
+    else:
+        assert [tuple(map(int, h)) for h in res.hits[:2]] == [(0, 32655), (1, 32640)]
+    batch = eng.search_many([query, query], db)
+    assert [r.metrics.rescored_lanes for r in batch] == [2, 2] and eng.rescored_lanes == 3  # one piece of two
+
+
 @pytest.mark.parametrize("query", ["P02232", "P01008", "P05013"])
 def test_engine_subset_goldens_on_card(cuda, query):
     eng = SearchEngine(SWConfig(), device=cuda)
@@ -113,7 +214,7 @@ def test_engine_subset_goldens_on_card(cuda, query):
     res = eng.search(parse_query(DATA / "queries" / f"{query}.fasta"), db)
     golden = np.loadtxt(DATA / f"golden_{query}_subset.txt", dtype=np.int64)
     assert np.array_equal(res.scores, golden)
-    assert res.metrics.kernel_launches == len(eng._resident_packed(db).wave_groups)
+    assert res.metrics.kernel_launches == 2 * len(eng._resident_packed(db).wave_groups)  # K1 and its rescore
 
 
 def test_engine_sat_golden_on_card(cuda):
@@ -331,8 +432,10 @@ def test_cli_profile_on_card(cuda, tmp_path):
     assert all(r.returncode == 0 for r in runs), [r.stderr[-2000:] for r in runs]
     assert runs[0].stdout.split("=" * 80)[0] == runs[1].stdout.split("=" * 80)[0]
     s = trace_summary(tmp_path / "trace" / TRACE_NAME)
-    assert s["device_events"] > 0 and any(k.startswith("sw_wave_kernel<") or k.startswith("sw_band_kernel<")
-                                          for k in s["kernel_ms"])
+    # K1: the int16x2 kernels (sw_wave16_kernel, sw_band16_kernel) and their rescore, or the int32 ones
+    assert s["device_events"] > 0 and any(k.startswith(("sw_wave16_kernel<", "sw_band16_kernel<", "sw_wave_kernel<",
+                                                        "sw_band_kernel<")) for k in s["kernel_ms"])
+    assert any(k.startswith("sw_rescore_kernel<") for k in s["kernel_ms"])
     assert 0 < s["busy_share"]
 
 

@@ -88,7 +88,8 @@ def plan_plain(profile, subjT, n_segs, gaps, g, h, top_in=None):
 def test_wave_shape_is_a_compiled_shape(n_bands, lanes, n_segs, affine):
     g, h = wave_sw.wave_shape(n_bands, lanes, n_segs, affine)
     assert (g, h) in wave_sw.SHAPES
-    if lanes * n_segs >= wave_sw.BAND_THREADS:  # a bucket of many (lane, segment) pairs: the band sweep
+    threshold = wave_sw.BAND_THREADS_AFFINE if affine else wave_sw.BAND_THREADS
+    if lanes * n_segs >= threshold:  # a bucket of many (lane, segment) pairs: the band sweep
         assert (g, h) == (1, wave_sw.BAND_H[affine])
     else:  # the fewest bands a pass that take the launch in one pass, at most 16
         assert h == W and g == min(16, 1 << (n_bands - 1).bit_length())
@@ -140,9 +141,17 @@ def test_carry_bytes_follow_the_passes(affine, hand_off):
     full = 4 * (2 if affine else 1) * n_segs * seg_cols * lanes
     one_pass, two_passes = g * h // W, g * h // W + 1
     assert one_pass == 16
+    # Without a hand-off the int16x2 kernel runs: int16 slots, and its
+    # rescore's int32 slots for 8 entries a block of 1,024 (lane, segment)
+    # pairs once the rescore's 16-band passes are two.
+    rescore = 4 * (2 if affine else 1) * seg_cols * 8 * 1
     assert wave_sw.carry_bytes(1, n_segs, seg_cols, lanes, affine, hand_off) == (full if hand_off else 0)
     assert wave_sw.carry_bytes(one_pass, n_segs, seg_cols, lanes, affine, hand_off) == (full if hand_off else 0)
-    assert wave_sw.carry_bytes(two_passes, n_segs, seg_cols, lanes, affine, hand_off) == full
+    assert wave_sw.carry_bytes(two_passes, n_segs, seg_cols, lanes, affine, hand_off) == (
+        full if hand_off else full // 2 + rescore)
+    assert wave_sw.carry_bytes(two_passes, n_segs, seg_cols, lanes, affine, hand_off, int16=False) == full
+    assert wave_sw.carry_bytes(one_pass, n_segs, seg_cols, lanes, affine, hand_off, int16=False) == (
+        full if hand_off else 0)
 
 
 @pytest.mark.parametrize("shape,split", [(None, False), ((1, W), True)])

@@ -36,6 +36,20 @@ and checks that every version's scores equal the first version's.
 Versions are compared within one run only.  With --json=PATH the table,
 per-bucket times included, also goes to PATH.
 
+With --dtypes (and no versions) it compares the package's own K1
+routes instead, through the wrapper: ``wave_sw.sw_wave`` (the int16x2
+kernel and its int32 rescore, as every cell runs it) against the int32
+kernel (``wave_sw._sw_wave_route(..., int32=True)``), in turns (int32,
+int16x2, int16x2, int32), linear (gap 2) and affine (10, 2), on P01008's
+27 fused launches, the suite's batch (351 multi-query launches) and one
+query at the middle of each sixteenth of SwissProt's length law (the
+``single`` cells' 16 strata, 27 launches each), checking that both give
+the same scores.  Add --buckets for each bucket's time under both, and
+each of P01008's buckets timed at the band sweep (affine: at H = 32 and
+64) and at the wavefront forced through ``shape=`` under both routes,
+beside its (lane, segment) pairs: where the two schedules cross
+(``wave_sw.BAND_THREADS``).
+
 Arguments coarse:NAME=PATH[:grid] name versions of
 swtpu_torch/csrc/int8_mma.cu instead (":grid" for entry points that take
 their grid, ``int8_mma.coarse_grid``, before the device): each one's
@@ -75,6 +89,12 @@ def main(argv) -> int:
 
     batch, by_bucket = "--batch" in argv, "--buckets" in argv
     json_path = next((a.split("=", 1)[1] for a in argv if a.startswith("--json=")), None)
+    if "--dtypes" in argv:
+        if not torch.cuda.is_available():
+            print(__doc__, file=sys.stderr)
+            return 1
+        sys.path.insert(0, str(ROOT))
+        return finish(dtype_ab(by_bucket), [], {}, json_path)
     coarse = dict(a[len("coarse:"):].split("=", 1) for a in argv if a.startswith("coarse:"))
     argv = [a for a in argv if a not in ("--batch", "--buckets") and not a.startswith(("coarse:", "--json="))]
     if not torch.cuda.is_available() or not (argv or coarse):
@@ -232,6 +252,110 @@ def main(argv) -> int:
                       " ".join(f"{name} {v:.4f}" for name, v in ms.items()), flush=True)
     buckets = [dict(width=g.width, n_segs=g.n_segs, lanes=g.lanes, group=kind) for g, kind in zip(groups, kinds)]
     return finish(table, buckets, versions, json_path)
+
+
+def dtype_ab(by_bucket):
+    """{mode: {route: [{"ms", "buckets"}, ...]}} of the int16x2 and int32
+    routes of sw_wave, and with ``by_bucket`` {"crossover ...": {route and
+    schedule: [ms a bucket]}} (module docstring)."""
+    import math
+    from statistics import NormalDist
+
+    import numpy as np
+    import torch
+
+    from swtpu_torch import synth
+    from swtpu_torch.config import SWConfig
+    from swtpu_torch.io.fasta import Query, parse_query
+    from swtpu_torch.models.search import SearchEngine
+    from swtpu_torch.ops import wave_sw
+
+    db = synth.synth_database(559_228, seed=0)
+    engine = SearchEngine(SWConfig(), device="cuda")
+    groups = engine._resident_packed(db).wave_groups
+    qdir = ROOT / "tests" / "data" / "queries"
+    suite = [parse_query(qdir / f"{q}.fasta") for q in SUITE]
+    rng = np.random.default_rng(0)
+    lengths = [min(8000, max(20, round(math.exp(5.67 + 0.62 * NormalDist().inv_cdf((k + 0.5) / 16)))))
+               for k in range(16)]
+    strata = [Query(name=f"len{n}", residues=rng.integers(0, 25, n).astype(np.int8), raw="") for n in lengths]
+    modes = {
+        "P01008": [engine._profile(parse_query(qdir / "P01008.fasta"))],
+        "suite17": [engine._piece_profiles(suite, qpad, p) for qpad, p in engine._query_pieces(suite)],
+        "single16": [engine._profile(q) for q in strata],
+    }
+    print("single16 lengths", lengths, flush=True)
+    routes = {
+        "int32": lambda prof, g, kw, shape=None: wave_sw._sw_wave_route(
+            prof, g.stack, n_segs=g.n_segs, shape=shape, int32=True, **kw),
+        "int16x2": lambda prof, g, kw, shape=None: wave_sw.sw_wave(prof, g.stack, n_segs=g.n_segs, shape=shape, **kw),
+    }
+    gap_modes = {"linear 2": dict(gap=2), "affine 10/2": dict(gap_open=10, gap_extend=2)}
+
+    def timed(calls):
+        """(ms of the run, [ms a call], [scores a call])."""
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in calls]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        outs = []
+        start.record()
+        for call, (a, b) in zip(calls, ev):
+            a.record()
+            outs.append(call())
+            b.record()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), [a.elapsed_time(b) for a, b in ev], outs
+
+    table = {}
+    for mode, profiles in modes.items():
+        for gname, kw in gap_modes.items():
+            key = f"{mode} {gname}"
+            scores = {}
+            for route in ("int32", "int16x2", "int16x2", "int32"):
+                fn = routes[route]
+                calls = [lambda prof=prof, g=g: fn(prof, g, kw) for prof in profiles for g in groups]
+                if route not in scores:
+                    scores[route] = [o.clone() for o in timed(calls)[2]]  # warm, and the scores
+                ms, per_call, _ = timed(calls)
+                per_bucket = [sum(per_call[i] for i in range(k, len(calls), len(groups))) for k in range(len(groups))]
+                table.setdefault(key, {}).setdefault(route, []).append({"ms": ms, "buckets": per_bucket})
+            if not all(torch.equal(a, b) for a, b in zip(scores["int32"], scores["int16x2"])):
+                raise AssertionError(f"{key}: the int16x2 route's scores differ from the int32 kernel's")
+            runs = table[key]
+            mean = {r: sum(x["ms"] for x in v) / len(v) for r, v in runs.items()}
+            print(key, " ".join(f"{r} ms: {mean[r]:.3f} {[round(x['ms'], 3) for x in runs[r]]}" for r in runs),
+                  f"int32/int16x2: {mean['int32'] / mean['int16x2']:.3f}", flush=True)
+            if by_bucket:
+                for k in sorted(range(len(groups)), key=lambda k: groups[k].lanes * groups[k].n_segs):
+                    g = groups[k]
+                    ms = {r: sum(x["buckets"][k] for x in v) / len(v) for r, v in runs.items()}
+                    print(key, f"bucket {k} {g.width}x{g.n_segs} lanes {g.lanes} pairs {g.lanes * g.n_segs}:",
+                          " ".join(f"{r} {v:.4f}" for r, v in ms.items()), flush=True)
+    if by_bucket:  # the band sweep against the wavefront, bucket by bucket, under both routes
+        for mode in ("P01008",):
+            for gname, kw in gap_modes.items():
+                affine = "gap_open" in kw
+                key = f"crossover {mode} {gname}"
+                for route, fn in routes.items():
+                    for sched in ("sweep", "sweep H64", "wave") if affine else ("sweep", "wave"):
+                        calls = []
+                        for prof in modes[mode]:
+                            nb = prof.shape[-2] // 32
+                            for g in groups:
+                                shape = ((1, wave_sw.BAND_H[affine]) if sched == "sweep" else (1, 64)
+                                         if sched == "sweep H64" else
+                                         wave_sw.wave_shape(nb, g.lanes, g.n_segs, affine, band_threads=1 << 40))
+                                calls.append(lambda prof=prof, g=g, shape=shape: fn(prof, g, kw, shape))
+                        timed(calls)
+                        _, per_call, _ = timed(calls)
+                        per_bucket = [sum(per_call[i] for i in range(k, len(calls), len(groups)))
+                                      for k in range(len(groups))]
+                        table.setdefault(key, {})[f"{route} {sched}"] = per_bucket
+                for k in sorted(range(len(groups)), key=lambda k: groups[k].lanes * groups[k].n_segs):
+                    g = groups[k]
+                    print(key, f"bucket {k} pairs {g.lanes * g.n_segs}:",
+                          " ".join(f"{name} {v[k]:.4f}" for name, v in table[key].items()), flush=True)
+    return table
 
 
 def finish(table, buckets, versions, json_path) -> int:
