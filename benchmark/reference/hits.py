@@ -11,13 +11,17 @@
   (lambda * S - ln K) / ln 2, K = exp(lambda * mu) / (m * mean subject
   length).
 
+A sampled null (the prefilter's calibration sample) takes the sample's
+scores and the whole database's lengths: the bins, their subject counts
+and the pooled count are the database's, the score moments the sample's.
+
 Every float is of ``dtype``: float64 is the stated arithmetic, float32 the
 control of a lower precision.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -69,13 +73,21 @@ def _bin_ids(lengths: np.ndarray, edges: np.ndarray) -> np.ndarray:
 
 
 def evalues(
-    scores: np.ndarray, lengths: np.ndarray, query_length: int, hits: List[Tuple[int, int]], dtype=np.float64
+    scores: np.ndarray, lengths: np.ndarray, query_length: int, hits: List[Tuple[int, int]], dtype=np.float64,
+    population: Optional[np.ndarray] = None,
 ) -> List[Tuple[float, float]]:
     """(E-value, bits) of each hit under the null fitted to ``scores``
-    (file order, every subject of the database; ``lengths`` theirs)."""
+    (file order, every subject of the database; ``lengths`` theirs).
+
+    A sampled null: ``scores`` and ``lengths`` cover a sample of the
+    database and ``population`` holds every subject's length.  The bins'
+    edges, subject counts and mean ln(length), the mean subject length and
+    the pooled count are then the population's; the score moments stay the
+    sample's."""
     ft = np.dtype(dtype).type
     scores = np.asarray(scores)
     lengths = np.asarray(lengths, dtype=np.int64)
+    pop = lengths if population is None else np.asarray(population, dtype=np.int64)
     nz = scores > 0
     body = scores[nz].astype(ft)
     count = int(body.size)
@@ -94,7 +106,7 @@ def evalues(
     beta = ft(np.sqrt(var / v))
     lam, mu = ft(1.0) / beta, ft(mean - beta * m1)
 
-    edges = _bin_edges(lengths, ft)
+    edges = _bin_edges(pop, ft)
     nb = len(edges)
     ids = _bin_ids(lengths, edges)
     ids_nz = ids[nz]
@@ -107,9 +119,10 @@ def evalues(
     cut_counts = np.bincount(tb[tok], minlength=nb)[:nb].astype(ft)
     cut_sums = np.bincount(tb[tok], weights=top[tok], minlength=nb)[:nb].astype(ft)
     cut_sumsqs = np.bincount(tb[tok], weights=top[tok] * top[tok], minlength=nb)[:nb].astype(ft)
-    okl = ids < nb
-    n_subj = np.bincount(ids[okl], minlength=nb)[:nb].astype(ft)
-    logsum = np.bincount(ids[okl], weights=np.log(np.maximum(lengths[okl], 1)).astype(ft), minlength=nb)[:nb]
+    pids = _bin_ids(pop, edges)
+    okl = pids < nb
+    n_subj = np.bincount(pids[okl], minlength=nb)[:nb].astype(ft)
+    logsum = np.bincount(pids[okl], weights=np.log(np.maximum(pop[okl], 1)).astype(ft), minlength=nb)[:nb]
     log_len = (logsum / np.maximum(n_subj, 1)).astype(ft)
 
     lfit = None
@@ -132,7 +145,7 @@ def evalues(
             b = ft((nbu * (x - xm) * (mu_b - ym)).sum(dtype=ft) / (nbu * (x - xm) ** 2).sum(dtype=ft))
             lfit = (ft(1.0) / beta_p, ft(ym - b * xm), b)
 
-    mean_len = ft(lengths.sum()) / ft(max(lengths.size, 1))
+    mean_len = ft(pop.sum()) / ft(max(pop.size, 1))
     k_const = np.exp(lam * mu) / ft(max(query_length * mean_len, 1.0))
     out = []
     for _, sc in hits:
@@ -142,7 +155,7 @@ def evalues(
             z = np.exp(-lam_l * (x - (a + b * log_len)))
             e = (n_subj * -np.expm1(-z)).sum(dtype=ft)
         else:
-            e = ft(lengths.size) * -np.expm1(-np.exp(-lam * (x - mu)))
+            e = ft(pop.size) * -np.expm1(-np.exp(-lam * (x - mu)))
         bits = (lam * x - np.log(max(k_const, ft(1e-300) if ft is np.float64 else ft(1e-38)))) / np.log(ft(2.0))
         out.append((float(e), float(bits)))
     return out

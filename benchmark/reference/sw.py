@@ -14,6 +14,13 @@ where T holds the cell's other candidates (0, the diagonal plus the
 substitution score, the vertical gap).  A subject's score is the largest H
 of its cells.
 
+``best_scores_many`` scores several queries, each against its own
+subjects, in one pass: queries of similar lengths share a tile, a subject
+row indexing its own query's substitution rows, and a shorter query's rows
+padded with rows that score PAD_SCORE against everything.  A padded row's
+H never exceeds the largest H of the row above it (its diagonal is below
+zero, and its gaps only lose), so a padded row never raises a best.
+
 ``precision="int16"`` is the control of a lower precision: the same
 recurrence with every H saturated at 32,767, as a saturating int16 kernel
 keeps it.
@@ -70,8 +77,9 @@ def _rows(query: np.ndarray, matrix: np.ndarray, device) -> torch.Tensor:
 
 
 def _tile_best(prof: torch.Tensor, subj: torch.Tensor, gaps: Dict[str, int], saturate: bool) -> torch.Tensor:
-    """(n,) int32 best local score of each row of ``subj`` against the query
-    whose substitution rows are ``prof``."""
+    """(n,) int32 best local score of each row of ``subj``: ``prof[i]`` holds
+    row i's substitution scores, and ``subj`` indexes it (a subject's
+    residue, offset by 26 times its query's place in ``prof``)."""
     n, w = subj.shape
     dev = subj.device
     flat = subj.reshape(-1)
@@ -136,23 +144,58 @@ def best_scores(
     on ``device``; sequence i is ``residues[offsets[i]:offsets[i + 1]]``),
     in the order of ``ids``.  ``gaps``: ``{"gap": g}`` or ``{"gap_open":
     o, "gap_extend": e}``."""
+    return best_scores_many([query], [ids], residues, offsets, matrix, gaps, device, precision, ratio, max_cells)[0]
+
+
+def best_scores_many(
+    queries: List[np.ndarray],
+    ids: List[np.ndarray],
+    residues,
+    offsets: np.ndarray,
+    matrix: np.ndarray,
+    gaps: Dict[str, int],
+    device="cpu",
+    precision: str = "int32",
+    ratio: float = 1.3,
+    max_cells: int = 1 << 26,
+    query_ratio: float = 2.0,
+) -> List[np.ndarray]:
+    """``best_scores`` of each ``queries[g]`` against its own ``ids[g]``:
+    queries whose longest is at most ``query_ratio`` times their shortest
+    share each tile."""
     if precision not in ("int32", "int16"):
         raise ValueError(f"unknown precision {precision!r}")
-    ids = np.asarray(ids, dtype=np.int64)
-    out = np.zeros(ids.size, dtype=np.int64)
-    if ids.size == 0 or len(query) == 0:
+    ids = [np.asarray(i, dtype=np.int64) for i in ids]
+    out = [np.zeros(i.size, dtype=np.int64) for i in ids]
+    live = sorted((g for g in range(len(queries)) if len(queries[g]) and ids[g].size), key=lambda g: len(queries[g]))
+    if not live:
         return out
     res = residues if isinstance(residues, torch.Tensor) else torch.from_numpy(np.asarray(residues))
     res = res.to(device)
     offsets = np.asarray(offsets, dtype=np.int64)
-    lens = offsets[ids + 1] - offsets[ids]
-    prof = _rows(query, matrix, device)
-    for part in tiles(lens, ratio, max_cells):
-        part = part[lens[part] > 0]
-        if part.size == 0:
-            continue
-        starts = torch.from_numpy(offsets[ids[part]]).to(device)
-        subj = _tile_subjects(res, starts, torch.from_numpy(lens[part]).to(device))
-        out[part] = _tile_best(prof, subj, gaps, precision == "int16").cpu().numpy()
+    groups, start = [], 0
+    for end in range(1, len(live) + 1):
+        if end == len(live) or len(queries[live[end]]) > query_ratio * len(queries[live[start]]):
+            groups.append(live[start:end])
+            start = end
+    for group in groups:
+        rows = max(len(queries[g]) for g in group)
+        prof = torch.full((rows, (PAD + 1) * len(group)), PAD_SCORE, dtype=torch.int32, device=device)
+        for slot, g in enumerate(group):
+            prof[: len(queries[g]), slot * (PAD + 1) : (slot + 1) * (PAD + 1)] = _rows(queries[g], matrix, device)
+        owner = np.concatenate([np.full(ids[g].size, k, dtype=np.int64) for k, g in enumerate(group)])
+        pos = np.concatenate([np.arange(ids[g].size) for g in group])
+        pair = np.concatenate([ids[g] for g in group])
+        lens = offsets[pair + 1] - offsets[pair]
+        for part in tiles(lens, ratio, max_cells):
+            part = part[lens[part] > 0]
+            if part.size == 0:
+                continue
+            starts = torch.from_numpy(offsets[pair[part]]).to(device)
+            subj = _tile_subjects(res, starts, torch.from_numpy(lens[part]).to(device))
+            subj += torch.from_numpy(owner[part] * (PAD + 1)).to(device=device, dtype=torch.int32)[:, None]
+            best = _tile_best(prof, subj, gaps, precision == "int16").cpu().numpy()
+            for k, g in enumerate(group):
+                mine = owner[part] == k
+                out[g][pos[part][mine]] = best[mine]
     return out
-

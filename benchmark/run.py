@@ -8,10 +8,11 @@ seed, loads the program and packs the database on the card, warms up every
 call shape the traffic makes (all of that is ``setup_s``), then sends
 requests in a closed loop for ``--seconds``.  Once the window has closed it
 frees the program, checks a seeded sample of the answers against the plain
-reference (``benchmark/reference``) and prints one JSON line last on
-standard output: ``correct``, ``attempted``, ``failed``, the metrics
-(end-to-end untraced; per-layer with ``--trace 1``, read from a
-``torch.profiler`` trace of the window), ``device``, with a trace
+reference (``benchmark/reference``; by the check the configuration names,
+``benchmark/checks/<name>.py``, else by ``swbench/check.py``) and prints
+one JSON line last on standard output: ``correct``, ``attempted``,
+``failed``, the metrics (end-to-end untraced; per-layer with ``--trace
+1``, read from a ``torch.profiler`` trace of the window), ``device``, with a trace
 ``breakdown``, and last ``check``: each number compared beside its limit,
 as the last lines of standard error also give them.
 
@@ -134,7 +135,8 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, traced: bool, de
         torch.cuda.empty_cache()
 
     records = window["records"]
-    numbers = check.check(cfg, qs, residues, offsets, planted, sample, device, control)
+    checker = spec.plugin("checks", cfg["check"]) if "check" in cfg else check
+    numbers = checker.check(cfg, qs, residues, offsets, planted, sample, device, control)
     ref_s, detail = numbers.pop("reference_seconds"), numbers.pop("_detail")
     failed = numbers["answers_missing"]["value"]
     correct = all(v["value"] <= v["limit"] for v in numbers.values())

@@ -10,8 +10,11 @@
   ``benchmark/<kind>/<name>.py`` (``plugin``): the database's recipe
   (``databases``), the engine's builder (``engines``), the source of a
   group of queries (``sources``), the order of the requests (``orders``),
-  the loop that sends them (``loops``) and the program's entry a request
-  calls (``calls``).
+  the loop that sends them (``loops``), the program's entry a request
+  calls (``calls``), and the comparison that decides ``correct``
+  (``checks``: ``check(cfg, qs, residues, offsets, planted, sample,
+  device, control)``; a configuration that names none is checked by
+  ``swbench/check.py``).
 
 Adding a cell, a configuration, a mix, a metric or a new kind of any of
 those pieces adds files and entries; nothing here names one.

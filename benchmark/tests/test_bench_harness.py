@@ -78,6 +78,7 @@ def test_every_part_of_a_cell_is_found_by_name(cell):
     assert cfg["name"] == w["config"] and cfg["chips"] == w["chips"]
     pieces = [("databases", cfg["database"]["recipe"]), ("engines", cfg["engine"]["name"]), ("calls", mix["call"]),
               ("orders", mix["order"]["name"]), ("loops", mix["loop"])] + [("sources", g["source"]) for g in mix["queries"]]
+    pieces += [("checks", cfg["check"])] if "check" in cfg else []
     for kind, piece in pieces:
         assert spec.plugin(kind, piece) is spec.plugin(kind, piece)
     with pytest.raises(KeyError):

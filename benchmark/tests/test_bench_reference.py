@@ -60,6 +60,24 @@ def test_reference_equals_brute_force(gaps, trial):
     assert np.array_equal(sw.best_scores(q, res, off, ids[::-1], M, gaps)[::-1], want)
 
 
+@pytest.mark.parametrize("gaps", GAPS[1:3], ids=lambda g: "-".join(f"{k}{v}" for k, v in g.items()))
+def test_queries_scored_together_score_as_alone(gaps):
+    """Queries of lengths 1 to 60 share tiles, each against its own
+    subjects (an empty query and an empty id list among them): every score
+    is the one the query gets alone, in one group or one a query."""
+    rng = np.random.default_rng(7)
+    subs = [rng.integers(0, 25, int(rng.integers(0, 70))).astype(np.int8) for _ in range(40)]
+    res, off = flat(subs)
+    qs = [rng.integers(0, 25, n).astype(np.int8) for n in (1, 60, 7, 0, 33, 12, 59)]
+    ids = [rng.choice(40, int(rng.integers(1, 15)), replace=False) for _ in qs]
+    ids[5] = np.zeros(0, np.int64)
+    want = [sw.best_scores(q, res, off, i, M, gaps) for q, i in zip(qs, ids)]
+    for query_ratio, ratio in ((1.0, 1.3), (1e9, 1.3), (2.0, 1e9)):
+        got = sw.best_scores_many(qs, ids, res, off, M, gaps, ratio=ratio, query_ratio=query_ratio)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert sw.best_scores(qs[1], res, off, [0, 1, 2], M, gaps).tolist() == [brute(qs[1], subs[i], gaps) for i in range(3)]
+
+
 def test_int16_control_saturates_where_int32_does_not():
     q = np.full(2300, scoring.ALPHABET.index("W"), np.int8)  # W/W scores 15: a self-alignment of 34,500
     res, off = flat([q, q[:100], np.arange(25, dtype=np.int8)])
