@@ -158,13 +158,16 @@ Phases (one line each; any failure exits non-zero with no result line):
               hot swap, and warmup's seconds with a first search after it
               against one on a fresh engine; the hand-off launches of a
               P01008 search alone against their plain version
- 11. prefilter the k-mer prefilter on the same resident database: the NumPy
-              signature pass and the signatures' bytes on the card; P01008
+ 11. prefilter the k-mer prefilter on the same resident database: the
+              signatures built on the card and their bytes there; P01008
               at prefilter 0.05, top-K 10 (counts zeroed just before, read
-              just after: one coarse_counts launch and one sw_wave launch a
-              width class), its hits equal to the exhaustive top-10 of the
+              just after: one signature build, one coarse_counts launch and
+              one sw_wave launch a width class), its hits equal to the exhaustive top-10 of the
               candidate set and that set to the plain coarse pass's; three
-              timed searches; the coarse kernel alone at Q = 1 and 17
+              timed searches; the signature kernel alone (one launch) on
+              the resident residues and offsets, byte for byte the native
+              host pass with its popcounts, against its byte bound and
+              that pass's seconds; the coarse kernel alone at Q = 1 and 17
               against its bound, plain version and torch._int_mm, and on
               seeded random signatures of the same shape;
               search_many for the suite (one coarse launch, hits equal to
@@ -397,7 +400,7 @@ def phase_build():
         if rows:
             g, h = rows.groups()
             return f"K2/K3 sw_rows_kernel G{g} H{h} " + ("band sweep" if g == "1" else "wavefront")
-        for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7")):
+        for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7"), ("kmer_signatures_kernel", "K7")):
             if kernel in mangled:
                 return f"{tag} {kernel}"
         # K1: sw_wave_kernel<AFFINE, HAND_OFF, G> (the warp wavefront), sw_band_kernel<AFFINE, HAND_OFF, H>
@@ -2500,10 +2503,14 @@ def null_equal(a, b):
 
 def phase_prefilter(db, engine):
     """The k-mer prefilter on the resident database: signatures, P01008's
-    two-phase search (counts zeroed just before, read just after), its
-    exactness against the exhaustive scores, the coarse kernel alone
-    against its bound, plain version and torch._int_mm, search_many for the
-    suite, E-values, and the planted-homolog recall of swtpu's battery."""
+    two-phase search (counts zeroed just before, read just after; its first
+    search builds the index on the card), its exactness against the
+    exhaustive scores, the signature kernel alone on the resident residues
+    and offsets against the native host pass (byte for byte, popcounts
+    too) and its byte bound, the coarse kernel alone against its bound,
+    plain version and torch._int_mm, search_many for the suite, E-values,
+    and the planted-homolog recall of swtpu's battery.  Returns the kernel
+    table's entries of the coarse kernel and the signature kernel."""
     import numpy as np
     import torch
 
@@ -2525,21 +2532,47 @@ def phase_prefilter(db, engine):
     eng = SearchEngine(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     # --- this phase's path: counts zeroed just before, read just after
-    int8_mma.coarse_counts.launches = wave_sw.sw_wave.launches = 0
+    int8_mma.coarse_counts.launches = wave_sw.sw_wave.launches = pf.database_signatures_cuda.launches = 0
     t0 = time.perf_counter()
-    first = eng.search(query, db)  # builds the signatures and puts them on the card, then searches
+    first = eng.search(query, db)  # builds the signatures on the card, then searches
     first_wall = time.perf_counter() - t0
-    launched = {"coarse_counts": int8_mma.coarse_counts.launches, "sw_wave": wave_sw.sw_wave.launches}
-    sig, pop, _, _ = eng._prefilter_signatures(db)
+    launched = {"signatures": pf.database_signatures_cuda.launches, "coarse_counts": int8_mma.coarse_counts.launches,
+                "sw_wave": wave_sw.sw_wave.launches}
+    sig, pop, flat, offsets = eng._prefilter_signatures(db)
     n_cand = eng._n_cand(db.n)
     qsig = torch.from_numpy(pf.signature(query.residues)).cuda()
-    packed = pf.coarse_candidates(sig, pop, qsig, n_cand).cpu().numpy()
+    packed = pf.candidates_from_counts(int8_mma.coarse_counts(qsig[None], sig), pop, qsig[None], n_cand)[0].cpu().numpy()
     cand = pf.merge_candidates(packed[0], packed[1], n_cand)
     _, jobs, _, _ = eng._prefilter_exact_enqueue(query, db, cand, PhaseTimer())
-    if launched != {"coarse_counts": 1, "sw_wave": len(jobs)} or first.metrics.kernel_launches != 1 + 2 * len(jobs):
-        raise AssertionError(f"prefiltered search launched {launched} for 1 coarse pass and {len(jobs)} exact buckets")
+    # one signature build, one coarse pass, and each exact bucket's K1 launch and its rescore
+    if (launched != {"signatures": 1, "coarse_counts": 1, "sw_wave": len(jobs)}
+            or first.metrics.kernel_launches != 1 + 1 + 2 * len(jobs)):
+        raise AssertionError(f"prefiltered search launched {launched} (kernel_launches {first.metrics.kernel_launches}) "
+                             f"for 1 signature build, 1 coarse pass and {len(jobs)} exact buckets")
     say("prefilter.signatures", sequences=db.n, dim=pf.DIM, k=pf.K, signature_bytes_on_card=sig.numel(),
         signatures_and_upload_host_s=first.metrics.phases["prefilter_signatures"], first_search_wall_s=first_wall)
+
+    # --- the signature kernel alone on the resident residues and offsets: byte
+    # for byte the native host pass (held to its plain version in native.pack),
+    # against its byte bound
+    t_host = time.perf_counter()
+    host_sig = pf.database_signatures(db)
+    host_s = time.perf_counter() - t_host
+    pf.database_signatures_cuda.launches = 0
+    card_sig, card_pop = pf.database_signatures_cuda(flat, offsets)
+    sig_launches = pf.database_signatures_cuda.launches
+    sig_equal = torch.equal(card_sig, torch.from_numpy(host_sig).cuda()) and torch.equal(sig, card_sig)
+    pop_equal = torch.equal(card_pop.cpu(), torch.from_numpy(host_sig.sum(axis=1, dtype=np.int32)))
+    if sig_launches != 1 or not sig_equal or not pop_equal:
+        raise AssertionError(f"signature kernel: {sig_launches} launches, signatures equal {sig_equal}, "
+                             f"popcounts equal {pop_equal} to the native host pass")
+    del card_sig, card_pop, host_sig
+    sig_ms, _ = events_ms(lambda: pf.database_signatures_cuda(flat, offsets), reps=5)
+    sig_bytes = flat.numel() + 8 * offsets.numel() + db.n * pf.DIM + 4 * db.n  # residues, offsets read; index written
+    sig_bound_ms = 1e3 * sig_bytes / HBM_BYTES_PER_S
+    say("prefilter.signature_kernel", sequences=db.n, residues=flat.numel(), launches=sig_launches,
+        equal_native=True, ms=sig_ms, bound_ms=sig_bound_ms, bound_share=sig_bound_ms / sig_ms, bytes=sig_bytes,
+        native_host_ms=1e3 * host_s)
 
     # --- exactness: hits are the exhaustive top-10 of the candidate set, the
     # candidate set is the plain coarse pass's
@@ -2656,6 +2689,11 @@ def phase_prefilter(db, engine):
         "replaces": "tools/roofline.py:65", "launches": launched["coarse_counts"], "max_abs_err": counts_err,
         "ms": coarse1["ms"], "plain_ms": coarse1["plain_ms"], "bound_ms": coarse1["bound_ms"],
         "bound_by": coarse1["bound_by"], "library_ms": coarse1["library_ms"],
+    }, {
+        # plain_ms: the native host pass it replaces (swtpu builds the index on the host)
+        "name": "kmer_signatures (K7 signatures)", "route": "cuda", "source": "swtpu_torch/csrc/kmer_signatures.cu",
+        "replaces": "swtpu/native/sw_native.cpp:210", "launches": sig_launches, "max_abs_err": 0,
+        "ms": sig_ms, "plain_ms": 1e3 * host_s, "bound_ms": sig_bound_ms, "bound_by": "bytes", "library_ms": None,
     }
 
 
@@ -3406,7 +3444,7 @@ def main() -> int:
         phase_mesh_prefilter(db)
         phase_mesh_query_shard_streamed(db)
         dist_fleet = phase_dist_fleet(fasta, db, suite_scores)
-        coarse = phase_prefilter(db, engine)
+        coarse, signatures = phase_prefilter(db, engine)
         labs = phase_lab(db, engine)
         k10 = phase_lab_rows(db, engine, row_engine)
     except Exception:  # every phase failure ends the run without a result
@@ -3434,7 +3472,7 @@ def main() -> int:
     for k in k9:
         k["max_abs_err"] = max(k["max_abs_err"], i16_err)
     print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, mesh_lanes, mesh_bands, mesh_rows, dist_fleet, coarse,
-                                  probe, chain, *labs, *k9, *k10]}))
+                                  signatures, probe, chain, *labs, *k9, *k10]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ than its native parse (D10, ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -47,7 +48,12 @@ class Query:
 
 @dataclasses.dataclass
 class Database:
-    """A parsed sequence database: flat residues + offsets, file-order ids."""
+    """A parsed sequence database: flat residues + offsets, file-order ids.
+
+    The arrays are not changed once the database is made: what is derived
+    from the offsets (``lengths``, ``largest_length``, each
+    ``padded_length_sum``) is computed once an object, since a search of a
+    large database would otherwise pay an O(n) pass for each."""
 
     residues: np.ndarray  # (total,) int8, concatenated encoded sequences
     offsets: np.ndarray  # (n+1,) int64, sequence i = residues[offsets[i]:offsets[i+1]]
@@ -57,23 +63,32 @@ class Database:
     def n(self) -> int:
         return int(self.offsets.shape[0] - 1)
 
-    @property
+    @functools.cached_property
     def lengths(self) -> np.ndarray:
-        return np.diff(self.offsets).astype(np.int64)
+        """(n,) int64 record lengths, read-only (shared by every caller)."""
+        ln = np.diff(self.offsets).astype(np.int64)
+        ln.setflags(write=False)
+        return ln
 
     @property
     def length_sum(self) -> int:
         return int(self.offsets[-1])
 
-    @property
+    @functools.cached_property
     def largest_length(self) -> int:
         return int(self.lengths.max()) if self.n else 0
+
+    @functools.cached_property
+    def _padded_sums(self) -> dict:
+        return {}
 
     def padded_length_sum(self, quantum: int = 8) -> int:
         """Sum of lengths rounded up to `quantum` (the reference program's
         ``subjectLengthSum``, which counts its pad-to-8 residues)."""
-        ln = self.lengths
-        return int((-(-ln // quantum) * quantum).sum())
+        sums = self._padded_sums
+        if quantum not in sums:
+            sums[quantum] = int((-(-self.lengths // quantum) * quantum).sum())
+        return sums[quantum]
 
     def sequence(self, i: int) -> np.ndarray:
         return self.residues[int(self.offsets[i]) : int(self.offsets[i + 1])]

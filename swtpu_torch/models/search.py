@@ -24,8 +24,9 @@ Serving paths beside the single search:
   rows transfer; with ``SWConfig.evalue`` the null distribution's moments
   reduce there too, in int64;
 * with ``SWConfig.prefilter`` ``search`` and ``search_many`` run the k-mer
-  prefilter: one int8 coarse launch (``ops.int8_mma``) ranks the database,
-  and the top candidates are gathered on the device and scored exactly;
+  prefilter: one int8 coarse launch (``ops.int8_mma``) ranks the database
+  against its signature index (built on the card once a database), and
+  the top candidates are gathered on the device and scored exactly;
 * with ``SWConfig.wave_compose`` a query on a resident pack runs as a chain
   of power-of-two band groups, each launch handing its band carry to the
   next (the kernel's hand-off mode), and ``search_many`` serves a piece
@@ -295,6 +296,7 @@ class SearchEngine:
         self._sig_cache = None
         self._prefilter_edge_cache = None
         self._evalue_sample_cache = None
+        self._population_bins_cache = None
         self._exact: Optional["SearchEngine"] = None
 
     # --- device plumbing -------------------------------------------------------
@@ -513,13 +515,14 @@ class SearchEngine:
     @staticmethod
     def _launches() -> int:
         """CUDA kernel launches of every wrapper of a search so far (K1 and
-        its rescore, K2, K3 and the coarse counts)."""
+        its rescore, K2, K3, the coarse counts and the signature index)."""
         return (
             wave_sw.sw_wave.launches
             + getattr(wave_sw.sw_wave, "rescore_launches", 0)  # a stand-in for sw_wave may not count them
             + bucket_sw.sw_score_bucket_fused.launches
             + bucket_sw.sw_score_bucket.launches
             + int8_mma.coarse_counts.launches
+            + pf.database_signatures_cuda.launches
         )
 
     @property
@@ -882,11 +885,23 @@ class SearchEngine:
         vectors of the length-corrected fit (swtpu_torch.stats)."""
         from .. import stats as st
 
-        edges = st.length_bin_edges(db.lengths)
+        edges, log_len, n_subj = self._population_bins(db)
         lens = np.where(ids_flat >= 0, db.lengths[np.maximum(ids_flat, 0)], 0)
         bins = st.length_bin_ids(lens, edges).astype(np.int64)
-        log_len, n_subj = st.bin_log_lengths(db.lengths, edges)
         return edges, bins, log_len, n_subj, len(edges)
+
+    def _population_bins(self, db: Database):
+        """``stats.population_bins`` of the database's lengths (bin edges,
+        mean ln(length) and subjects a bin), computed once a database
+        object: every null fitted to it extrapolates to these."""
+        cached = self._population_bins_cache
+        if cached is not None and cached[0] is db:
+            return cached[1]
+        from .. import stats as st
+
+        bins = st.population_bins(db.lengths)
+        self._population_bins_cache = (db, bins)
+        return bins
 
     def _topk_setup(self, db: Database, packed: PackedDatabase):
         """(total, kk, key low bits, (bins, nb)|None, evalue metadata|None,
@@ -1004,6 +1019,7 @@ class SearchEngine:
             mean_subject_length=db.length_sum / max(db.n, 1),
             lengths=db.lengths,
             trim=self._top_trim,
+            bins=self._population_bins(db),
         )
         return result
 
@@ -1139,21 +1155,29 @@ class SearchEngine:
         with span("swtpu.search"):
             if self.config.prefilter is not None:
                 return self._search_prefiltered(query, db)
-            packed = self._resident_packed(db, plan)
-            if packed is not None:
-                return self.search_packed(query, db, packed)
-            if not self._wave_enabled or self._qshard:
-                # The row ladder, batch by batch on the primary device: the row
-                # path's stream, and swtpu's route for a database that cannot be
-                # resident under query_shard (its batches unsharded, on the
-                # default device).
-                if self._affine:
-                    raise ValueError(
-                        "affine gaps under query_shard need a resident database: one that streams "
-                        "runs swtpu's row ladder, which scores linear gaps only; raise device_resident_cells"
-                    )
-                return self._attach_null(self._search_rows_streaming(query, db, plan), query, db)
-            return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
+            return self._search_exhaustive(query, db, plan)
+
+    def _search_exhaustive(self, query: Query, db: Database, plan: Optional[BatchPlan] = None) -> SearchResult:
+        """``search`` without the prefilter: every subject scored.  The
+        prefilter's exhaustive fallback scores its sub-database through this
+        body of its exact engine, not through ``search``: one request is one
+        ``search`` call and one ``swtpu.search`` span, so that whatever wraps
+        or times ``search`` sees each request once, with its own answer."""
+        packed = self._resident_packed(db, plan)
+        if packed is not None:
+            return self.search_packed(query, db, packed)
+        if not self._wave_enabled or self._qshard:
+            # The row ladder, batch by batch on the primary device: the row
+            # path's stream, and swtpu's route for a database that cannot be
+            # resident under query_shard (its batches unsharded, on the
+            # default device).
+            if self._affine:
+                raise ValueError(
+                    "affine gaps under query_shard need a resident database: one that streams "
+                    "runs swtpu's row ladder, which scores linear gaps only; raise device_resident_cells"
+                )
+            return self._attach_null(self._search_rows_streaming(query, db, plan), query, db)
+        return self._attach_null(self._search_many_wave_streaming([query], db, serving=False)[0], query, db)
 
     # --- batched serving ------------------------------------------------------------
 
@@ -1596,15 +1620,30 @@ class SearchEngine:
 
     def _prefilter_signatures(self, db: Database):
         """(signatures (n, DIM) int8, popcounts (n,) int32, residues, int64
-        offsets) on the engine's device, built and uploaded once per
-        database object: the coarse pass reads the first two, gather_stack
-        the last two (int64 offsets: no 2**31-residue limit on the gather)."""
+        offsets) on the engine's device, made once per database object (the
+        span ``swtpu.prefilter_build``): the coarse pass reads the first
+        two, gather_stack the last two (int64 offsets: no 2**31-residue
+        limit on the gather).  On the card the residues and offsets are
+        copied up once and the signatures built there
+        (``pf.database_signatures_cuda``): no host copy of the index
+        exists.  On the CPU the native host pass makes them
+        (``pf.database_signatures``)."""
         cached = self._sig_cache
         if cached is not None and cached[0] is db:
             return cached[1]
         self._sig_cache = None  # release the previous database's tensors first
-        sig = self._upload(pf.database_signatures(db))
-        resident = (sig, sig.sum(dim=1, dtype=torch.int32), self._upload(db.residues), self._upload(db.offsets.astype(np.int64)))
+        with span("swtpu.prefilter_build"):
+            offsets = np.ascontiguousarray(db.offsets, dtype=np.int64)
+            if self._on_cuda:
+                # A plain copy, not _upload's pinned one: a pinned staging
+                # copy of a multi-GB buffer would stay in the host allocator's cache.
+                flat = torch.from_numpy(np.ascontiguousarray(db.residues)).to(self.device)
+                offsets = torch.from_numpy(offsets).to(self.device)
+                sig, pop = pf.database_signatures_cuda(flat, offsets)
+            else:
+                sig = self._upload(pf.database_signatures(db))
+                pop, flat, offsets = sig.sum(dim=1, dtype=torch.int32), self._upload(db.residues), self._upload(offsets)
+        resident = (sig, pop, flat, offsets)
         self._sig_cache = (db, resident)
         return resident
 
@@ -1630,36 +1669,36 @@ class SearchEngine:
             sig, pop, _, _ = self._prefilter_signatures(db)
             qsig = pf.signature(query.residues)
         coarse_s = 0.0
-        cand = np.arange(db.n, dtype=np.int64)
+        packed = None
         # A degenerate signal (a query shorter than K, an empty database)
         # falls back to exhaustive candidates rather than arbitrary hits.
         if db.n and qsig.any():
             n_cand = self._n_cand(db.n)
-            with timer.phase("prefilter_coarse"):
-                t0 = self._mark()
-                packed = pf.coarse_candidates(sig, pop, self._upload(qsig), n_cand)
-                t1 = self._mark()
-                packed = packed.cpu().numpy()
-                coarse_s = self._seconds(t0, t1)
+            packed, coarse_s = self._coarse_rank(sig, pop, self._upload(qsig[None]), n_cand, timer)
+            packed = packed[0]
+        with timer.phase("prefilter_merge"):
             # No shared bucket anywhere (every subject shorter than K): no
             # signal either, and ranking by it would pick an id prefix.
-            if int(packed[2, 0]) != 0:
+            if packed is not None and int(packed[2, 0]) != 0:
                 cand = pf.merge_candidates(packed[0], packed[1], n_cand)
-        if cfg.evalue:
-            # Null calibration: a fixed random sample is scored exactly too,
-            # for an unbiased sampled fit.
-            cand = np.union1d(cand, self._evalue_sample(db))
+            else:
+                cand = np.arange(db.n, dtype=np.int64)
+            if cfg.evalue:
+                # Null calibration: a fixed random sample is scored exactly
+                # too, for an unbiased sampled fit.
+                cand = np.union1d(cand, self._evalue_sample(db))
         null = None
         k = min(cfg.top_k, int(cand.shape[0]))
         if self._wave_enabled and cand.shape[0] < db.n:
             hits, dev_s, cells, ids_sc, sc = self._prefilter_exact_hits(query, db, cand, k, timer)
             if cfg.evalue:
-                null = self._null_from_sample(query, db, ids_sc, sc)
+                with timer.phase("prefilter_null"):
+                    null = self._null_from_sample(query, db, ids_sc, sc)
         else:
             # The row path, and the exhaustive fallback, ride the exact engine.
             with timer.phase("prefilter_gather"):
                 sub = db.take(cand)
-            sub_result = self._exact_engine().search(query, sub)
+            sub_result = self._exact_engine()._search_exhaustive(query, sub)
             # Candidate ids ascend, so the sub-engine's id-ascending
             # tie-break maps straight onto file-order ids.
             hits = [(int(cand[i]), s) for i, s in sub_result.top_k(k)]
@@ -1667,12 +1706,30 @@ class SearchEngine:
             cells = sub_result.metrics.packed_cells
             timer.phases.update(sub_result.metrics.phases)
             if cfg.evalue:
-                null = self._null_from_sample(query, db, cand, np.asarray(sub_result.scores))
+                with timer.phase("prefilter_null"):
+                    null = self._null_from_sample(query, db, cand, np.asarray(sub_result.scores))
         metrics = self._metrics(
             query, db, cells, time.perf_counter() - t_start, coarse_s + dev_s,
             phases=dict(timer.phases), kernel_launches=self._launches() - launches0,
+            prefilter_candidates=int(cand.shape[0]),
         )
         return SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
+
+    def _coarse_rank(self, sig, pop, qsigs: torch.Tensor, n_cand: int, timer):
+        """The coarse pass of (Q, DIM) query signatures on the device: K7's
+        counts (the phase ``prefilter_coarse``), then the z-scores, each
+        signal's stable sort and the copy back of the (Q, 3, n_cand) ids
+        (``prefilter_rank``; ``pf.candidates_from_counts``).  Returns them on
+        the host and the device seconds of both."""
+        t0 = self._mark()
+        with timer.phase("prefilter_coarse"):
+            q = qsigs.to(torch.int8).contiguous()
+            counts = int8_mma.coarse_counts(q, sig)
+        with timer.phase("prefilter_rank"):
+            packed = pf.candidates_from_counts(counts, pop, q, n_cand)
+            t1 = self._mark()
+            packed = packed.cpu().numpy()
+        return packed, self._seconds(t0, t1)
 
     def _search_many_prefiltered(self, queries: List[Query], db: Database) -> List[SearchResult]:
         """Batched heuristic serving: one coarse launch scores the whole
@@ -1697,37 +1754,36 @@ class SearchEngine:
             out[i] = self._search_prefiltered(queries[i], db)
         if not good:
             return out  # type: ignore[return-value]
-        with timer.phase("prefilter_coarse"):
-            t0 = self._mark()
-            packed = pf.coarse_candidates_many(sig, pop, self._upload(qsigs[good]), n_cand)
-            t1 = self._mark()
-            packed = packed.cpu().numpy()
-            device_seconds = self._seconds(t0, t1)
+        packed, device_seconds = self._coarse_rank(sig, pop, self._upload(qsigs[good]), n_cand, timer)
         pend = []
         for row, qi in enumerate(good):
             if int(packed[row, 2, 0]) == 0:  # no shared bucket anywhere
                 out[qi] = self._search_prefiltered(queries[qi], db)
                 continue
-            cand = pf.merge_candidates(packed[row, 0], packed[row, 1], n_cand)
-            if cfg.evalue:
-                cand = np.union1d(cand, self._evalue_sample(db))
-            flat, jobs, cells, span = self._prefilter_exact_enqueue(queries[qi], db, cand, timer)
-            pend.append((qi, self._to_host(flat), jobs, cells, span, min(cfg.top_k, int(cand.shape[0]))))
+            with timer.phase("prefilter_merge"):
+                cand = pf.merge_candidates(packed[row, 0], packed[row, 1], n_cand)
+                if cfg.evalue:
+                    cand = np.union1d(cand, self._evalue_sample(db))
+            flat, jobs, cells, marks = self._prefilter_exact_enqueue(queries[qi], db, cand, timer)
+            pend.append((qi, self._to_host(flat), jobs, cells, marks, min(cfg.top_k, int(cand.shape[0]))))
         self._sync()  # the one sync of the batch's exact phases
         resolved = []
-        for qi, host, jobs, cells, span, k in pend:
+        for qi, host, jobs, cells, marks, k in pend:
             ids, scores = self._prefilter_exact_scores(host, jobs)
-            null = self._null_from_sample(queries[qi], db, ids, scores) if cfg.evalue else None
-            resolved.append((qi, self._hits_from(ids, scores, k), cells, null))
-            device_seconds += self._seconds(*span)
+            null = None
+            if cfg.evalue:
+                with timer.phase("prefilter_null"):
+                    null = self._null_from_sample(queries[qi], db, ids, scores)
+            resolved.append((qi, self._hits_from(ids, scores, k), cells, null, int(ids.shape[0])))
+            device_seconds += self._seconds(*marks)
         wall = time.perf_counter() - t_start
         launches = self._launches() - launches0
-        total_cells = max(sum(c for _, _, c, _ in resolved), 1)
-        for qi, hits, cells, null in resolved:
+        total_cells = max(sum(r[2] for r in resolved), 1)
+        for qi, hits, cells, null, scored in resolved:
             share = cells / total_cells
             metrics = self._metrics(
                 queries[qi], db, cells, wall * share, device_seconds * share,
-                phases=dict(timer.phases), attributed=True, kernel_launches=launches,
+                phases=dict(timer.phases), attributed=True, kernel_launches=launches, prefilter_candidates=scored,
             )
             out[qi] = SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
         return out  # type: ignore[return-value]
@@ -1758,7 +1814,7 @@ class SearchEngine:
         sequence.  Lane counts are powers of two from 256.
         """
         lens = db.lengths[cand]
-        largest = int(db.lengths.max())
+        largest = db.largest_length
         edges = wave_width_edges(max(largest, 1))
         long_edge = next(e for e in edges if e >= largest)
         cached = self._prefilter_edge_cache
@@ -1845,6 +1901,7 @@ class SearchEngine:
             lengths=db.lengths[sample],
             population_lengths=db.lengths,
             trim=self._top_trim,
+            bins=self._population_bins(db),
         )
 
     # --- streaming ----------------------------------------------------------------------

@@ -5,8 +5,10 @@ reference, which scores every subject; off unless ``SWConfig.prefilter`` is
 set):
 
 * every sequence is summarised once as a (DIM,) int8 presence signature of
-  its hashed k-mers (k = 3, DIM = 1024), one native pass over the flat
-  residue buffer (swtpu_torch.native) cached per database;
+  its hashed k-mers (k = 3, DIM = 1024), cached per database: built on the
+  card from the resident residues (``database_signatures_cuda``, the CUDA
+  kernel of ``csrc/kmer_signatures.cu``), or on the host by one native pass
+  over the flat residue buffer (swtpu_torch.native);
 * the coarse score of query q against subject s starts from the number of
   hashed k-mer buckets they share, ``sig_s . sig_q``: the whole database is
   one (Q, DIM) x (n, DIM)^T int8 product, ``int8_mma.coarse_counts`` (on the
@@ -26,11 +28,14 @@ outside the candidate set is missed; every reported score is exact.
 
 from __future__ import annotations
 
+import ctypes
+from typing import Tuple
+
 import numpy as np
 import torch
 
 from .. import native
-from . import int8_mma
+from . import _build, int8_mma
 from .profile import PAD_SUBJECT
 from .wave_sw import W
 
@@ -67,6 +72,44 @@ def database_signatures(db, dim: int = DIM, k: int = K) -> np.ndarray:
     """(n, dim) int8 presence signatures for a whole database: one native
     pass over the flat residue buffer with this module's ``_MIX``."""
     return native.build_signatures_native(db.residues, db.offsets, dim, k, _MIX)
+
+
+_signature_lib = _build.Library(
+    "kmer_signatures",
+    kmer_signatures_launch=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_uint] * 3
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+)
+
+
+def database_signatures_cuda(residues: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((n, DIM) int8 signatures, (n,) int32 popcounts) of the database
+    whose int8 residues and (n + 1,) int64 offsets are on the card, built
+    there by ``csrc/kmer_signatures.cu`` (DIM and K compiled in): byte for
+    byte :func:`database_signatures`, and no host copy of the index."""
+    if residues.dtype != torch.int8 or offsets.dtype != torch.int64 or residues.dim() != 1 or offsets.dim() != 1:
+        raise ValueError(f"residues must be 1-D int8 and offsets 1-D int64, got {residues.dtype} {tuple(residues.shape)} "
+                         f"and {offsets.dtype} {tuple(offsets.shape)}")
+    if offsets.numel() < 1:
+        raise ValueError("offsets must hold n + 1 >= 1 entries, got none")
+    if residues.device != offsets.device or residues.device.type != "cuda":
+        raise ValueError(f"the signature kernel takes tensors on one CUDA device, not {residues.device}, {offsets.device}")
+    residues, offsets = residues.contiguous(), offsets.contiguous()
+    n = offsets.numel() - 1
+    if n:  # every record inside the buffer, none ending before it starts (one sync, once a database)
+        lo, hi = offsets[:-1], offsets[1:]
+        if bool(((hi < lo) | (lo < 0) | (hi > residues.numel())).any()):
+            raise ValueError(f"offsets do not bound records inside a buffer of {residues.numel()} residues")
+    sig = torch.empty(n, DIM, dtype=torch.int8, device=residues.device)
+    pop = torch.empty(n, dtype=torch.int32, device=residues.device)
+    lib = _signature_lib()
+    rc = lib.kmer_signatures_launch(residues.data_ptr(), offsets.data_ptr(), n, *(int(m) for m in _MIX),
+                                    sig.data_ptr(), pop.data_ptr(), *_build.where(residues.device))
+    _build.check(rc, lib.kmer_signatures_error_string, "kmer_signatures kernel launch")
+    database_signatures_cuda.launches += 1
+    return sig, pop
+
+
+database_signatures_cuda.launches = 0  # kernel launches since the count was last set to 0
 
 
 def database_signatures_plain(db, dim: int = DIM, k: int = K, chunk: int = 1 << 24) -> np.ndarray:
@@ -137,28 +180,15 @@ def _top_ids(x: torch.Tensor, n_cand: int) -> torch.Tensor:
 def candidates_from_counts(
     counts: torch.Tensor, popcounts: torch.Tensor, sig_qs: torch.Tensor, n_cand: int
 ) -> torch.Tensor:
-    """(Q, 3, n_cand) int64 from (Q, n) coarse counts: [q, 0] z-ranked ids,
-    [q, 1] raw-ranked ids, [q, 2] the max raw count (the engine's no-signal
-    check), swtpu's packed layout."""
+    """The ranking half of the coarse pass: (Q, 3, n_cand) int64 from the
+    (Q, n) counts ``int8_mma.coarse_counts(sig_qs, sig_db)`` of the (Q, DIM)
+    int8 query signatures: [q, 0] z-ranked ids, [q, 1] raw-ranked ids,
+    [q, 2] the max raw count (the engine's no-signal check), swtpu's packed
+    layout (``swtpu.ops.prefilter.coarse_candidates_many``)."""
     z = _zscores(counts, popcounts, sig_qs, sig_qs.shape[1])
     z_ids, r_ids = _top_ids(z, n_cand), _top_ids(counts, n_cand)
     mx = counts.amax(dim=1, keepdim=True).to(torch.int64).expand_as(z_ids)
     return torch.stack([z_ids, r_ids, mx], dim=1)
-
-
-def coarse_candidates(sig_db: torch.Tensor, popcounts: torch.Tensor, sig_q: torch.Tensor, n_cand: int) -> torch.Tensor:
-    """The coarse pass of one query: counts, z-scores and each signal's top
-    ``n_cand`` ids, (3, n_cand) int64 on the device (one transfer)."""
-    return coarse_candidates_many(sig_db, popcounts, sig_q[None], n_cand)[0]
-
-
-def coarse_candidates_many(
-    sig_db: torch.Tensor, popcounts: torch.Tensor, sig_qs: torch.Tensor, n_cand: int
-) -> torch.Tensor:
-    """The coarse pass of Q queries in one kernel launch: (Q, 3, n_cand)
-    int64 (``candidates_from_counts``)."""
-    q = sig_qs.to(torch.int8).contiguous()
-    return candidates_from_counts(int8_mma.coarse_counts(q, sig_db), popcounts, q, n_cand)
 
 
 # --- candidates and their bucket ---------------------------------------------------------

@@ -371,6 +371,15 @@ def bin_log_lengths(lengths: np.ndarray, edges: np.ndarray) -> Tuple[np.ndarray,
     return logsum / np.maximum(counts, 1), counts
 
 
+def population_bins(lengths: np.ndarray, nbins: int = 12) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(bin edges, mean ln(length) a bin, subjects a bin) of a database's
+    lengths: what ``null_stats_from_scores`` derives from its population,
+    computed once a database by a caller that fits many nulls to it."""
+    lengths = np.asarray(lengths)
+    edges = length_bin_edges(lengths, nbins)
+    return (edges, *bin_log_lengths(lengths, edges))
+
+
 def null_stats_from_scores(
     scores: np.ndarray,
     n_subjects: int,
@@ -380,6 +389,7 @@ def null_stats_from_scores(
     nbins: int = 12,
     trim: float = DEFAULT_TRIM,
     population_lengths: Optional[np.ndarray] = None,
+    bins: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
 ) -> NullStats:
     """Host-side sufficient statistics of a score array (with
     per-length-bin reductions when ``lengths`` is given).
@@ -388,7 +398,10 @@ def null_stats_from_scores(
     the database, prefilter calibration mode) pass the FULL database's
     lengths as ``population_lengths``: bin edges and per-bin subject
     counts then describe the whole database while the per-bin score
-    moments come from the sample — E-values extrapolate correctly."""
+    moments come from the sample — E-values extrapolate correctly.
+    ``bins``, ``population_bins`` of the population (``population_lengths``,
+    else ``lengths``) at ``nbins``, stands in for that O(n) pass with the
+    same result."""
     s = np.asarray(scores, np.float64).reshape(-1)
     nz = s > 0
     body = s[nz]
@@ -408,7 +421,7 @@ def null_stats_from_scores(
     if lengths is not None:
         lengths = np.asarray(lengths)
         pop = lengths if population_lengths is None else np.asarray(population_lengths)
-        edges = length_bin_edges(pop, nbins)
+        edges, log_len, n_subj_b = population_bins(pop, nbins) if bins is None else bins
         nb = len(edges)
         ids = length_bin_ids(lengths, edges)
         ids_nz = ids[nz]
@@ -416,7 +429,6 @@ def null_stats_from_scores(
         bin_counts = np.bincount(ids_nz[okb], minlength=nb)[:nb]
         bin_sums = np.bincount(ids_nz[okb], weights=body[okb], minlength=nb)[:nb]
         bin_sumsqs = np.bincount(ids_nz[okb], weights=body[okb] ** 2, minlength=nb)[:nb]
-        log_len, n_subj_b = bin_log_lengths(pop, edges)
         kw = dict(
             top_bins=ids_nz[top_idx],
             bin_counts=bin_counts,

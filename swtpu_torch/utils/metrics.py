@@ -63,6 +63,9 @@ class SearchMetrics:
     # K1 (lane, segment) entries whose int16 best may have wrapped, rescored
     # in int32 on the card (in a batch: its piece's, as kernel_launches).
     rescored_lanes: int = 0
+    # Ids a prefiltered search scored exactly: its candidates and the
+    # E-value calibration sample (0 off the prefilter).
+    prefilter_candidates: int = 0
 
     @property
     def gcups(self) -> float:

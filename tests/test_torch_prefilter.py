@@ -102,15 +102,22 @@ def _assert_candidates_match(got, want, z_ref, n_cand):
     assert [i for i in got[0].tolist() if i not in band] == [i for i in want[0].tolist() if i not in band]
 
 
+def _coarse(sig, pop, qsigs, n_cand):
+    """The port's coarse pass as the engine runs it (``_coarse_rank``): K7's
+    counts, then ``candidates_from_counts``."""
+    q = qsigs.to(torch.int8).contiguous()
+    return pf.candidates_from_counts(int8_mma.coarse_counts(q, sig), pop, q, n_cand)
+
+
 @pytest.mark.parametrize("n_cand", [1, 37, 400])
 def test_coarse_candidates_match_swtpu(n_cand):
     sig, qsigs, pop = _coarse_inputs()
     tsig, tpop = torch.from_numpy(sig), torch.from_numpy(pop)
-    many = pf.coarse_candidates_many(tsig, tpop, torch.from_numpy(qsigs), n_cand).numpy()
+    many = _coarse(tsig, tpop, torch.from_numpy(qsigs), n_cand).numpy()
     jmany = np.asarray(jpf.coarse_candidates_many(jnp.asarray(sig), jnp.asarray(pop), jnp.asarray(qsigs), n_cand=n_cand))
     assert many.shape == jmany.shape == (len(qsigs), 3, n_cand)
     for row, q in enumerate(qsigs):
-        one = pf.coarse_candidates(tsig, tpop, torch.from_numpy(q), n_cand).numpy()
+        one = _coarse(tsig, tpop, torch.from_numpy(q)[None], n_cand)[0].numpy()
         assert np.array_equal(one, many[row])
         jone = np.asarray(jpf.coarse_candidates(jnp.asarray(sig), jnp.asarray(pop), jnp.asarray(q), n_cand=n_cand))
         z_ref = np.asarray(jpf.coarse_zscores(jnp.asarray(sig), jnp.asarray(pop), jnp.asarray(q)))
@@ -178,7 +185,7 @@ def _candidates(sig, pop, qres, n_cand, package):
     if package == "swtpu":
         packed = np.asarray(jpf.coarse_candidates(jnp.asarray(sig), jnp.asarray(pop), jnp.asarray(jpf.signature(qres)), n_cand=n_cand))
     else:
-        packed = pf.coarse_candidates(torch.from_numpy(sig), torch.from_numpy(pop), torch.from_numpy(pf.signature(qres)), n_cand).numpy()
+        packed = _coarse(torch.from_numpy(sig), torch.from_numpy(pop), torch.from_numpy(pf.signature(qres))[None], n_cand)[0].numpy()
     return pf.merge_candidates(packed[0], packed[1], n_cand)
 
 
