@@ -403,6 +403,9 @@ def phase_build():
         for kernel, tag in (("coarse_counts_kernel", "K7"), ("mma_probe_kernel", "K7"), ("kmer_signatures_kernel", "K7")):
             if kernel in mangled:
                 return f"{tag} {kernel}"
+        long_route = re.search(r"sw_long_kernelILb([01])E", mangled)  # the prefilter's long route: sw_long_kernel<AFFINE>
+        if long_route:
+            return "sw_long_kernel " + ("affine" if long_route.group(1) == "1" else "linear")
         # K1: sw_wave_kernel<AFFINE, HAND_OFF, G> (the warp wavefront), sw_band_kernel<AFFINE, HAND_OFF, H>
         wave = re.search(r"sw_(wave|band)_kernelILb([01])ELb([01])ELi(\d+)E", mangled)
         if wave is None:
@@ -2509,8 +2512,12 @@ def phase_prefilter(db, engine):
     and offsets against the native host pass (byte for byte, popcounts
     too) and its byte bound, the coarse kernel alone against its bound,
     plain version and torch._int_mm, search_many for the suite, E-values,
-    and the planted-homolog recall of swtpu's battery.  Returns the kernel
-    table's entries of the coarse kernel and the signature kernel."""
+    and the planted-homolog recall of swtpu's battery, and the long route's
+    kernel alone, linear and affine, on P01008's candidates past 992
+    residues and affine on Q9UKN1 against itself (two passes), against its
+    plain version and its bound.  Returns the kernel table's entries of the
+    coarse kernel, the signature kernel and the long route's two gap
+    models."""
     import numpy as np
     import torch
 
@@ -2519,7 +2526,7 @@ def phase_prefilter(db, engine):
     from swtpu_torch.config import SWConfig
     from swtpu_torch.io.fasta import parse_query
     from swtpu_torch.models.search import SearchEngine, SearchResult
-    from swtpu_torch.ops import int8_mma, wave_sw
+    from swtpu_torch.ops import int8_mma, long_sw, wave_sw
     from swtpu_torch.ops import prefilter as pf
     from swtpu_torch.utils.metrics import PhaseTimer
 
@@ -2533,22 +2540,26 @@ def phase_prefilter(db, engine):
     torch.cuda.reset_peak_memory_stats()
     # --- this phase's path: counts zeroed just before, read just after
     int8_mma.coarse_counts.launches = wave_sw.sw_wave.launches = pf.database_signatures_cuda.launches = 0
+    long_sw.sw_long.launches = 0
     t0 = time.perf_counter()
     first = eng.search(query, db)  # builds the signatures on the card, then searches
     first_wall = time.perf_counter() - t0
     launched = {"signatures": pf.database_signatures_cuda.launches, "coarse_counts": int8_mma.coarse_counts.launches,
-                "sw_wave": wave_sw.sw_wave.launches}
+                "sw_wave": wave_sw.sw_wave.launches, "sw_long": long_sw.sw_long.launches}
     sig, pop, flat, offsets = eng._prefilter_signatures(db)
     n_cand = eng._n_cand(db.n)
     qsig = torch.from_numpy(pf.signature(query.residues)).cuda()
     packed = pf.candidates_from_counts(int8_mma.coarse_counts(qsig[None], sig), pop, qsig[None], n_cand)[0].cpu().numpy()
     cand = pf.merge_candidates(packed[0], packed[1], n_cand)
     _, jobs, _, _ = eng._prefilter_exact_enqueue(query, db, cand, PhaseTimer())
-    # one signature build, one coarse pass, and each exact bucket's K1 launch and its rescore
-    if (launched != {"signatures": 1, "coarse_counts": 1, "sw_wave": len(jobs)}
-            or first.metrics.kernel_launches != 1 + 1 + 2 * len(jobs)):
-        raise AssertionError(f"prefiltered search launched {launched} (kernel_launches {first.metrics.kernel_launches}) "
-                             f"for 1 signature build, 1 coarse pass and {len(jobs)} exact buckets")
+    # one signature build, one coarse pass, the short candidates' K1 launch and
+    # its rescore, and the long candidates' one launch
+    routes = [route for _, _, route in jobs]
+    want = {"signatures": 1, "coarse_counts": 1, "sw_wave": routes.count("wave"), "sw_long": routes.count("long")}
+    if (launched != want or first.metrics.kernel_launches != 1 + 1 + 2 * want["sw_wave"] + want["sw_long"]
+            or first.metrics.long_candidates != eng._long_candidates(jobs)):
+        raise AssertionError(f"prefiltered search launched {launched} (kernel_launches {first.metrics.kernel_launches}, "
+                             f"long_candidates {first.metrics.long_candidates}) for exact routes {routes}")
     say("prefilter.signatures", sequences=db.n, dim=pf.DIM, k=pf.K, signature_bytes_on_card=sig.numel(),
         signatures_and_upload_host_s=first.metrics.phases["prefilter_signatures"], first_search_wall_s=first_wall)
 
@@ -2595,6 +2606,48 @@ def phase_prefilter(db, engine):
         runs.append(res.metrics)
     exact_ms, _ = events_ms(lambda: eng._prefilter_exact_enqueue(query, db, cand, PhaseTimer())[0], reps=3)
 
+    # --- the long route alone (the candidates past 992 residues), under both
+    # gap models: one launch, equal to its plain version, against its bound
+    # (true cells at the int32 rate); the linear scores are also the
+    # exhaustive search's, and Q9UKN1 scored against itself (5,478 rows, past
+    # one 4,096-row pass, a score past 32,767) carries (H, F) between passes
+    table_t = eng._long_table()
+
+    def long_route(label, q_res, flat_, offsets_, ids, gaps, ops_per_cell, want=None):
+        ids_t = torch.from_numpy(ids).cuda()
+        q_t = torch.from_numpy(np.ascontiguousarray(q_res, dtype=np.int8)).cuda()
+        lens = (offsets_[ids_t + 1] - offsets_[ids_t]).cpu().numpy()
+        long_sw.sw_long.launches = 0
+        got = long_sw.sw_long(q_t, flat_, offsets_, ids_t, table_t, **gaps)
+        launches = long_sw.sw_long.launches
+        t_plain = time.perf_counter()
+        plain = long_sw.sw_long_plain(q_t, flat_, offsets_, ids_t, table_t, **gaps)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t_plain)
+        err = int((got.long() - plain.long()).abs().max()) if ids.size else 0
+        if launches != int(ids.size > 0) or err or (want is not None and not np.array_equal(got.cpu().numpy(), want)):
+            raise AssertionError(f"{label}: {launches} launches, max err {err} against its plain version, "
+                                 "or scores other than the exhaustive search's")
+        ms, _ = events_ms(lambda: long_sw.sw_long(q_t, flat_, offsets_, ids_t, table_t, **gaps), reps=5)
+        cells = int(lens.sum()) * len(q_res)
+        bound_ms = 1e3 * ops_per_cell * cells / int32_ops_per_s
+        say(label, gaps=gaps, candidates=int(ids.size), longest=int(lens.max(initial=0)), query_length=len(q_res),
+            launches=launches, equal_plain=True, equal_exhaustive=want is not None,
+            best=int(got.max()) if ids.size else 0, ms=ms, bound_ms=bound_ms,
+            bound_share=bound_ms / ms if ms else None, bound_by="operations", true_cells=cells, plain_ms=plain_ms)
+        return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+    long_ids = np.concatenate([part for part, _, route in jobs if route == "long"] + [np.zeros(0, np.int64)])
+    long_lin = long_route("prefilter.long_route", query.residues, flat, offsets, long_ids, eng._gaps, OPS_PER_CELL,
+                          want=exhaustive[long_ids])
+    long_aff = long_route("prefilter.long_route_affine", query.residues, flat, offsets, long_ids, AFFINE,
+                          OPS_PER_CELL_AFFINE)
+    q9 = parse_query(qdir / "Q9UKN1.fasta").residues
+    q9_flat = torch.from_numpy(np.ascontiguousarray(q9, dtype=np.int8)).cuda()
+    q9_offsets = torch.tensor([0, q9.shape[0]], dtype=torch.int64, device="cuda")
+    long_q9 = long_route("prefilter.long_route_affine_two_passes", q9, q9_flat, q9_offsets, np.zeros(1, np.int64),
+                         AFFINE, OPS_PER_CELL_AFFINE)
+
     # --- the coarse kernel alone (Q = 1 and the suite's Q = 17) against its
     # bound, its plain version and torch._int_mm on the same product
     gen = torch.Generator(device="cuda")
@@ -2629,7 +2682,8 @@ def phase_prefilter(db, engine):
     density = float(sig.count_nonzero()) / sig.numel()
     coarse1, coarse17 = coarse_times(qsig[None].contiguous()), coarse_times(qsigs)
     say("prefilter.search", query=MAIN_QUERY, knobs=PREFILTER, candidates=n_cand, merged=int(cand.shape[0]),
-        exact_buckets=[(int(part.shape[0]), width, int(cp.shape[0])) for part, width, cp in jobs],
+        exact_jobs=[(int(part.shape[0]), n_out, route) for part, n_out, route in jobs],
+        long_candidates=first.metrics.long_candidates,
         launches_first_search=launched, hits=first.hits, hits_exact=True, candidates_equal_plain=True,
         exhaustive_top10_in_candidates=sum(i in set(cand.tolist()) for i in full_top),
         wall_seconds=[m.wall_seconds for m in runs], device_seconds=[m.device_seconds for m in runs],
@@ -2694,6 +2748,14 @@ def phase_prefilter(db, engine):
         "name": "kmer_signatures (K7 signatures)", "route": "cuda", "source": "swtpu_torch/csrc/kmer_signatures.cu",
         "replaces": "swtpu/native/sw_native.cpp:210", "launches": sig_launches, "max_abs_err": 0,
         "ms": sig_ms, "plain_ms": 1e3 * host_s, "bound_ms": sig_bound_ms, "bound_by": "bytes", "library_ms": None,
+    }, {
+        "name": "sw_long (prefilter long route)", "route": "cuda", "source": "swtpu_torch/csrc/sw_long.cu",
+        "replaces": None, **long_lin, "bound_by": "operations", "library_ms": None,
+    }, {
+        # the affine instantiation on the same candidates; its error covers the two-pass Q9UKN1 pair too
+        "name": "sw_long affine (prefilter long route)", "route": "cuda", "source": "swtpu_torch/csrc/sw_long.cu",
+        "replaces": None, **long_aff, "max_abs_err": max(long_aff["max_abs_err"], long_q9["max_abs_err"]),
+        "bound_by": "operations", "library_ms": None,
     }
 
 
@@ -3444,7 +3506,7 @@ def main() -> int:
         phase_mesh_prefilter(db)
         phase_mesh_query_shard_streamed(db)
         dist_fleet = phase_dist_fleet(fasta, db, suite_scores)
-        coarse, signatures = phase_prefilter(db, engine)
+        coarse, signatures, long_route, long_affine = phase_prefilter(db, engine)
         labs = phase_lab(db, engine)
         k10 = phase_lab_rows(db, engine, row_engine)
     except Exception:  # every phase failure ends the run without a result
@@ -3472,7 +3534,7 @@ def main() -> int:
     for k in k9:
         k["max_abs_err"] = max(k["max_abs_err"], i16_err)
     print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, mesh_lanes, mesh_bands, mesh_rows, dist_fleet, coarse,
-                                  signatures, probe, chain, *labs, *k9, *k10]}))
+                                  signatures, long_route, long_affine, probe, chain, *labs, *k9, *k10]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

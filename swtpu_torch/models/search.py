@@ -70,7 +70,7 @@ import torch
 from ..config import SWConfig
 from ..io.fasta import Database, Query
 from ..matrices import get_matrix
-from ..ops import bucket_sw, int8_mma, row_sw, wave_sw
+from ..ops import bucket_sw, int8_mma, long_sw, row_sw, wave_sw
 from ..ops import prefilter as pf
 from ..ops.profile import PAD_SUBJECT, make_profile
 from ..parallel import query_shard
@@ -87,7 +87,6 @@ from ..utils.bucketing import (
     plan_batches,
     plan_wave_buckets,
     scatter_scores,
-    wave_width_edges,
 )
 from ..utils.memory import reraise_oom, resident_cell_budget, scratch_budget_bytes
 from ..utils.metrics import PhaseTimer, SearchMetrics
@@ -209,6 +208,11 @@ def _null_moments(flat: torch.Tensor, bins: torch.Tensor, nb: int) -> torch.Tens
 # descending torch.topk orders by (score desc, id asc) with no ties at all.
 _ID_MASK = (1 << 32) - 1
 
+# The prefilter's exact phase scores candidates of at most this many
+# residues on the wavefront kernel, in one bucket of this width (swtpu's
+# ladder's fine/coarse boundary), and the longer ones on long_sw's kernel.
+PREFILTER_WAVE_WIDTH = 992
+
 
 def resolve_device(device=None) -> torch.device:
     """The engine's device: CUDA unless the caller names another."""
@@ -292,9 +296,10 @@ class SearchEngine:
         self._warmup_bg_error: Optional[BaseException] = None  # a background warmer's failure
         self._warmup_many_bg_error: Optional[BaseException] = None
         # The prefilter's per-database state (signatures and residues on the
-        # device, the pinned mid width, the E-value sample) and exact engine.
+        # device, the E-value sample), the long route's matrix table and the
+        # exact engine.
         self._sig_cache = None
-        self._prefilter_edge_cache = None
+        self._long_table_cache = None
         self._evalue_sample_cache = None
         self._population_bins_cache = None
         self._exact: Optional["SearchEngine"] = None
@@ -515,7 +520,8 @@ class SearchEngine:
     @staticmethod
     def _launches() -> int:
         """CUDA kernel launches of every wrapper of a search so far (K1 and
-        its rescore, K2, K3, the coarse counts and the signature index)."""
+        its rescore, K2, K3, the coarse counts, the signature index and the
+        prefilter's long route)."""
         return (
             wave_sw.sw_wave.launches
             + getattr(wave_sw.sw_wave, "rescore_launches", 0)  # a stand-in for sw_wave may not count them
@@ -523,6 +529,7 @@ class SearchEngine:
             + bucket_sw.sw_score_bucket.launches
             + int8_mma.coarse_counts.launches
             + pf.database_signatures_cuda.launches
+            + long_sw.sw_long.launches
         )
 
     @property
@@ -1689,8 +1696,9 @@ class SearchEngine:
                 cand = np.union1d(cand, self._evalue_sample(db))
         null = None
         k = min(cfg.top_k, int(cand.shape[0]))
+        n_long = 0
         if self._wave_enabled and cand.shape[0] < db.n:
-            hits, dev_s, cells, ids_sc, sc = self._prefilter_exact_hits(query, db, cand, k, timer)
+            hits, dev_s, cells, ids_sc, sc, n_long = self._prefilter_exact_hits(query, db, cand, k, timer)
             if cfg.evalue:
                 with timer.phase("prefilter_null"):
                     null = self._null_from_sample(query, db, ids_sc, sc)
@@ -1711,7 +1719,7 @@ class SearchEngine:
         metrics = self._metrics(
             query, db, cells, time.perf_counter() - t_start, coarse_s + dev_s,
             phases=dict(timer.phases), kernel_launches=self._launches() - launches0,
-            prefilter_candidates=int(cand.shape[0]),
+            prefilter_candidates=int(cand.shape[0]), long_candidates=n_long,
         )
         return SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
 
@@ -1774,86 +1782,87 @@ class SearchEngine:
             if cfg.evalue:
                 with timer.phase("prefilter_null"):
                     null = self._null_from_sample(queries[qi], db, ids, scores)
-            resolved.append((qi, self._hits_from(ids, scores, k), cells, null, int(ids.shape[0])))
+            resolved.append((qi, self._hits_from(ids, scores, k), cells, null, int(ids.shape[0]),
+                             self._long_candidates(jobs)))
             device_seconds += self._seconds(*marks)
         wall = time.perf_counter() - t_start
         launches = self._launches() - launches0
         total_cells = max(sum(r[2] for r in resolved), 1)
-        for qi, hits, cells, null, scored in resolved:
+        for qi, hits, cells, null, scored, n_long in resolved:
             share = cells / total_cells
             metrics = self._metrics(
                 queries[qi], db, cells, wall * share, device_seconds * share,
                 phases=dict(timer.phases), attributed=True, kernel_launches=launches, prefilter_candidates=scored,
+                long_candidates=n_long,
             )
             out[qi] = SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
         return out  # type: ignore[return-value]
 
     def _prefilter_exact_hits(self, query: Query, db: Database, cand: np.ndarray, k: int, timer):
-        """Exact wavefront rescore of a candidate id set: (hits, device
-        seconds, packed cells, ids, scores), hits in (score desc, id asc)
-        order, (ids, scores) the whole rescored set (the E-value
-        calibration sample lies inside it)."""
+        """Exact rescore of a candidate id set: (hits, device seconds,
+        packed cells, ids, scores, candidates on the long route), hits in
+        (score desc, id asc) order, (ids, scores) the whole rescored set (the
+        E-value calibration sample lies inside it)."""
         flat, jobs, cells, span = self._prefilter_exact_enqueue(query, db, cand, timer)
         host = self._to_host(flat)
         self._sync()
         ids, scores = self._prefilter_exact_scores(host, jobs)
-        return self._hits_from(ids, scores, k), self._seconds(*span), cells, ids, scores
+        return self._hits_from(ids, scores, k), self._seconds(*span), cells, ids, scores, self._long_candidates(jobs)
 
     def _prefilter_exact_enqueue(self, query: Query, db: Database, cand: np.ndarray, timer):
         """Enqueue, without a sync, the exact rescore of one query's
-        candidates: one wavefront launch per width class, its bucket
-        gathered on the device from the resident residue buffer
-        (``pf.gather_stack``).  Returns (flat scores on the device, jobs,
-        packed cells, (start, end) marks) for ``_prefilter_exact_scores``.
+        candidates, split by length.  Returns (flat scores on the device,
+        jobs, packed cells, (start, end) marks) for
+        ``_prefilter_exact_scores``; a job is (ids, scores it fills,
+        route).
 
-        Widths are pinned per database as swtpu pins them (there to bound
-        its compiled shapes; here they keep ``packed_cells`` equal to
-        swtpu's): 992, the ladder's fine/coarse boundary; the edge covering
-        the 99.9% length quantile, so one multi-kilo-residue outlier does
-        not pad every longer candidate; and the edge covering the longest
-        sequence.  Lane counts are powers of two from 256.
+        Candidates of at most ``PREFILTER_WAVE_WIDTH`` residues take one
+        wavefront launch (K1, route "wave"), gathered on the device from the
+        resident residue buffer (``pf.gather_stack``) into a bucket of that
+        width whose lanes are a power of two from 256, as swtpu pins them.
+        The longer ones take one launch of ``long_sw.sw_long`` (route
+        "long"): each scored with the roles swapped, read in place from the
+        resident buffer, longest first.  ``packed_cells`` counts what each
+        route computes: the bucket's padded cells, and the long route's
+        32-row bands times the query's length.
         """
         lens = db.lengths[cand]
-        largest = db.largest_length
-        edges = wave_width_edges(max(largest, 1))
-        long_edge = next(e for e in edges if e >= largest)
-        cached = self._prefilter_edge_cache
-        if cached is not None and cached[0] is db:
-            mid_edge = cached[1]
-        else:
-            q999 = int(np.quantile(db.lengths, 0.999))
-            # A small database may have no edge >= 993: then the long bucket
-            # takes every candidate over 992.
-            mid_edge = next((e for e in edges if e >= max(q999, 993)), long_edge)
-            self._prefilter_edge_cache = (db, mid_edge)
-        if mid_edge >= long_edge:
-            parts = [(cand[lens <= 992], 992), (cand[lens > 992], long_edge)]
-        else:
-            parts = [
-                (cand[lens <= 992], 992),
-                (cand[(lens > 992) & (lens <= mid_edge)], mid_edge),
-                (cand[lens > mid_edge], long_edge),
-            ]
+        short = lens <= PREFILTER_WAVE_WIDTH
+        order = np.argsort(-lens[~short], kind="stable")
+        long_ids = cand[~short][order]
         _, _, flat, offsets = self._prefilter_signatures(db)
+        jobs, cells = [], 0
         with timer.phase("prefilter_pack"):
-            qpad = self._query_pad(query.length, wave_sw.W, serving=True)
-            profile = self._upload(make_profile(query.residues, self.matrix, pad_rows_to=qpad))
-            jobs, cells = [], 0
-            for part, width in parts:
-                if part.shape[0] == 0:
-                    continue
+            if short.any():
+                part = cand[short]
+                qpad = self._query_pad(query.length, wave_sw.W, serving=True)
+                profile = self._upload(make_profile(query.residues, self.matrix, pad_rows_to=qpad))
                 bpad = max(256, 1 << (int(part.shape[0]) - 1).bit_length())
                 cand_pad = np.full(bpad, -1, dtype=np.int64)
                 cand_pad[: part.shape[0]] = part
-                jobs.append((part, width, cand_pad))
-                cells += qpad * bpad * (width + wave_sw.W)
+                jobs.append((part, bpad, "wave"))
+                cells += qpad * bpad * (PREFILTER_WAVE_WIDTH + wave_sw.W)
+            if long_ids.shape[0]:
+                jobs.append((long_ids, int(long_ids.shape[0]), "long"))
+                cells += int((-(-lens[~short] // 32)).sum()) * 32 * query.length
         t0 = self._mark()
-        outs = [
-            wave_sw.sw_wave(profile, pf.gather_stack(flat, offsets, self._upload(cand_pad), width), **self._gaps)
-            for _, width, cand_pad in jobs
-        ]
+        outs = []
+        for _, _, route in jobs:
+            if route == "wave":
+                stack = pf.gather_stack(flat, offsets, self._upload(cand_pad), PREFILTER_WAVE_WIDTH)
+                outs.append(wave_sw.sw_wave(profile, stack, **self._gaps))
+            else:
+                residues = self._upload(np.ascontiguousarray(query.residues, dtype=np.int8))
+                outs.append(long_sw.sw_long(residues, flat, offsets, self._upload(long_ids), self._long_table(),
+                                            **self._gaps))
         t1 = self._mark()
         return torch.cat(outs), jobs, cells, (t0, t1)
+
+    def _long_table(self) -> torch.Tensor:
+        """The long route's (25, 32) int8 matrix table on the engine's device."""
+        if self._long_table_cache is None:
+            self._long_table_cache = self._upload(long_sw.matrix_table(self.matrix))
+        return self._long_table_cache
 
     @staticmethod
     def _prefilter_exact_scores(flat_host: torch.Tensor, jobs):
@@ -1861,10 +1870,15 @@ class SearchEngine:
         flat scores on the host after the sync (pad lanes dropped)."""
         flat = flat_host.numpy()
         split, pieces = 0, []
-        for part, _, cand_pad in jobs:
+        for part, n_out, _ in jobs:
             pieces.append(flat[split : split + part.shape[0]])
-            split += cand_pad.shape[0]
+            split += n_out
         return np.concatenate([part for part, _, _ in jobs]), np.concatenate(pieces)
+
+    @staticmethod
+    def _long_candidates(jobs) -> int:
+        """Candidates an exact phase scored on the long route."""
+        return sum(int(part.shape[0]) for part, _, route in jobs if route == "long")
 
     @staticmethod
     def _hits_from(ids: np.ndarray, scores: np.ndarray, k: int) -> List[Tuple[int, int]]:

@@ -66,6 +66,9 @@ class SearchMetrics:
     # Ids a prefiltered search scored exactly: its candidates and the
     # E-value calibration sample (0 off the prefilter).
     prefilter_candidates: int = 0
+    # Of those, the ones longer than the wavefront bucket's width, scored on
+    # the long route (ops/long_sw.py; 0 off the prefilter).
+    long_candidates: int = 0
 
     @property
     def gcups(self) -> float:

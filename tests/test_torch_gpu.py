@@ -17,7 +17,9 @@ kernel's band-carry hand-off is held to its plain version rung
 by rung, carry and scores, and the composed engine to the fused one.  The
 int8 kernels of K7 (coarse counts, the MAC-rate probe) and K8's chain are
 held to their plain versions, and the prefiltered engine on the card to the
-one on the CPU.  The wavefront lab kernels (K4's heights and blocks, K5's
+one on the CPU; the prefilter's long route (its kernel scoring each
+sequence with the roles swapped) is held to its plain version at the
+UniRef50 cell's shapes and on W-run pairs scoring past 32,767.  The wavefront lab kernels (K4's heights and blocks, K5's
 prefetch depths, K6's stage switches, both on K1's band sweep) and K9's
 int16 tiles and chains are held to their plain versions, the lab variants
 that keep the DP to K1, and K5's copy of K1's sweep to K1's registers.
@@ -49,7 +51,9 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.io.fasta import Query, parse_database, parse_query
 from swtpu_torch.matrices import blosum50_ref
 from swtpu_torch.models.search import SearchEngine, SearchResult
-from swtpu_torch.ops import _build, bucket_sw, i16_probe, int8_mma, row_sw, rows_lab, vpu_chain, wave_lab, wave_sw
+from swtpu_torch.ops import (
+    _build, bucket_sw, i16_probe, int8_mma, long_sw, row_sw, rows_lab, vpu_chain, wave_lab, wave_sw,
+)
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -558,6 +562,66 @@ def test_prefiltered_engine_on_card_matches_cpu(cuda, evalue):
     many = card.search_many(queries, db)
     assert int8_mma.coarse_counts.launches == before + 1
     assert [r.hits for r in many] == [cpu.search(q, db).hits for q in queries]
+
+
+# --- the prefilter's long route --------------------------------------------------------------
+
+
+def _long_database(rng, lens, query, planted=()):
+    """(flat, offsets) on the card of sequences of the given lengths, a
+    30%-mutated copy of the query's head planted in the named ones."""
+    seqs = [rng.integers(0, 25, int(n)).astype(np.int8) for n in lens]
+    for i in planted:
+        cut = query[: min(len(query), len(seqs[i]))]
+        seqs[i][: len(cut)] = np.where(rng.random(len(cut)) < 0.3, seqs[i][: len(cut)], cut)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return torch.from_numpy(np.concatenate(seqs)).cuda(), torch.from_numpy(offsets).cuda()
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+@pytest.mark.parametrize("qlen", [20, 320, 1736, 5478])
+def test_long_route_kernel_matches_plain(cuda, gaps, qlen):
+    """The long route's kernel at the UniRef50 cell's shapes: sequences of
+    993-8,000 residues (one warp, a pass +- 1, two passes), queries of
+    20-5,478, ids longest first and then shuffled with repeats: equal to its
+    plain version on the card, one launch each."""
+    rng = np.random.default_rng(qlen)
+    query = rng.integers(0, 25, qlen).astype(np.int8)
+    lens = [8000, 6100, 4097, 4096, 4095, 3000, 2016, 1025, 1024, 993]
+    flat, offsets = _long_database(rng, lens, query, planted=(0, 3, 9))
+    table = torch.from_numpy(long_sw.matrix_table(blosum50_ref())).cuda()
+    kw = dict(gap=2) if gaps is None else dict(gap_open=gaps[0], gap_extend=gaps[1])
+    q = torch.from_numpy(query).cuda()
+    for ids in (np.arange(len(lens)), rng.integers(0, len(lens), 16)):
+        ids = torch.from_numpy(ids.astype(np.int64)).cuda()
+        before = long_sw.sw_long.launches
+        got = long_sw.sw_long(q, flat, offsets, ids, table, **kw)
+        assert long_sw.sw_long.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, long_sw.sw_long_plain(q, flat, offsets, ids, table, **kw))
+
+
+@pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
+def test_long_route_scores_saturating_pairs_exactly(cuda, gaps):
+    """W-run copies of synth.SAT_RUNS (2,176-2,200 residues, 15 a residue:
+    32,640-33,000) against a 2,200-W query with a random tail: exact int32
+    past 32,767 in one launch, with no rescore (the int16x2 kernel's
+    counter does not move)."""
+    rng = np.random.default_rng(5)
+    query = np.concatenate([np.full(2200, 17), rng.integers(0, 25, 200)]).astype(np.int8)
+    seqs = [np.full(k, 17, dtype=np.int8) for k in synth.SAT_RUNS] + [rng.integers(0, 25, 3000).astype(np.int8)]
+    lens = [len(x) for x in seqs]
+    flat = torch.from_numpy(np.concatenate(seqs)).cuda()
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)).cuda()
+    table = torch.from_numpy(long_sw.matrix_table(blosum50_ref())).cuda()
+    kw = dict(gap=2) if gaps is None else dict(gap_open=gaps[0], gap_extend=gaps[1])
+    ids = torch.arange(len(seqs), dtype=torch.int64, device=cuda)
+    rescored = int(wave_sw.rescore_counter(cuda)[0])
+    got = long_sw.sw_long(torch.from_numpy(query).cuda(), flat, offsets, ids, table, **kw)
+    assert got[: len(synth.SAT_RUNS)].tolist() == [15 * k for k in synth.SAT_RUNS]
+    assert int(got.max()) > 32767
+    assert torch.equal(got, long_sw.sw_long_plain(torch.from_numpy(query).cuda(), flat, offsets, ids, table, **kw))
+    assert int(wave_sw.rescore_counter(cuda)[0]) == rescored
 
 
 @pytest.mark.parametrize(

@@ -207,7 +207,9 @@ def test_engine_prefilter_matches_swtpu(evalue, names):
     assert [r.hits for r in jeng.search_many(jqueries, jdb)] == [r.hits for r in ref]
     for use_wave in (False, None):  # the row path, and the wavefront path (the port's default)
         eng = SearchEngine(SWConfig(**knobs, use_wave=use_wave), device="cpu")
-        for results in ([eng.search(q, db) for q in queries], eng.search_many(queries, db)):
+        long_hits = 0
+        for path in ("search", "search_many"):
+            results = [eng.search(q, db) for q in queries] if path == "search" else eng.search_many(queries, db)
             for got, want in zip(results, ref):
                 assert got.scores is None and got.hits == want.hits
                 assert got.metrics.n_subjects == db.n and got.metrics.packed_cells > 0
@@ -215,13 +217,26 @@ def test_engine_prefilter_matches_swtpu(evalue, names):
                     for g, w in zip(got.top_k_stats(5), want.top_k_stats(5)):
                         assert (g.id, g.score) == (w.id, w.score)
                         assert g.evalue == pytest.approx(w.evalue, rel=1e-9) and g.bits == pytest.approx(w.bits, rel=1e-9)
+            # The subset's one record past 992 residues (1,165 aa) is a candidate of
+            # every query: the wavefront path scores it on the long route, and it is
+            # a top-5 hit of P01008 and P05013, so its score (and with E-values, the
+            # null it enters) is held to swtpu's.  search with E-values keeps all
+            # 111 ids and runs the exhaustive engine; search_many scores them on the
+            # routes.  The row path has no long route.
+            routed = use_wave is None and not (evalue and path == "search")
+            assert [r.metrics.long_candidates for r in results] == [int(routed)] * len(queries)
+            long_hits += sum(int(db.lengths[i] > 992) for r in results for i, _ in r.hits)
+        assert long_hits == (4 if len(queries) == 3 else 2)  # P01008 and P05013, or P05013 alone, on both paths
         if use_wave is False:  # the row path's exact engine packs swtpu's cells
             assert [r.metrics.packed_cells for r in results] == [r.metrics.packed_cells for r in ref]
 
 
 def test_wave_exact_phase_packs_pinned_widths():
-    """The wavefront exact phase: widths 992 / the 99.9% edge / the longest,
-    lanes a power of two from 256, one launch's cells each, as swtpu's."""
+    """The exact phase: candidates of at most 992 residues in one wavefront
+    bucket of width 992, lanes a power of two from 256, its padded cells
+    counted; the longer ones in one launch of the long route, longest first,
+    their 32-row bands times the query's length counted; ids and scores
+    those of the exhaustive search, and long_candidates the longer ones."""
     rng = np.random.default_rng(4)
     lens = np.concatenate([rng.integers(20, 900, 300), rng.integers(1000, 1500, 40), [3000]])
     seqs = [rng.integers(0, 20, int(n)).astype(np.int8) for n in lens]
@@ -233,14 +248,29 @@ def test_wave_exact_phase_packs_pinned_widths():
     eng = SearchEngine(SWConfig(prefilter=0.3, top_k=3, prefilter_min_candidates=1), device="cpu")
     cand = np.union1d(np.arange(0, db.n, 3), [db.n - 1]).astype(np.int64)  # the longest is the last
     flat, jobs, cells, _ = eng._prefilter_exact_enqueue(q, db, cand, PhaseTimer())
-    widths = [w for _, w, _ in jobs]
-    assert widths[0] == 992 and widths[-1] >= 3000 and len(widths) == 3
-    assert all(cp.shape[0] >= 256 and cp.shape[0] & (cp.shape[0] - 1) == 0 for _, _, cp in jobs)
-    assert cells == sum(64 * cp.shape[0] * (w + 32) for _, w, cp in jobs)  # qpad 64 for 40 residues
+    assert [route for _, _, route in jobs] == ["wave", "long"]
+    (short, bpad, _), (long_ids, n_long, _) = jobs
+    assert np.array_equal(short, cand[lens[cand] <= 992]) and bpad == 256  # 101 lanes padded to 256
+    assert n_long == long_ids.shape[0] == (lens[cand] > 992).sum() and long_ids[0] == db.n - 1
+    assert np.all(np.diff(lens[long_ids]) <= 0)  # longest first
+    long_cells = int(sum(-(-lens[i] // 32) * 32 for i in long_ids)) * 40
+    assert cells == 64 * 256 * (992 + 32) + long_cells  # qpad 64 for 40 residues
+    assert flat.shape[0] == 256 + n_long
     ids, scores = eng._prefilter_exact_scores(flat, jobs)
     assert np.array_equal(np.sort(ids), cand)
     exhaustive = SearchEngine(SWConfig(), device="cpu").search(q, db).scores
     assert np.array_equal(scores, exhaustive[ids])
+    assert eng._long_candidates(jobs) == n_long
+    # a search's counter: the long route's share of its candidates; none
+    # when every candidate is at most 992 residues long
+    for database in (db, database_from_arrays([x for x in seqs if x.shape[0] <= 992])):
+        seen = []
+        enqueue = eng._prefilter_exact_enqueue
+        eng._prefilter_exact_enqueue = lambda *a: seen.append(enqueue(*a)) or seen[-1]
+        res = eng.search(q, database)
+        del eng._prefilter_exact_enqueue
+        assert res.metrics.long_candidates == eng._long_candidates(seen[0][1])
+        assert res.metrics.long_candidates > 0 if database is db else res.metrics.long_candidates == 0
 
 
 def test_prefilter_fallbacks_match_exhaustive():

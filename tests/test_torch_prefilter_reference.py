@@ -61,10 +61,13 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def _workload(seed: int):
+def _workload(seed: int, n_long: int = 0):
     """(database, queries): N subjects of 20-90 residues, four queries of
     33-140 residues each planted as an exact copy and two 30% mutants, and
-    one query with no 3-mer."""
+    one query with no 3-mer.  With ``n_long``, that many other subjects are
+    993-2,000 residues long (past the wavefront bucket's 992: the exact
+    phase's long route), and the longest query is planted once more inside
+    the first of them."""
     rng = np.random.default_rng(seed)
     qlens = [33, 61, 96, 140]
     queries = [rng.integers(0, 25, L).astype(np.int8) for L in qlens]
@@ -72,6 +75,9 @@ def _workload(seed: int):
     ids = rng.choice(N, 3 * len(queries), replace=False).reshape(len(queries), 3)
     for q, row in zip(queries, ids):
         lengths[row] = q.size
+    if n_long:
+        long_ids = rng.choice(np.setdiff1d(np.arange(N), ids.ravel()), n_long, replace=False)
+        lengths[long_ids] = rng.integers(993, 2001, n_long)
     offsets = np.zeros(N + 1, dtype=np.int64)
     np.cumsum(lengths, out=offsets[1:])
     residues = rng.integers(0, 25, int(offsets[-1])).astype(np.int8)
@@ -82,6 +88,9 @@ def _workload(seed: int):
                 hit = rng.random(q.size) < 0.3
                 copy[hit] = (copy[hit] + rng.integers(1, 25, int(hit.sum()))) % 25
             residues[offsets[i] : offsets[i + 1]] = copy
+    if n_long:
+        at = offsets[long_ids[0]] + 400
+        residues[at : at + queries[-1].size] = queries[-1]
     queries.append(np.array([3, 7], dtype=np.int8))  # shorter than a 3-mer: no signal, every subject a candidate
     return Database(residues=residues, offsets=offsets), queries
 
@@ -90,8 +99,25 @@ def _workload(seed: int):
 @pytest.mark.parametrize("evalue", [True, False])
 @pytest.mark.parametrize("gaps", list(GAPS))
 def test_prefiltered_search_answers_as_the_plain_reference(gaps, evalue, knob, monkeypatch):
-    ref_pf, scoring = _reference()
     db, qres = _workload(seed=11 + len(gaps) + 2 * evalue + 4 * (knob == "fraction"))
+    _assert_answers_as_the_reference(db, qres, gaps, evalue, knob, monkeypatch)
+
+
+@pytest.mark.parametrize("gaps", list(GAPS))
+def test_prefiltered_search_with_long_candidates_answers_as_the_plain_reference(gaps, monkeypatch):
+    """Subjects past 992 residues among the candidates: the long route scores
+    them (``long_candidates``), and hits and E-values stay the reference's,
+    the copy planted inside a long subject among them."""
+    db, qres = _workload(seed=21 + len(gaps), n_long=24)
+    for results in _assert_answers_as_the_reference(db, qres, gaps, True, "min_candidates", monkeypatch).values():
+        assert all(r.metrics.long_candidates > 0 for r in results[:-1])
+        assert any(db.lengths[i] > 992 for i, _ in results[3].top_k(TOP_K))  # the 140-aa query's copy
+
+
+def _assert_answers_as_the_reference(db, qres, gaps, evalue, knob, monkeypatch):
+    """The port's ``search`` and ``search_many`` score the reference's
+    candidate sets and return its answers; {path: results}."""
+    ref_pf, scoring = _reference()
     ref_gaps, engine_gaps = GAPS[gaps]
     fraction, floor = KNOBS[knob]
     engine = SearchEngine(SWConfig(matrix="blosum50_ref", top_k=TOP_K, evalue=evalue, prefilter=fraction,
@@ -112,9 +138,11 @@ def test_prefiltered_search_answers_as_the_plain_reference(gaps, evalue, knob, m
     want = ref_pf.answers(qres, cands, residues, db.offsets, scoring.matrix("blosum50_ref"), ref_gaps, TOP_K, evalue,
                           "cpu")
     queries = [Query(name=str(i), residues=r, raw="") for i, r in enumerate(qres)]
+    out = {}
     for path in ("search", "search_many"):
         scored.clear()
         results = [engine.search(q, db) for q in queries] if path == "search" else engine.search_many(queries, db)
+        out[path] = results
         # every query with a signal went through the exact phase once, on the reference's candidates
         assert len(scored) == len(queries) - 1
         for got_ids, ref_ids in zip(scored, cands[:-1]):
@@ -128,6 +156,7 @@ def test_prefiltered_search_answers_as_the_plain_reference(gaps, evalue, knob, m
                                            atol=0)
             else:
                 assert r.top_k(TOP_K) == [x[:2] for x in w]
+    return out
 
 
 def test_database_caches_what_it_derives_from_its_offsets():
@@ -200,4 +229,5 @@ def test_the_cli_json_counts_the_ids_scored_exactly(evalue, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     # 111 subjects, fewer than the default floor of 256 candidates (and than the calibration sample): all of them
     assert out["prefilter_candidates"] == 111
+    assert out["long_candidates"] == 0  # all of them: the exhaustive engine, not the exact phase's routes
     assert {"prefilter_coarse", "prefilter_rank", "prefilter_merge"} <= set(out["phases"])

@@ -43,7 +43,7 @@ def test_search_metrics_to_json_equals_swtpu():
     got, want = json.loads(ours.to_json()), json.loads(theirs.to_json())
     assert got == ours.to_dict() and want == theirs.to_dict()
     assert {k: v for k, v in got.items() if k in want} == want
-    assert set(got) - set(want) == {"kernel_launches", "rescored_lanes", "prefilter_candidates"}
+    assert set(got) - set(want) == {"kernel_launches", "rescored_lanes", "prefilter_candidates", "long_candidates"}
 
 
 def test_phase_timer_total_equals_swtpu():
