@@ -33,10 +33,11 @@ Phases (one line each; any failure exits non-zero with no result line):
               gaps 1, 2, 11, a self-alignment above 32,767), each at the
               wrapper's shape and K2 at every compiled (G, H): exact equality;
               then the band-carry hand-off mode on the first case list,
-              linear and affine, as a chain of power-of-two band groups from
-              a zero and from a seeded carry: the carry after every group
-              and every group's scores equal the plain version's, and a
-              chain's running max equals one launch over all the bands;
+              linear and affine, as a chain of query_shard's band slices at
+              n = 4 from a zero and from a seeded carry: the carry after
+              every slice and every slice's scores equal the plain
+              version's, and a chain's running max equals one launch over
+              all the bands;
               then K7's coarse_counts on seeded 0/1 signatures with a few
               +-5 entries (n = 1 to 100,003, Q = 1 to 17, dim 64, 1024,
               2048) and its mma_probe, and K8's chain, against their plain
@@ -83,9 +84,9 @@ Phases (one line each; any failure exits non-zero with no result line):
               K1 linear, multi-query, query-band pipeline, chained and
               affine on random buckets (tools/tpu_fuzz.py's five); every
               (G, H) forced in every K1 mode across pass boundaries and 143
-              bands, the hand-off as rung chains from a zero and a seeded
-              carry; K2, K3 and the fast16 clamp at every (G, H), widths 1
-              to 6,000, a self-alignment above 32,767; the wrappers' own
+              bands, the hand-off as chains of query_shard's band slices
+              from a zero and a seeded carry; K2, K3 and the fast16 clamp
+              at every (G, H), widths 1 to 6,000, a self-alignment above 32,767; the wrappers' own
               choice at BAND_THREADS and BAND_ROWS +- 1 and 32 on one device
               and as 2, 3 and 4 lane or row shards; every launch against its
               plain version (exact) and a strided oracle sample; cases and
@@ -146,19 +147,7 @@ Phases (one line each; any failure exits non-zero with no result line):
               (pack_batch), the row engine's segment groups (pack_segments),
               the streamed wave plan's buckets on the host (pack_wave_group)
               and the prefilter's signatures
- 10. compose  composed band-group dispatch (wave_compose) on the same resident
-              database, each array bit-equal to the fused path's: P01008
-              (counts zeroed just before the first search, read just after:
-              every launch a carry hand-off, rungs x buckets of them), the
-              same at gaps 10/2, the 17 queries through search_queued, the
-              device top-K with E-values for four queries against the
-              full-array fit, search_many served cold through the composed
-              chains and again after warmup_many_background (joined, no
-              error) through the multi-query launches, warmup_background's
-              hot swap, and warmup's seconds with a first search after it
-              against one on a fresh engine; the hand-off launches of a
-              P01008 search alone against their plain version
- 11. prefilter the k-mer prefilter on the same resident database: the
+ 10. prefilter the k-mer prefilter on the same resident database: the
               signatures built on the card and their bytes there; P01008
               at prefilter 0.05, top-K 10 (counts zeroed just before, read
               just after: one signature build, one coarse_counts launch and
@@ -174,7 +163,7 @@ Phases (one line each; any failure exits non-zero with no result line):
               single searches); the E-value null equal to the exhaustive
               scores' at the calibration sample; swtpu's planted-homolog
               recall check (tools/tpu_validate.py check 9)
- 12. lab      the wavefront lab kernels as swtpu_torch.tools.wave_lab (K4,
+ 11. lab      the wavefront lab kernels as swtpu_torch.tools.wave_lab (K4,
               K5) and swtpu_torch.tools.probe_breakdown (K6) run them on
               P01008's buckets of the same resident database (counts zeroed
               just before, read just after; 3 rounds of one timed launch a
@@ -187,7 +176,7 @@ Phases (one line each; any failure exits non-zero with no result line):
               full sums and each variant's spread across rounds; each K4
               variant's schedule for P01008 and its blocks an SM; each K5
               and K6 variant's shape and its ratio to K1's band sweep
- 13. lab.rows K10 as swtpu_torch.tools.pallas_lab --swissprot runs it on
+ 12. lab.rows K10 as swtpu_torch.tools.pallas_lab --swissprot runs it on
               P01008's 13 row-path ladder groups of the same resident
               database (counts zeroed just before, read just after; 3 rounds
               of one timed launch an instantiation a group beside K2's, a
@@ -202,7 +191,7 @@ Phases (one line each; any failure exits non-zero with no result line):
               carry bytes, from its schedule; on the largest group each
               instantiation at width 1 against its full width (the share of
               a launch that staging and the launch take)
- 14. mesh     the port's single-host mesh (swtpu_torch.parallel) on meshes
+ 13. mesh     the port's single-host mesh (swtpu_torch.parallel) on meshes
               that name the one card n times (and on distinct cards where the
               machine has n or more): every shard's kernels, the lane split,
               the merge and the carry hand-off between pipeline stages run
@@ -216,7 +205,7 @@ Phases (one line each; any failure exits non-zero with no result line):
               mesh.search: the same resident database lane-sharded over 4 and
               3 shards (counts zeroed just before P01008's first search, read
               just after: n launches a bucket), P01008's scores, top-10 hits
-              and E-values, gaps 10/2, composed dispatch, the 17 queries
+              and E-values, gaps 10/2, the 17 queries
               through search_many and search_queued, 3 streamed queries, all
               bit-equal to one device; each shard's launches and ms.
               mesh.query_shard: the suite's 4,548-residue query against the
@@ -237,7 +226,7 @@ Phases (one line each; any failure exits non-zero with no result line):
               device's.  mesh.query_shard.streamed: mesh.query_shard's
               database under a residency budget that forces streaming (the
               row ladder, K3 a batch, on the primary), bit-equal to one device
- 15. dist.fleet two processes of the multi-process fleet (gloo on 127.0.0.1,
+ 14. dist.fleet two processes of the multi-process fleet (gloo on 127.0.0.1,
               both on the one card) on native.parse's FASTA file: python -m
               swtpu_torch.parallel.launch --json (both print the one-device
               top-10 of P01008), then DistributedSearchEngine.search_many
@@ -246,7 +235,7 @@ Phases (one line each; any failure exits non-zero with no result line):
               pooled fit; K1 on each shard against its plain version); each
               process's wall, parse, pack, search and collective seconds and
               route; the file is deleted; every process has a timeout
- 16. kernels  one JSON line per kernel and mode: launches on its path, error,
+ 15. kernels  one JSON line per kernel and mode: launches on its path, error,
               time, plain time, the card's lower bound for the same work and
               the library call's time, where one computes the same function
 The last line is {"ok": true, "device": {...}} and appears only if all passed.
@@ -285,8 +274,8 @@ GAP_PAIRS = ((10, 2), (10, 1), (5, 5))  # the affine kernel phase's (open, exten
 # The last three single-query cases: the suite's longest query (143 bands) crossing
 # eight pass boundaries of the wavefront; segments of 6 columns under 16 bands a
 # pass; a bucket of 20,800 (lane, segment) pairs, so the band sweep at H = 64,
-# where P01008's 15 bands end in a 32-row tail and its rungs (8, 4, 2, 1) split
-# a 64-row pair (kernel.carry).
+# where P01008's 15 bands end in a 32-row tail, and so does the last of its
+# hand-off slices (4, 4, 4, 3) (kernel.carry).
 KERNEL_CASES = (
     (20, 32, 1, 64, None), (33, 48, 2, 77, None), (100, 96, 3, 130, None), (464, 40, 8, 1001, None),
     (464, 736, 1, 3000, None), (147, 2208, 6, 333, None), (464, 4100, 1, 129, None), (1000, 160, 4, 515, None),
@@ -740,14 +729,15 @@ def phase_kernel_rows():
 
 def phase_kernel_carry():
     """The band-carry hand-off mode against its plain version on the first
-    case list, linear and affine: every group's scores and carry, from a
-    zero carry and from a seeded one; a zero-carry chain's running max
-    against one launch over all the bands."""
+    case list, linear and affine, in query_shard's band slices at n = 4
+    (``card_fuzz.band_split``): every slice's scores and carry, from a zero
+    carry and from a seeded one; a zero-carry chain's running max against
+    one launch over all the bands."""
     import numpy as np
     import torch
 
     from swtpu_torch.ops import wave_sw
-    from swtpu_torch.tools.card_fuzz import rung_chain, seeded_carry
+    from swtpu_torch.tools.card_fuzz import hand_off_chain, seeded_carry
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(4)
@@ -761,21 +751,21 @@ def phase_kernel_carry():
             where = f"qlen={qlen} ws={ws} n_segs={n_segs} lanes={lanes} gaps={gaps}"
             for start in (virgin, seeded):
                 before = wave_sw.sw_wave.carry_launches
-                best, got = rung_chain(wave_sw.sw_wave, prof, stack, start.clone(), n_segs, gaps)
-                _, want = rung_chain(wave_sw.sw_wave_plain, prof, stack, start.clone(), n_segs, gaps)
+                best, got = hand_off_chain(wave_sw.sw_wave, prof, stack, start.clone(), n_segs, gaps)
+                _, want = hand_off_chain(wave_sw.sw_wave_plain, prof, stack, start.clone(), n_segs, gaps)
                 torch.cuda.synchronize()
                 if wave_sw.sw_wave.carry_launches != before + len(got):
                     raise AssertionError(f"hand-off chain launched {wave_sw.sw_wave.carry_launches - before} "
-                                         f"hand-off kernels for {len(got)} groups at {where}")
+                                         f"hand-off kernels for {len(got)} slices at {where}")
                 launches += len(got)
                 groups += len(got)
                 for k, ((s, c), (ps, pc)) in enumerate(zip(got, want)):
                     err = max(int((s.long() - ps.long()).abs().max()), int((c.long() - pc.long()).abs().max()))
                     worst = max(worst, err)
                     if err or not (torch.equal(s, ps) and torch.equal(c, pc)):
-                        raise AssertionError(f"hand-off group {k} != plain at {where}: max err {err}")
+                        raise AssertionError(f"hand-off slice {k} != plain at {where}: max err {err}")
                 if start is virgin and not torch.equal(best, wave_sw.sw_wave(prof, stack, n_segs=n_segs, **gaps)):
-                    raise AssertionError(f"a chain of band groups differs from one launch at {where}")
+                    raise AssertionError(f"a chain of band slices differs from one launch at {where}")
     say("kernel.carry", cases=len(KERNEL_CASES), gaps=["linear 2", AFFINE], starts=["zero", "seeded"],
         groups_checked=groups, hand_off_launches=launches, max_abs_err=worst, tolerance="exact",
         seconds=round(time.perf_counter() - t0, 3))
@@ -1726,241 +1716,6 @@ def phase_native_pack(db, wave_engine, row_engine):
     say("native.pack", residues=db.length_sum, **out)
 
 
-def phase_compose(db, engine, affine_engine, suite_scores):
-    """Phase 10: composed band-group dispatch on the resident database, every
-    array bit-equal to the fused path's; the hand-off launches alone against
-    their plain version."""
-    import numpy as np
-    import torch
-
-    from swtpu_torch.config import SWConfig
-    from swtpu_torch.io.fasta import parse_query
-    from swtpu_torch.models.search import SearchEngine, SearchResult
-    from swtpu_torch.ops import wave_sw
-
-    t_phase = time.perf_counter()
-    queries = [parse_query(ROOT / "tests" / "data" / "queries" / f"{name}.fasta") for name in SUITE]
-    query = queries[SUITE.index(MAIN_QUERY)]
-    true_cells = query.length * db.length_sum
-    rungs_of = lambda q: SearchEngine._compose_groups(-(-q.length // wave_sw.W))  # noqa: E731
-    counts = ("launches", "multi_launches", "affine_launches", "carry_launches")
-
-    def zero():
-        for c in counts:
-            setattr(wave_sw.sw_wave, c, 0)
-
-    def read():
-        return {c: getattr(wave_sw.sw_wave, c) for c in counts}
-
-    def same(name, got, want):
-        if not np.array_equal(got, want):
-            raise AssertionError(f"compose {name}: {int((got != want).sum())} scores differ from the fused path's")
-
-    def searches(cfg, ref):
-        """This phase's path: a composed engine's P01008 search, counts zeroed
-        just before the first and read just after, then three timed."""
-        torch.cuda.reset_peak_memory_stats()
-        eng = SearchEngine(cfg, device="cuda")
-        zero()
-        t0 = time.perf_counter()
-        first = eng.search(query, db)  # packs the database on the card, then scores
-        first_wall = time.perf_counter() - t0
-        launched = read()
-        groups = eng._resident_packed(db).wave_groups
-        want = len(rungs_of(query)) * len(groups)
-        if not launched["carry_launches"] == launched["launches"] == want:
-            raise AssertionError(f"composed search launched {launched} for {len(rungs_of(query))} rungs x {len(groups)} buckets")
-        same(f"P01008 {cfg.gap_open}/{cfg.gap_extend}", first.scores, ref)
-        runs = []
-        for _ in range(3):
-            res = eng.search(query, db)
-            if res.metrics.kernel_launches != want:
-                raise AssertionError(f"timed composed search launched {res.metrics.kernel_launches}, not {want}")
-            same("P01008 (timed)", res.scores, ref)
-            runs.append(res.metrics)
-        return eng, launched, dict(
-            first_search_wall_s=first_wall, device_seconds=[m.device_seconds for m in runs],
-            wall_seconds=[m.wall_seconds for m in runs], gcups_device=[1e-9 * true_cells / m.device_seconds for m in runs],
-            launches_per_search=want, rungs=rungs_of(query), buckets=len(groups),
-            chain_bytes=eng._chain_bytes(groups), max_memory_allocated=torch.cuda.max_memory_allocated())
-
-    # --- P01008, linear (this phase's main path) and affine
-    fused = engine.search(query, db).scores
-    ceng, launched, lin = searches(SWConfig(wave_compose=True), fused)
-    affine_fused = affine_engine.search(query, db).scores
-    aeng, _, aff = searches(SWConfig(wave_compose=True, **AFFINE), affine_fused)
-    say("compose.search", query=MAIN_QUERY, launches_first_search=launched, linear=lin, affine=aff,
-        bit_equal_to_fused=True)
-
-    # --- the hand-off launches of one search alone, and their plain version
-    packed = ceng._resident_packed(db)
-    groups = packed.wave_groups
-    profile = ceng._profile(query, compose=True)
-    qpad = profile.shape[0]
-
-    def chain(fn, gaps, carries, keep=False, buckets=None):
-        """One search's hand-off launches (``fn``: sw_wave or its plain
-        version), rung-major as the engine runs them, on every bucket or on
-        ``buckets``; with ``keep``, every launch's scores and carry."""
-        out, band = [], 0
-        for rung in rungs_of(query):
-            part = profile[band * wave_sw.W : (band + rung) * wave_sw.W]
-            band += rung
-            for g, c in zip(buckets or groups, carries):
-                scores, _ = fn(part, g.stack, c, n_segs=g.n_segs, return_carry=True, **gaps)
-                if keep:
-                    out.append((scores, c.clone()))
-        return out
-
-    timed = {}
-    for name, eng in (("linear", ceng), ("affine", aeng)):
-        carries = [wave_sw.virgin_carry(g.stack, eng._affine) for g in groups]  # times do not depend on values
-        events_ms(lambda: chain(wave_sw.sw_wave, eng._gaps, carries))  # warm
-        timed[name], _ = events_ms(lambda: chain(wave_sw.sw_wave, eng._gaps, carries), reps=3)
-    fused_profile = engine._profile(query)
-    fused_ms, _ = events_ms(lambda: [wave_sw.sw_wave(fused_profile, g.stack, gap=2, n_segs=g.n_segs) for g in groups], reps=3)
-    per_bucket = []  # each bucket alone: its fused launch against its chain of hand-off launches
-    for g in groups:
-        carries = [wave_sw.virgin_carry(g.stack)]
-        f_ms, _ = events_ms(lambda g=g: wave_sw.sw_wave(fused_profile, g.stack, gap=2, n_segs=g.n_segs), reps=3)
-        c_ms, _ = events_ms(lambda g=g: chain(wave_sw.sw_wave, ceng._gaps, carries, buckets=[g]), reps=3)
-        per_bucket.append((g.width, g.n_segs, g.lanes, g.lanes * g.n_segs, round(f_ms, 4), round(c_ms, 4), round(c_ms / f_ms, 4)))
-    got = chain(wave_sw.sw_wave, ceng._gaps, [wave_sw.virgin_carry(g.stack) for g in groups], keep=True)
-    plain_ms, want = events_ms(lambda: chain(wave_sw.sw_wave_plain, ceng._gaps, [wave_sw.virgin_carry(g.stack) for g in groups], keep=True))
-    err = 0
-    for (s, c), (ps, pc) in zip(got, want):
-        err = max(err, int((s.long() - ps.long()).abs().max()), int((c.long() - pc.long()).abs().max()))
-    if err:
-        raise AssertionError(f"full-scale hand-off launches differ from their plain version: max err {err}")
-    flats = [got[k][0] for k in range(len(groups))]
-    for k, (s, _) in enumerate(got[len(groups):]):
-        flats[k % len(groups)] = torch.maximum(flats[k % len(groups)], s)
-    same("P01008 chain, launch by launch", ceng._reduce_flat(torch.cat(flats).cpu().numpy(), packed), fused)
-    del got, want
-    # The bound: the same P01008 cells as one search of the fused mode, its
-    # inputs and scores once, and each group's carry read and written once.
-    cells = sum(qpad * g.n_segs * g.seg_cols * g.lanes for g in groups)
-    carry_io = 2 * len(rungs_of(query)) * ceng._chain_bytes(groups)
-    nbytes = sum(g.stack.numel() + qpad * 32 + 4 * g.rows for g in groups) + carry_io
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * OPS_PER_CELL * cells / int32_ops_per_s
-    bound_ms = max(bytes_ms, ops_ms)
-    say("compose.kernel", query=MAIN_QUERY, hand_off_launches=len(rungs_of(query)) * len(groups),
-        kernel_ms_per_search=timed["linear"], affine_kernel_ms_per_search=timed["affine"],
-        fused_kernel_ms_same_call=fused_ms, plain_ms_per_search=plain_ms, bound_ms=bound_ms,
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes", bound_share=bound_ms / timed["linear"],
-        carry_bytes_moved=carry_io, max_abs_err_vs_plain=err)
-    say("compose.buckets", columns=["width", "n_segs", "lanes", "threads", "fused_ms", "chain_ms", "chain_over_fused"],
-        rows=per_bucket)
-
-    # --- the 17 queries through composed search_queued, bit-equal to the singles
-    zero()
-    t0 = time.perf_counter()
-    queued = ceng.search_queued(queries, db)
-    queued_wall = time.perf_counter() - t0
-    q_launches = read()
-    want = sum(len(rungs_of(q)) for q in queries) * len(groups)
-    if not q_launches["carry_launches"] == q_launches["launches"] == want:
-        raise AssertionError(f"composed search_queued launched {q_launches}, not {want} hand-offs")
-    for name, res, ref in zip(SUITE, queued, suite_scores):
-        same(f"search_queued {name}", res.scores, ref)
-    queued_dev = sum(r.metrics.device_seconds for r in queued)
-    suite_cells = sum(q.length for q in queries) * db.length_sum
-    say("compose.queued", queries=len(queries), rungs={n: rungs_of(q) for n, q in zip(SUITE, queries)},
-        launches=q_launches["launches"], device_seconds=queued_dev, wall_seconds=queued_wall,
-        gcups_device=1e-9 * suite_cells / queued_dev, gcups_wall=1e-9 * suite_cells / queued_wall,
-        bit_equal_to_single=True)
-
-    # --- composed device top-K with E-values, against the full array and its fit
-    four = [SUITE.index(n) for n in ("P02232", "P05013", "P14942", "P01008")]
-    topk = SearchEngine(SWConfig(wave_compose=True, top_k=10, evalue=True), device="cuda")
-    fit = SearchEngine(SWConfig(evalue=True), device="cuda")
-    worst_rel, fallbacks = 0.0, 0
-    single = lambda qs, d: [topk.search(q, d) for q in qs]  # noqa: E731
-    for name, run in (("search", single), ("search_queued", topk.search_queued)):
-        before = wave_sw.sw_wave.carry_launches
-        results = run([queries[j] for j in four], db)
-        if wave_sw.sw_wave.carry_launches == before:
-            raise AssertionError(f"composed top-K {name} launched no hand-off kernel")
-        for i, res in zip(four, results):
-            full = SearchResult(scores=suite_scores[i], metrics=res.metrics)
-            if res.top_k(10) != full.top_k(10):
-                raise AssertionError(f"composed {name} top-K of {SUITE[i]} differs from the full array's")
-            fallbacks += res.scores is not None
-            for g, w in zip(res.top_k_stats(10), fit._attach_null(full, queries[i], db).top_k_stats(10)):
-                rel = max(abs(g.evalue - w.evalue) / max(abs(w.evalue), 1e-300), abs(g.bits - w.bits) / max(abs(w.bits), 1e-300))
-                worst_rel = max(worst_rel, rel)
-                if (g.id, g.score) != (w.id, w.score) or rel > 1e-9:
-                    raise AssertionError(f"composed {name} E-values of {SUITE[i]} are off the full-array fit: rel {rel}")
-    say("compose.topk", queries=[SUITE[i] for i in four], k=10, hits_equal_full_array=True,
-        max_rel_err_evalue_bits=worst_rel, tolerance=1e-9, tie_fallbacks=fallbacks)
-
-    # --- search_many: cold through the composed chains, then hot after warmup_many_background
-    many_eng = SearchEngine(SWConfig(wave_compose=True), device="cuda")
-    pieces = many_eng._query_pieces(queries)
-    many = {}
-    for state in ("cold", "hot"):
-        if state == "hot":
-            t0 = time.perf_counter()
-            warmer = many_eng.warmup_many_background(queries, db)
-            warmer.join(timeout=600)
-            warm_s = time.perf_counter() - t0
-            keys = {(qpad, len(p)) for qpad, p in pieces}
-            if warmer.is_alive() or many_eng._warmup_many_bg_error is not None or many_eng._fused_many_warm != keys:
-                raise AssertionError(f"warmup_many_background: error {many_eng._warmup_many_bg_error!r}, "
-                                     f"warm {sorted(many_eng._fused_many_warm)} of {sorted(keys)}")
-        zero()
-        t0 = time.perf_counter()
-        results = many_eng.search_many(queries, db)
-        wall = time.perf_counter() - t0
-        got = read()
-        if state == "cold":
-            ok = got["multi_launches"] == 0 and got["carry_launches"] == got["launches"] == want
-        else:
-            ok = got["carry_launches"] == 0 and got["multi_launches"] == got["launches"] == len(pieces) * len(groups)
-        if not ok:
-            raise AssertionError(f"{state} search_many launched {got}")
-        for name, res, ref in zip(SUITE, results, suite_scores):
-            same(f"{state} search_many {name}", res.scores, ref)
-        dev = sum(r.metrics.device_seconds for r in results)
-        many[state] = dict(launches=got, device_seconds=dev, wall_seconds=wall, gcups_device=1e-9 * suite_cells / dev,
-                           gcups_wall=1e-9 * suite_cells / wall)
-    say("compose.many", queries=len(queries), pieces=len(pieces), **many, warmup_many_background_s=warm_s,
-        warm_piece_shapes=len(many_eng._fused_many_warm), error=None, bit_equal_to_single=True)
-
-    # --- warmup: its seconds for the suite, and a first search after it
-    # against a first search on a fresh engine; warmup_background's hot swap
-    fresh = SearchEngine(SWConfig(wave_compose=True), device="cuda")
-    t0 = time.perf_counter()
-    same("fresh first search", fresh.search(query, db).scores, fused)
-    fresh_wall = time.perf_counter() - t0
-    warm = SearchEngine(SWConfig(wave_compose=True), device="cuda")
-    warm_seconds = warm.warmup(queries, db)
-    t0 = time.perf_counter()
-    same("first search after warmup", warm.search(query, db).scores, fused)
-    after_wall = time.perf_counter() - t0
-    wpacked = warm._resident_packed(db)
-    bg = warm.warmup_background([query], db)
-    bg.join(timeout=600)
-    if bg.is_alive() or warm._warmup_bg_error is not None or warm._compose_for(query, wpacked):
-        raise AssertionError(f"warmup_background did not move P01008 off the composed route: {warm._warmup_bg_error!r}")
-    zero()
-    res = warm.search(query, db)
-    swapped = read()
-    if swapped["carry_launches"] or swapped["launches"] != len(groups):
-        raise AssertionError(f"hot-swapped search launched {swapped}")
-    same("hot-swapped search", res.scores, fused)
-    say("compose.warmup", suite_warmup_s=warm_seconds, warm_rungs=sorted({r for q in queries for r in rungs_of(q)}),
-        first_search_fresh_engine_wall_s=fresh_wall, first_search_after_warmup_wall_s=after_wall,
-        hot_swapped_launches=swapped["launches"], hot_swapped_device_s=res.metrics.device_seconds,
-        max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=round(time.perf_counter() - t_phase, 3))
-    return {
-        "name": "sw_wave (carry hand-off mode)", "route": "cuda", "source": "swtpu_torch/csrc/sw_wave.cu",
-        "replaces": "swtpu/ops/wave_sw.py:815",
-        "launches": launched["carry_launches"], "max_abs_err": err, "ms": timed["linear"], "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
-    }
-
-
 def phase_kernel_mma():
     """K7's two entry points against their plain versions: coarse_counts on
     seeded 0/1 signatures with a few +-5 entries, every (n, Q, dim) of
@@ -2869,7 +2624,7 @@ def phase_mesh_search(db, first_scores, suite_scores, affine_engine):
     """mesh.search: the SwissProt-shaped database on lane-sharded meshes of 4
     and 3 (the card named n times): P01008's scores (counts zeroed just
     before the first search, read just after: n launches a bucket), top-10
-    hits and E-values, gaps 10/2, composed dispatch, the 17-query suite
+    hits and E-values, gaps 10/2, the 17-query suite
     through search_many and search_queued, and 3 streamed queries, all
     bit-equal to the single-device engine; each shard's launches and ms; the
     n = 4 shards' launches alone against their plain version."""
@@ -2927,9 +2682,6 @@ def phase_mesh_search(db, first_scores, suite_scores, affine_engine):
             aff = SearchEngine(SWConfig(mesh_shape=(n,), **AFFINE), device=devices)
             same(f"{label} affine", aff.search(query, db).scores, affine_want)
             del aff
-            comp = SearchEngine(SWConfig(mesh_shape=(n,), wave_compose=True), device=devices)
-            same(f"{label} composed", comp.search(query, db).scores, first_scores)
-            del comp
             t0 = time.perf_counter()
             many = eng.search_many(queries, db)
             many_wall = time.perf_counter() - t0
@@ -3499,7 +3251,6 @@ def main() -> int:
         phase_align(db, engine, affine_engine)
         k2, k3, row_engine = phase_rows(db, engine)
         phase_native_pack(db, engine, row_engine)
-        carry = phase_compose(db, engine, affine_engine, suite_scores)
         mesh_lanes = phase_mesh_search(db, suite_scores[SUITE.index(MAIN_QUERY)], suite_scores, affine_engine)
         mesh_bands = phase_mesh_query_shard(db)
         mesh_rows = phase_mesh_rows(db, suite_scores[SUITE.index(MAIN_QUERY)])
@@ -3522,8 +3273,7 @@ def main() -> int:
     for k in (k2, mesh_rows):
         k["max_abs_err"] = max(k["max_abs_err"], rows_err, fuzz("K2 stack", "K2 fast16"))
     k3["max_abs_err"] = max(k3["max_abs_err"], rows_err, fuzz("K3 bucket"))
-    carry["max_abs_err"] = max(carry["max_abs_err"], carry_err, fuzz("K1 B1d"))
-    mesh_bands["max_abs_err"] = max(mesh_bands["max_abs_err"], mesh_kernel_err, fuzz("K1 B1d"))
+    mesh_bands["max_abs_err"] = max(mesh_bands["max_abs_err"], mesh_kernel_err, carry_err, fuzz("K1 B1d"))
     coarse["max_abs_err"] = max(coarse["max_abs_err"], counts_err)
     probe["max_abs_err"] = max(probe["max_abs_err"], probe_err)
     chain["max_abs_err"] = max(chain["max_abs_err"], chain_err)
@@ -3533,7 +3283,7 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], rows_lab_err)
     for k in k9:
         k["max_abs_err"] = max(k["max_abs_err"], i16_err)
-    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, carry, mesh_lanes, mesh_bands, mesh_rows, dist_fleet, coarse,
+    print(json.dumps({"kernels": [entry, multi, affine, k2, k3, mesh_lanes, mesh_bands, mesh_rows, dist_fleet, coarse,
                                   signatures, long_route, long_affine, probe, chain, *labs, *k9, *k10]}))
     print(smi)
     say("done", seconds=round(time.perf_counter() - t0, 3))

@@ -7,7 +7,7 @@ Linear gaps (``--gap``) or affine ones (``--gap-open``/``--gap-extend``);
 the wavefront kernel, or the row-parallel path (``--no-wave``, ``--pallas``
 for the CUDA kernels K2 and K3, ``--score-dtype int16`` for the narrow-type
 parity mode, ``--batch-rows``/``--length-quantum`` for its ladder);
-``--compose`` for composed band-group dispatch; ``--prefilter FRAC`` for the
+``--prefilter FRAC`` for the
 heuristic two-phase search (k-mer coarse pass, exact rescore of the top
 candidates; requires ``--top-k``); ``--mesh N`` to shard the database
 over N cards (N CPU shards with ``--device cpu``) on every one of those
@@ -87,12 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--no-wave", dest="wave", action="store_false", help="disable the wavefront kernel")
     p.add_argument(
-        "--compose",
-        action="store_true",
-        help="composed band-group dispatch (wave_compose): each query's bands run as a chain of "
-        "power-of-two band groups handing the band carry on, the same scores",
-    )
-    p.add_argument(
         "--prefilter",
         type=float,
         default=None,
@@ -155,7 +149,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             use_wave=args.wave,
             top_k=args.top_k,
             evalue=args.evalue,
-            wave_compose=args.compose,
             prefilter=args.prefilter,
             mesh_shape=(args.mesh,),
             query_shard=args.query_shard,

@@ -6,12 +6,15 @@ or a device top-K, E-values, and the alignment traceback; and swtpu's
 row-parallel scoring family (``use_wave=False``, ``score_dtype="int16"``):
 ladder and segment packing, the int32, fast16, seg16 and int16-parity
 scorers with their exact rescore, and the CUDA kernels K2 and K3 behind
-``use_pallas``; composed band-group dispatch (``wave_compose``); the
-k-mer prefilter (``prefilter``), whose coarse pass is the CUDA kernel of
-``ops.int8_mma``; and multi-device search (``mesh_shape``, ``query_shard``:
-swtpu_torch.parallel) on every one of those paths, and across processes
-(``parallel.distributed``).  The TPU-only ``interpret`` and
-``wave_unroll_block`` have no counterpart.
+``use_pallas``; the k-mer prefilter (``prefilter``), whose coarse pass is
+the CUDA kernel of ``ops.int8_mma``; and multi-device search
+(``mesh_shape``, ``query_shard``: swtpu_torch.parallel) on every one of
+those paths, and across processes (``parallel.distributed``).  The
+TPU-only ``interpret`` and ``wave_unroll_block`` have no counterpart, nor
+has composed band-group dispatch: swtpu chains a query's bands as
+power-of-two rungs to bound its compiled kernels, and the CUDA kernel takes
+any shape, so on the card the chain would only add launches and carry
+traffic.
 """
 
 from __future__ import annotations
@@ -77,17 +80,6 @@ class SWConfig:
     # scorers (swtpu's XLA family) on the card too.
     use_pallas: Optional[bool] = None
 
-    # --- composed band-group dispatch (implemented) -----------------------------
-    # Score a query on a resident wavefront pack as a chain of power-of-two
-    # band groups (up to 128 bands), each launch handing its bottom-row carry
-    # to the next (sw_wave top_in/return_carry), instead of one launch per
-    # bucket over all bands.  swtpu uses it to bound its compiled kernels to
-    # O(log) rungs; the CUDA kernel takes any shape, so on the card it costs
-    # the extra launches and carry traffic and buys no compile time.
-    # search_many serves a piece through the composed per-query chains until
-    # warmup_many_background has run its fused shape.
-    wave_compose: bool = False
-
     # --- heuristic prefilter (implemented) ------------------------------------
     # A k-mer coarse pass (swtpu_torch.ops.prefilter) scores the whole
     # database in one int8 product, then only the top ``prefilter`` fraction
@@ -133,11 +125,6 @@ class SWConfig:
             raise ValueError("device_resident_cells must be >= 0")
         if self.top_k is not None and self.top_k < 1:
             raise ValueError("top_k must be >= 1 (None for the full score array)")
-        if self.wave_compose and self.query_shard:  # swtpu's error, before the later-slice check
-            raise ValueError(
-                "wave_compose is incompatible with query_shard: both own the "
-                "kernel's band-carry chain (query_shard ships it between devices)"
-            )
         if self.prefilter is not None:
             if not (0.0 < self.prefilter <= 1.0):
                 raise ValueError(f"prefilter must be a fraction in (0, 1] (got {self.prefilter})")

@@ -24,15 +24,11 @@ Serving paths beside the single search:
   rows transfer; with ``SWConfig.evalue`` the null distribution's moments
   reduce there too, in int64;
 * with ``SWConfig.prefilter`` ``search`` and ``search_many`` run the k-mer
-  prefilter: one int8 coarse launch (``ops.int8_mma``) ranks the database
-  against its signature index (built on the card once a database), and
-  the top candidates are gathered on the device and scored exactly;
-* with ``SWConfig.wave_compose`` a query on a resident pack runs as a chain
-  of power-of-two band groups, each launch handing its band carry to the
-  next (the kernel's hand-off mode), and ``search_many`` serves a piece
-  through those chains until ``warmup_many_background`` has run its fused
-  shape; ``warmup`` and ``warmup_background`` run each shape a batch needs
-  once, ahead of it;
+  prefilter through one body (a search is a batch of one): one int8 coarse
+  launch (``ops.int8_mma``) ranks the batch against the database's
+  signature index (built on the card once a database), and each query's
+  top candidates are gathered on the device and scored exactly;
+* ``warmup`` runs each shape a batch needs once, ahead of it;
 * with ``SWConfig.mesh_shape = (n,)`` the engine runs on a mesh of n
   devices (swtpu_torch.parallel): every wave bucket's lanes shard
   contiguously over the devices, each shard's launches run on its own
@@ -57,9 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import logging
 import math
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
@@ -264,11 +258,6 @@ class SearchEngine:
             dict(gap_open=config.gap_open, gap_extend=config.gap_extend) if self._affine else dict(gap=config.gap_penalty)
         )
         self._wave_enabled = self._resolve_wave()
-        if config.wave_compose and not self._wave_enabled:
-            raise ValueError(
-                "wave_compose requires the wavefront path: leave use_wave at None or True "
-                "and score_dtype at 'int32'"
-            )
         if self._affine and not self._wave_enabled:
             raise ValueError(
                 "affine gaps (gap_open/gap_extend) run on the wavefront kernel only: "
@@ -288,13 +277,6 @@ class SearchEngine:
         # running totals (wave_sw.rescore_counter) copied to the host before a
         # path's launches and again before the sync it makes anyway.
         self.rescored_lanes = 0
-        # Composed serving: fused single-query profile rows (_fused_key) and
-        # fused (qpad, Q) piece shapes that warmup_background and
-        # warmup_many_background have run; those leave the composed route.
-        self._fused_warm: set = set()
-        self._fused_many_warm: set = set()
-        self._warmup_bg_error: Optional[BaseException] = None  # a background warmer's failure
-        self._warmup_many_bg_error: Optional[BaseException] = None
         # The prefilter's per-database state (signatures and residues on the
         # device, the E-value sample), the long route's matrix table and the
         # exact engine.
@@ -780,24 +762,21 @@ class SearchEngine:
                 out.append(torch.cat([x.to(self.device, non_blocking=True) for x in shards], dim=1))
         return out
 
-    def _scored(self, profile: torch.Tensor, packed: PackedDatabase, compose: bool = False) -> List[List[torch.Tensor]]:
+    def _scored(self, profile: torch.Tensor, packed: PackedDatabase) -> List[List[torch.Tensor]]:
         """One query's scores against a resident pack, per shard
-        (``_score_shards``): through the composed chain with ``compose``,
-        through the query-band pipeline under query_shard, else one launch
-        per bucket, or on the row path its scorers, gathered on the primary
-        (one shard)."""
-        if compose:
-            return self._composed_outs(profile, packed)
+        (``_score_shards``): through the query-band pipeline under
+        query_shard, else one launch per bucket, or on the row path its
+        scorers, gathered on the primary (one shard)."""
         if self._qshard:
             return [[self._query_sharded(profile, g) for g in packed.wave_groups]]
         if self._wave_enabled:
             return self._packed_outs(profile, packed.wave_groups)
         return [[self._row_step(profile, packed)]]
 
-    def _flat(self, profile: torch.Tensor, packed: PackedDatabase, compose: bool = False) -> torch.Tensor:
+    def _flat(self, profile: torch.Tensor, packed: PackedDatabase) -> torch.Tensor:
         """One query's flat scores against a resident pack, on the primary
         device (``_scored``, gathered)."""
-        return self._gather(self._scored(profile, packed, compose), profile)
+        return self._gather(self._scored(profile, packed), profile)
 
     def _query_sharded(self, profile: torch.Tensor, group) -> torch.Tensor:
         """One bucket's scores through the query-band pipeline: device k
@@ -1074,12 +1053,18 @@ class SearchEngine:
 
     # --- single search --------------------------------------------------------------
 
-    def _profile(self, query: Query, compose: bool = False) -> torch.Tensor:
-        """A single search's (qpad, 32) profile on the device: ``_fused_key``
-        rows, or for a composed chain exactly padded to the wave band
-        whatever ``query_ladder`` says (swtpu's _composed_flat)."""
-        rows = -(-max(query.length, 1) // wave_sw.W) * wave_sw.W if compose else self._fused_key(query)
-        return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=rows))
+    def _fused_key(self, q: Query) -> int:
+        """Rows of a query's single-search profile (one launch a bucket): the
+        shape ``warmup`` runs.  Under query_shard the band quantum is W x n,
+        so that every device owns as many whole bands."""
+        if not self._wave_enabled:
+            return self._query_pad(q.length, self.config.query_strip)
+        return self._query_pad(q.length, wave_sw.W * (self.mesh.size if self._qshard else 1))
+
+    def _profile(self, query: Query) -> torch.Tensor:
+        """A single search's (qpad, 32) profile on the device, of
+        ``_fused_key`` rows."""
+        return self._upload(make_profile(query.residues, self.matrix, pad_rows_to=self._fused_key(query)))
 
     def search_packed(
         self, query: Query, db: Database, packed: PackedDatabase, skip_device_topk: bool = False,
@@ -1101,8 +1086,7 @@ class SearchEngine:
         # top-K, as in swtpu (whose collective top-K is lane sharding's).
         device_topk = cfg.top_k is not None and not skip_device_topk and packed.wave_groups and not self._qshard
         with timer.phase("plan"):
-            compose = self._compose_for(query, packed)
-            profile = self._profile(query, compose)
+            profile = self._profile(query)
             setup = self._topk_setup(db, packed) if device_topk else None
         cells = profile.shape[0] * packed.total_cells
         launches0 = self._launches()
@@ -1112,7 +1096,7 @@ class SearchEngine:
                 with timer.phase("enqueue"):
                     rescores0 = self._rescore_fetch()
                     t0 = self._mark()
-                    vals, ids, moms = self._topk_of(self._scored(profile, packed, compose), setup)
+                    vals, ids, moms = self._topk_of(self._scored(profile, packed), setup)
                     t1 = self._mark()
                 with timer.phase("transfer"):
                     vals, ids, moms = (None if x is None else self._to_host(x) for x in (vals, ids, moms))
@@ -1133,7 +1117,7 @@ class SearchEngine:
             with timer.phase("enqueue"):
                 rescores0 = self._rescore_fetch()
                 t0 = self._mark()
-                flat = self._flat(profile, packed, compose)
+                flat = self._flat(profile, packed)
                 t1 = self._mark()
             self._wait(t1)
             device_seconds = self._seconds(t0, t1)
@@ -1218,21 +1202,10 @@ class SearchEngine:
         cell-proportional shares of the piece (``SearchMetrics.attributed``).
         Each piece is the span ``swtpu.piece``; each query's ``phases`` are
         its piece's (plan, enqueue, transfer: the whole piece's seconds)
-        and its own.
-
-        With ``wave_compose``, a piece whose (qpad, Q) shape
-        ``warmup_many_background`` has not run yet is served per query
-        through the composed chains (``search_queued``) instead."""
-        cfg = self.config
+        and its own."""
         out: List[Optional[SearchResult]] = [None] * len(queries)
-        topk = cfg.top_k is not None
-        setup = self._topk_setup(db, packed) if topk else None
-        compose = self._compose_active(packed)
+        setup = self._topk_setup(db, packed) if self.config.top_k is not None else None
         for qpad, piece in self._query_pieces(queries):
-            if compose and (qpad, len(piece)) not in self._fused_many_warm:
-                for i, res in zip(piece, self.search_queued([queries[i] for i in piece], db, packed=packed)):
-                    out[i] = res
-                continue
             with span("swtpu.piece"):
                 for i, res in zip(piece, self._serve_piece(queries, db, packed, qpad, piece, setup)):
                     out[i] = res
@@ -1292,9 +1265,7 @@ class SearchEngine:
         Queries of equal padded length (the serving ladder in auto mode)
         fold into the kernel's query axis and share one launch per bucket;
         the reference's Performance suite runs 17 queries back to back
-        (test/swissprot_tests.cpp:99-115), here they share launches.  Under
-        ``wave_compose`` a piece whose shape ``warmup_many_background`` has
-        not run is served through the composed per-query chains.  A
+        (test/swissprot_tests.cpp:99-115), here they share launches.  A
         database that cannot be resident streams, every query scored against
         each bucket upload.  With ``config.prefilter`` one coarse launch
         scores the whole batch and the exact phases sync once
@@ -1338,8 +1309,7 @@ class SearchEngine:
         back on the current stream, then sync once for the whole batch.
 
         Unlike :meth:`search_many` on the wavefront path, each query keeps
-        its own launches (any length mix, exact padding), through the
-        composed chain where ``_compose_for`` says so.  With
+        its own launches (any length mix, exact padding).  With
         ``config.top_k`` each query's launches end in the device top-K and
         only candidate rows transfer.  Per-query times are cell-proportional
         shares (``SearchMetrics.attributed``).  ``plan`` as in
@@ -1365,9 +1335,8 @@ class SearchEngine:
             rescores0 = self._rescore_fetch()
             t0 = self._mark()
             for q in queries:
-                compose = self._compose_for(q, packed)
-                profile = self._profile(q, compose)
-                outs = self._scored(profile, packed, compose)
+                profile = self._profile(q)
+                outs = self._scored(profile, packed)
                 fetched = self._topk_of(outs, setup) if topk else (self._gather(outs, profile),)
                 # Each query's copy streams while later queries compute.
                 pending.append((profile, [None if x is None else self._to_host(x) for x in fetched]))
@@ -1396,91 +1365,6 @@ class SearchEngine:
                 results.append(self._attach_null(SearchResult(scores=scores, metrics=metrics), q, db))
         return results
 
-    # --- composed band-group dispatch ---------------------------------------------------
-
-    # Largest band group of a composed chain (swtpu's COMPOSE_MAX_RUNG): 128
-    # bands = 4,096 query rows a launch; the longest suite query (4,548 aa,
-    # 143 bands) composes as 128+8+4+2+1.
-    COMPOSE_MAX_RUNG = 128
-
-    @staticmethod
-    def _compose_groups(n_bands: int) -> Tuple[int, ...]:
-        """Greedy binary decomposition of a band count into power-of-two
-        group sizes <= COMPOSE_MAX_RUNG (largest first, in band order)."""
-        if n_bands < 1:
-            raise ValueError("n_bands must be >= 1")
-        out = []
-        rem = n_bands
-        while rem:
-            out.append(min(SearchEngine.COMPOSE_MAX_RUNG, 1 << (rem.bit_length() - 1)))
-            rem -= out[-1]
-        return tuple(out)
-
-    def _compose_active(self, packed: Optional[PackedDatabase]) -> bool:
-        """Composed dispatch applies: enabled, and a pack on the device
-        with wave buckets (the carry hand-off is a wavefront-kernel mode;
-        ``wave_compose`` is refused off the wavefront path)."""
-        return self.config.wave_compose and packed is not None and bool(packed.wave_groups)
-
-    def _fused_key(self, q: Query) -> int:
-        """Rows of a query's fused (one launch a bucket) profile: the shape
-        warmup_background runs and marks warm, and _compose_for checks.
-        Under query_shard the band quantum is W x n, so that every device
-        owns as many whole bands."""
-        if not self._wave_enabled:
-            return self._query_pad(q.length, self.config.query_strip)
-        return self._query_pad(q.length, wave_sw.W * (self.mesh.size if self._qshard else 1))
-
-    def _compose_for(self, q: Query, packed: Optional[PackedDatabase]) -> bool:
-        """Tiered routing: compose unless warmup_background has run this
-        query's fused shape."""
-        return self._compose_active(packed) and self._fused_key(q) not in self._fused_warm
-
-    def _chain_bytes(self, groups) -> int:
-        """Device bytes of one composed chain's carries, all held at once:
-        a full carry for every bucket (4 bytes a column and lane, 8 affine)."""
-        return sum(wave_sw.carry_bytes(1, g.n_segs, g.seg_cols, g.lanes, self._affine, hand_off=True) for g in groups)
-
-    def _composed_outs(self, profile: torch.Tensor, packed: PackedDatabase) -> List[List[torch.Tensor]]:
-        """One query's per-shard scores (``_packed_outs``' layout) through
-        the composed chain: for each band group of ``_compose_groups`` in
-        band order, one hand-off launch per bucket and lane shard in plan
-        order, each consuming and rewriting its shard's carry in place (a
-        carry never leaves its shard's device), and the running max of the
-        groups' scores.  The chain holds every carry at once; past the
-        scratch share of a device's free memory it raises (swtpu does not
-        split a chain either)."""
-        groups = packed.wave_groups
-        need: dict = {}
-        for g in groups:
-            for part in g.parts:
-                need[part.device] = need.get(part.device, 0) + wave_sw.carry_bytes(
-                    1, g.n_segs, g.seg_cols, part.shape[1], self._affine, hand_off=True
-                )
-        for dev, nbytes in need.items():
-            budget = scratch_budget_bytes(dev)
-            if budget is not None and nbytes > budget:
-                raise torch.cuda.OutOfMemoryError(
-                    f"a composed chain holds {nbytes} bytes of band carries on {dev}, over the scratch share of {budget}"
-                )
-        profiles = self._replicas(profile)
-        carries = {(id(g), k): wave_sw.virgin_carry(part, self._affine) for g in groups for k, part in enumerate(g.parts)}
-        outs: Optional[List[List[torch.Tensor]]] = None
-        band = 0
-        for rung in self._compose_groups(profile.shape[0] // wave_sw.W):
-            lo, hi = band * wave_sw.W, (band + rung) * wave_sw.W
-            band += rung
-
-            def launch(k, g, part):
-                scores, carries[(id(g), k)] = wave_sw.sw_wave(
-                    profiles[k][lo:hi], part, carries[(id(g), k)], n_segs=g.n_segs, return_carry=True, **self._gaps
-                )
-                return scores
-
-            step = self._score_shards(groups, launch)
-            outs = step if outs is None else [[torch.maximum(a, b) for a, b in zip(x, y)] for x, y in zip(outs, step)]
-        return outs
-
     # --- warmups ------------------------------------------------------------------------
 
     def warmup(
@@ -1488,8 +1372,7 @@ class SearchEngine:
     ) -> float:
         """Run, from a thread pool, one real search dispatch for every
         distinct shape ``queries`` will need, ahead of them; returns the
-        seconds spent.  A shape is a band-group rung under composition (a
-        dummy query of exactly that many bands), else a fused profile's rows
+        seconds spent.  A shape is a single-search profile's rows
         (``_fused_key``); with ``top_k`` the dispatch ends in the device
         top-K, as the searches will.  On the card the first dispatch builds
         or loads the kernel library, and any one packs the database resident
@@ -1503,23 +1386,12 @@ class SearchEngine:
             return 0.0
         t0 = time.perf_counter()
         seen: dict = {}
-        if self._compose_active(packed):
-            rng = np.random.default_rng(0)
-            for q in queries:
-                for g in self._compose_groups(-(-max(q.length, 1) // wave_sw.W)):
-                    if g not in seen:
-                        seen[g] = Query(f"_warm{g}", rng.integers(0, 25, g * wave_sw.W).astype(np.int8), "")
-            # Each composed chain in flight holds a full carry set (~0.9 GB
-            # linear at SwissProt scale): at most ~3 GB of them at once.
-            threads = max(1, min(threads, int(3e9 // max(self._chain_bytes(packed.wave_groups), 1))))
-        else:
-            for q in queries:
-                seen.setdefault(self._fused_key(q), q)
+        for q in queries:
+            seen.setdefault(self._fused_key(q), q)
         setup = self._topk_setup(db, packed) if self.config.top_k is not None and packed.wave_groups else None
 
         def fire(q: Query) -> None:
-            compose = self._compose_for(q, packed)
-            outs = self._scored(self._profile(q, compose), packed, compose)
+            outs = self._scored(self._profile(q), packed)
             if setup is not None:
                 self._topk_of(outs, setup)
             self._sync()  # this thread's streams: the dispatch has run
@@ -1527,88 +1399,6 @@ class SearchEngine:
         with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
             list(ex.map(fire, seen.values()))  # raises the first worker's exception
         return time.perf_counter() - t0
-
-    def _spawn_warmer(self, fire, items, error_attr: str, threads: int) -> threading.Thread:
-        """A daemon thread running ``fire`` over ``items`` from a pool.  A
-        failure is kept on ``error_attr`` (one slot a warmer, so the single
-        and batched warmers keep their own) and logged, never raised into
-        serving, which stays on the composed route.  A warmer launches on
-        its threads' current stream (the default stream), beside the serving
-        thread's launches: launch counts read while it runs are not exact."""
-
-        def worker():
-            try:
-                with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
-                    list(ex.map(fire, items))
-            except Exception as e:  # never crash serving from the warmer
-                setattr(self, error_attr, e)
-                logging.getLogger(__name__).warning(
-                    "background fused warmup failed (serving stays on the composed path): %s", e
-                )
-
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
-        return t
-
-    def _warm_step(self, profile: torch.Tensor, groups, setup) -> None:
-        """A background warmer's fused dispatch: the full flat array, or
-        with ``setup`` the device top-K, as the searches it warms end."""
-        if setup is None:
-            self._packed_step(profile, groups)
-        else:
-            self._topk_of(self._packed_outs(profile, groups), setup)
-
-    def warmup_background(
-        self, queries: List[Query], db: Database, plan: Optional[BatchPlan] = None, threads: int = 8
-    ) -> threading.Thread:
-        """Tiered serving: run each query's fused shape (``_fused_key``, and
-        its device top-K with ``top_k``) in a daemon thread while the
-        composed route serves, and move each shape off the composed route
-        (``_fused_warm``) once it has run.  Returns the thread (``join()``
-        it; a failure is kept on ``_warmup_bg_error``).  Does nothing when
-        composition is not active for this database.  ``plan`` as in
-        :meth:`search`."""
-        packed = self._resident_packed(db, plan)
-        if not self._compose_active(packed) or not queries:
-            return self._spawn_warmer(lambda item: None, (), "_warmup_bg_error", 1)
-        seen: dict = {}
-        for q in queries:
-            seen.setdefault(self._fused_key(q), q)
-        setup = self._topk_setup(db, packed) if self.config.top_k is not None else None
-
-        def fire(item) -> None:
-            key, q = item
-            self._warm_step(self._profile(q), packed.wave_groups, setup)
-            self._sync()
-            self._fused_warm.add(key)
-
-        return self._spawn_warmer(fire, list(seen.items()), "_warmup_bg_error", threads)
-
-    def warmup_many_background(
-        self, queries: List[Query], db: Database, plan: Optional[BatchPlan] = None, threads: int = 4
-    ) -> threading.Thread:
-        """Tiered batched serving: run the fused multi-query shape of every
-        (qpad, Q) piece ``search_many`` cuts from ``queries`` (with its
-        device top-K under ``top_k``) in a daemon thread while the composed
-        per-query chains serve, and move each piece shape onto its folded
-        launches (``_fused_many_warm``) once it has run.  The batched
-        analogue of :meth:`warmup_background`, with its own error slot
-        (``_warmup_many_bg_error``).  ``plan`` as in :meth:`search`."""
-        packed = self._resident_packed(db, plan)
-        if not self._compose_active(packed) or not queries:
-            return self._spawn_warmer(lambda item: None, (), "_warmup_many_bg_error", 1)
-        seen: dict = {}
-        for qpad, piece in self._query_pieces(queries):
-            seen.setdefault((qpad, len(piece)), (qpad, [queries[i] for i in piece]))
-        setup = self._topk_setup(db, packed) if self.config.top_k is not None else None
-
-        def fire(item) -> None:
-            key, (qpad, qs) = item
-            self._warm_step(self._piece_profiles(qs, qpad, list(range(len(qs)))), packed.wave_groups, setup)
-            self._sync()
-            self._fused_many_warm.add(key)
-
-        return self._spawn_warmer(fire, list(seen.items()), "_warmup_many_bg_error", threads)
 
     # --- the k-mer prefilter ----------------------------------------------------------------
 
@@ -1663,65 +1453,76 @@ class SearchEngine:
         return min(max(int(np.ceil(cfg.prefilter * n)), min(cfg.prefilter_min_candidates, n), 4 * cfg.top_k), n)
 
     def _search_prefiltered(self, query: Query, db: Database) -> SearchResult:
-        """Two-phase heuristic search (``ops.prefilter``): the int8 coarse
-        pass over k-mer signatures, then an exact rescore of the top
-        candidates.  Hits are exact SW scores with file-order ids; ``scores``
-        is None (most of the array was never computed).  Device seconds are
-        the coarse pass's span plus the exact phase's."""
+        """Two-phase heuristic search of one query: ``_search_many_prefiltered``
+        on a batch of one, its times its own (not ``attributed``)."""
+        return self._search_many_prefiltered([query], db, attributed=False)[0]
+
+    def _search_many_prefiltered(self, queries: List[Query], db: Database, attributed: bool = True) -> List[SearchResult]:
+        """Two-phase heuristic search (``ops.prefilter``), the one body of
+        ``search`` and ``search_many`` under ``config.prefilter``: one int8
+        coarse launch ranks the batch against the resident signatures
+        (``_coarse_rank``), each query's candidates are merged
+        (``_prefilter_candidates``) and its exact rescore enqueued
+        (``_prefilter_exact_enqueue``), and one sync drains them.  A query
+        whose candidates are the whole database (no k-mer, no shared bucket,
+        or a candidate set that covers it), and every query off the
+        wavefront path, is scored over its candidates by the exact engine
+        (``_prefilter_exhaustive``).  Hits are exact SW scores with
+        file-order ids; ``scores`` is None (most of the array was never
+        computed).  Device seconds are the coarse pass's span plus the exact
+        phases'; with ``attributed`` a query's times are its cell-proportional
+        share of the batch's."""
         cfg = self.config
-        timer = PhaseTimer()
         t_start = time.perf_counter()
+        timer = PhaseTimer()
         launches0 = self._launches()
         with timer.phase("prefilter_signatures"):
             sig, pop, _, _ = self._prefilter_signatures(db)
-            qsig = pf.signature(query.residues)
-        coarse_s = 0.0
-        packed = None
+            qsigs = np.stack([pf.signature(q.residues) for q in queries])
+        n_cand = self._n_cand(db.n)
         # A degenerate signal (a query shorter than K, an empty database)
-        # falls back to exhaustive candidates rather than arbitrary hits.
-        if db.n and qsig.any():
-            n_cand = self._n_cand(db.n)
-            packed, coarse_s = self._coarse_rank(sig, pop, self._upload(qsig[None]), n_cand, timer)
-            packed = packed[0]
-        with timer.phase("prefilter_merge"):
-            # No shared bucket anywhere (every subject shorter than K): no
-            # signal either, and ranking by it would pick an id prefix.
-            if packed is not None and int(packed[2, 0]) != 0:
-                cand = pf.merge_candidates(packed[0], packed[1], n_cand)
+        # takes exhaustive candidates rather than arbitrary hits.
+        good = [i for i in range(len(queries)) if db.n and qsigs[i].any()]
+        ranked, device_seconds = {}, 0.0
+        if good:
+            packed, device_seconds = self._coarse_rank(sig, pop, self._upload(qsigs[good]), n_cand, timer)
+            ranked = dict(zip(good, packed))
+        scored, pend = {}, []
+        for qi, q in enumerate(queries):
+            with timer.phase("prefilter_merge"):
+                cand = self._prefilter_candidates(ranked.get(qi), n_cand, db)
+            if self._wave_enabled and cand.shape[0] < db.n:
+                flat, jobs, cells, marks = self._prefilter_exact_enqueue(q, db, cand, timer)
+                pend.append((qi, self._to_host(flat), jobs, cells, marks))
             else:
-                cand = np.arange(db.n, dtype=np.int64)
-            if cfg.evalue:
-                # Null calibration: a fixed random sample is scored exactly
-                # too, for an unbiased sampled fit.
-                cand = np.union1d(cand, self._evalue_sample(db))
-        null = None
-        k = min(cfg.top_k, int(cand.shape[0]))
-        n_long = 0
-        if self._wave_enabled and cand.shape[0] < db.n:
-            hits, dev_s, cells, ids_sc, sc, n_long = self._prefilter_exact_hits(query, db, cand, k, timer)
-            if cfg.evalue:
+                scores, cells, dev_s = self._prefilter_exhaustive(q, db, cand, timer)
+                scored[qi] = (cand, scores, cells, 0)
+                device_seconds += dev_s
+        self._sync()  # the one sync of the batch's exact phases
+        for qi, host, jobs, cells, marks in pend:
+            ids, scores = self._prefilter_exact_scores(host, jobs)
+            scored[qi] = (ids, scores, cells, self._long_candidates(jobs))
+            device_seconds += self._seconds(*marks)
+        nulls = {}
+        if cfg.evalue:
+            for qi, (ids, scores, _, _) in sorted(scored.items()):
                 with timer.phase("prefilter_null"):
-                    null = self._null_from_sample(query, db, ids_sc, sc)
-        else:
-            # The row path, and the exhaustive fallback, ride the exact engine.
-            with timer.phase("prefilter_gather"):
-                sub = db.take(cand)
-            sub_result = self._exact_engine()._search_exhaustive(query, sub)
-            # Candidate ids ascend, so the sub-engine's id-ascending
-            # tie-break maps straight onto file-order ids.
-            hits = [(int(cand[i]), s) for i, s in sub_result.top_k(k)]
-            dev_s = sub_result.metrics.device_seconds
-            cells = sub_result.metrics.packed_cells
-            timer.phases.update(sub_result.metrics.phases)
-            if cfg.evalue:
-                with timer.phase("prefilter_null"):
-                    null = self._null_from_sample(query, db, cand, np.asarray(sub_result.scores))
-        metrics = self._metrics(
-            query, db, cells, time.perf_counter() - t_start, coarse_s + dev_s,
-            phases=dict(timer.phases), kernel_launches=self._launches() - launches0,
-            prefilter_candidates=int(cand.shape[0]), long_candidates=n_long,
-        )
-        return SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
+                    nulls[qi] = self._null_from_sample(queries[qi], db, ids, scores)
+        wall = time.perf_counter() - t_start
+        launches = self._launches() - launches0
+        total_cells = max(sum(r[2] for r in scored.values()), 1)
+        out = []
+        for qi, q in enumerate(queries):
+            ids, scores, cells, n_long = scored[qi]
+            share = cells / total_cells if attributed else 1.0
+            metrics = self._metrics(
+                q, db, cells, wall * share, device_seconds * share,
+                phases=dict(timer.phases), attributed=attributed, kernel_launches=launches,
+                prefilter_candidates=int(ids.shape[0]), long_candidates=n_long,
+            )
+            hits = self._hits_from(ids, scores, min(cfg.top_k, int(ids.shape[0])))
+            out.append(SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=nulls.get(qi)))
+        return out
 
     def _coarse_rank(self, sig, pop, qsigs: torch.Tensor, n_cand: int, timer):
         """The coarse pass of (Q, DIM) query signatures on the device: K7's
@@ -1739,75 +1540,31 @@ class SearchEngine:
             packed = packed.cpu().numpy()
         return packed, self._seconds(t0, t1)
 
-    def _search_many_prefiltered(self, queries: List[Query], db: Database) -> List[SearchResult]:
-        """Batched heuristic serving: one coarse launch scores the whole
-        batch against the resident signatures, every query's exact phase is
-        enqueued, and one sync drains them.  Degenerate queries (no k-mer,
-        no shared bucket) take the single path; off the wavefront path, or
-        when the candidates are the whole database, every query does.
-        Per-query times are cell-proportional shares of the batch."""
-        cfg = self.config
-        n_cand = self._n_cand(db.n)
-        if not self._wave_enabled or n_cand >= db.n:
-            return [self._search_prefiltered(q, db) for q in queries]
-        t_start = time.perf_counter()
-        timer = PhaseTimer()
-        launches0 = self._launches()
-        with timer.phase("prefilter_signatures"):
-            sig, pop, _, _ = self._prefilter_signatures(db)
-            qsigs = np.stack([pf.signature(q.residues) for q in queries])
-        out: List[Optional[SearchResult]] = [None] * len(queries)
-        good = [i for i in range(len(queries)) if qsigs[i].any()]
-        for i in sorted(set(range(len(queries))) - set(good)):
-            out[i] = self._search_prefiltered(queries[i], db)
-        if not good:
-            return out  # type: ignore[return-value]
-        packed, device_seconds = self._coarse_rank(sig, pop, self._upload(qsigs[good]), n_cand, timer)
-        pend = []
-        for row, qi in enumerate(good):
-            if int(packed[row, 2, 0]) == 0:  # no shared bucket anywhere
-                out[qi] = self._search_prefiltered(queries[qi], db)
-                continue
-            with timer.phase("prefilter_merge"):
-                cand = pf.merge_candidates(packed[row, 0], packed[row, 1], n_cand)
-                if cfg.evalue:
-                    cand = np.union1d(cand, self._evalue_sample(db))
-            flat, jobs, cells, marks = self._prefilter_exact_enqueue(queries[qi], db, cand, timer)
-            pend.append((qi, self._to_host(flat), jobs, cells, marks, min(cfg.top_k, int(cand.shape[0]))))
-        self._sync()  # the one sync of the batch's exact phases
-        resolved = []
-        for qi, host, jobs, cells, marks, k in pend:
-            ids, scores = self._prefilter_exact_scores(host, jobs)
-            null = None
-            if cfg.evalue:
-                with timer.phase("prefilter_null"):
-                    null = self._null_from_sample(queries[qi], db, ids, scores)
-            resolved.append((qi, self._hits_from(ids, scores, k), cells, null, int(ids.shape[0]),
-                             self._long_candidates(jobs)))
-            device_seconds += self._seconds(*marks)
-        wall = time.perf_counter() - t_start
-        launches = self._launches() - launches0
-        total_cells = max(sum(r[2] for r in resolved), 1)
-        for qi, hits, cells, null, scored, n_long in resolved:
-            share = cells / total_cells
-            metrics = self._metrics(
-                queries[qi], db, cells, wall * share, device_seconds * share,
-                phases=dict(timer.phases), attributed=True, kernel_launches=launches, prefilter_candidates=scored,
-                long_candidates=n_long,
-            )
-            out[qi] = SearchResult(scores=None, metrics=metrics, hits=hits, null_stats=null)
-        return out  # type: ignore[return-value]
+    def _prefilter_candidates(self, ranked: Optional[np.ndarray], n_cand: int, db: Database) -> np.ndarray:
+        """A query's ascending candidate ids: the merge of its (3, n_cand)
+        coarse ranking, or every id when it has no signal (no ranking, or no
+        bucket shared with any subject: ranking by it would pick an id
+        prefix), then with ``evalue`` the union with the calibration sample,
+        which is scored exactly too for an unbiased sampled fit."""
+        if ranked is not None and int(ranked[2, 0]) != 0:
+            cand = pf.merge_candidates(ranked[0], ranked[1], n_cand)
+        else:
+            cand = np.arange(db.n, dtype=np.int64)
+        if self.config.evalue:
+            cand = np.union1d(cand, self._evalue_sample(db))
+        return cand
 
-    def _prefilter_exact_hits(self, query: Query, db: Database, cand: np.ndarray, k: int, timer):
-        """Exact rescore of a candidate id set: (hits, device seconds,
-        packed cells, ids, scores, candidates on the long route), hits in
-        (score desc, id asc) order, (ids, scores) the whole rescored set (the
-        E-value calibration sample lies inside it)."""
-        flat, jobs, cells, span = self._prefilter_exact_enqueue(query, db, cand, timer)
-        host = self._to_host(flat)
-        self._sync()
-        ids, scores = self._prefilter_exact_scores(host, jobs)
-        return self._hits_from(ids, scores, k), self._seconds(*span), cells, ids, scores, self._long_candidates(jobs)
+    def _prefilter_exhaustive(self, query: Query, db: Database, cand: np.ndarray, timer):
+        """The exhaustive fallback, and the row path's exact phase: the
+        candidates' sub-database scored by the exact engine's search body.
+        Returns (scores in ``cand`` order, packed cells, device seconds); the
+        sub-search's phases add to ``timer``'s."""
+        with timer.phase("prefilter_gather"):
+            sub = db.take(cand)
+        sub_result = self._exact_engine()._search_exhaustive(query, sub)
+        for name, seconds in sub_result.metrics.phases.items():
+            timer.phases[name] = timer.phases.get(name, 0.0) + seconds
+        return np.asarray(sub_result.scores), sub_result.metrics.packed_cells, sub_result.metrics.device_seconds
 
     def _prefilter_exact_enqueue(self, query: Query, db: Database, cand: np.ndarray, timer):
         """Enqueue, without a sync, the exact rescore of one query's

@@ -106,7 +106,7 @@ def load(name: str, **entries: list) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (or ``.cpp``), building it
     if needed.  ``entries`` maps each C entry point to its argument ctypes;
     every one returns an int error code, which ``<name>_error_string``
-    names.  Thread-safe: the engine's warmers launch from several threads
+    names.  Thread-safe: the engine's ``warmup`` launches from several threads
     at once.  A loaded library is returned without taking the lock: it is
     published only once its entry points are bound."""
     lib = _loaded.get(name)

@@ -36,7 +36,7 @@ Three design points (rounds 4-5):
   (nonzero count, sum, sum-of-squares, the top scores) — so a device-side
   3-scalar reduction plus the already-transferred top-K candidate values
   feed the exact same fit in the serving modes that never materialise the
-  full score array (device top-K, composed, batched, prefilter).
+  full score array (device top-K, batched, prefilter).
   :func:`fit_gumbel` on a full array and :func:`fit_gumbel_stats` on its
   moments are bit-identical by construction.
 

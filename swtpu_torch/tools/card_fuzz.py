@@ -24,9 +24,9 @@ Added for the port:
 * ``main_shapes``: every (G, H) of ``wave_sw.SHAPES`` forced (``shape=``)
   in every K1 mode, on query lengths either side of each shape's pass
   boundaries (32 G k +- 1 rows), the H = 64 sweep's odd-band 32-row tail
-  and 143 bands (the suite's 4,548-residue query); B1d as
-  ``SearchEngine._compose_groups``' power-of-two rung chain from a zero
-  carry and from a seeded one;
+  and 143 bands (the suite's 4,548-residue query); B1d as a chain of
+  hand-off launches over query_shard's split of the bands at n = 4
+  (``band_split``, ``hand_off_chain``) from a zero carry and from a seeded one;
 * ``main_rows``: K2 on (C, B, L) stacks, C in {1, 2, 3, 17}, K3 (C = 1) and
   K2's fast16 clamp, every (G, H) of ``bucket_sw.SHAPES`` forced, widths 1
   to 6,000, and a self-alignment above 32,767;
@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from ..matrices import get_matrix
-from ..models.search import SearchEngine, resolve_device
+from ..models.search import resolve_device
 from ..ops import bucket_sw, oracle, row_sw, wave_sw
 from ..ops.profile import PAD_SUBJECT, make_profile
 from ..parallel.mesh import make_mesh
@@ -115,14 +115,26 @@ def seeded_carry(rng: np.random.Generator, virgin: torch.Tensor, gaps: dict) -> 
     return h.contiguous()
 
 
-def rung_chain(fn, profile, stack, carry, n_segs, gaps, **kw):
-    """A profile's bands through ``fn`` (sw_wave or sw_wave_plain) as the
-    engine's chain of power-of-two band groups, handing ``carry`` on:
-    the running max of the groups' scores and every group's (scores, carry)."""
+def band_split(n_bands: int, n: int = 4) -> Tuple[int, ...]:
+    """The band counts of a hand-off chain: ``n`` contiguous slices, as
+    ``parallel.query_shard`` splits a query's bands over n devices; where n
+    does not divide the bands the first slices take one band more, and
+    fewer bands than n give one band a slice."""
+    if n_bands < 1 or n < 1:
+        raise ValueError("n_bands and n must be >= 1")
+    k = min(n, n_bands)
+    return tuple(n_bands // k + (i < n_bands % k) for i in range(k))
+
+
+def hand_off_chain(fn, profile, stack, carry, n_segs, gaps, **kw):
+    """A profile's bands through ``fn`` (sw_wave or sw_wave_plain) as a
+    chain of hand-off launches over ``band_split``'s slices, handing
+    ``carry`` on: the running max of the slices' scores and every slice's
+    (scores, carry)."""
     best, steps, band = None, [], 0
-    for rung in SearchEngine._compose_groups(profile.shape[0] // W):
-        part = profile[band * W : (band + rung) * W]
-        band += rung
+    for size in band_split(profile.shape[0] // W):
+        part = profile[band * W : (band + size) * W]
+        band += size
         scores, carry = fn(part, stack, carry, n_segs=n_segs, return_carry=True, **gaps, **kw)
         steps.append((scores, carry.clone()))
         best = scores if best is None else torch.maximum(best, scores)
@@ -454,24 +466,24 @@ def main_shapes(n_cases: Optional[int] = None, seed: int = 999, *, device="cuda"
 
 
 def _hand_off_case(fz: Fuzz, where, rng, q, subj, lens, gaps, S, ws, lanes) -> np.ndarray:
-    """B1d at every shape: the rung chain from a zero and from a seeded
-    carry, every group's scores and carry against the plain chain's; the
+    """B1d at every shape: the hand-off chain from a zero and from a seeded
+    carry, every slice's scores and carry against the plain chain's; the
     zero chain's running max against the oracle."""
     mat = get_matrix("blosum50_ref")
     prof = fz.tensor(make_profile(q, mat, pad_rows_to=W))
     stack = fz.tensor(chain_layout(subj, S, ws, lanes))
     virgin = wave_sw.virgin_carry(stack, "gap_open" in gaps)
     starts = (virgin, seeded_carry(rng, virgin, gaps))
-    plain = [rung_chain(wave_sw.sw_wave_plain, prof, stack, c.clone(), S, gaps)[1] for c in starts] if fz.card else None
-    rungs = SearchEngine._compose_groups(prof.shape[0] // W)
+    plain = [hand_off_chain(wave_sw.sw_wave_plain, prof, stack, c.clone(), S, gaps)[1] for c in starts] if fz.card else None
+    split = band_split(prof.shape[0] // W)
     best = None
     for shape in wave_sw.SHAPES:
         for k, start in enumerate(starts):
-            run_best, steps = rung_chain(wave_sw.sw_wave, prof, stack, start.clone(), S, gaps, shape=shape)
+            run_best, steps = hand_off_chain(wave_sw.sw_wave, prof, stack, start.clone(), S, gaps, shape=shape)
             fz.count("K1", "B1d", shape, len(steps))
             best = run_best if best is None else best
             for r, (s, c) in enumerate(steps):
-                at = {**where[3], "shape": shape_key(shape), "start": ("zero", "seeded")[k], "rung": f"{r} of {rungs}"}
+                at = {**where[3], "shape": shape_key(shape), "start": ("zero", "seeded")[k], "slice": f"{r} of {split}"}
                 if fz.card:
                     fz.versus_plain((*where[:3], at), "K1", "B1d", s, plain[k][r][0])
                     fz.versus_plain((*where[:3], at), "K1", "B1d", c, plain[k][r][1])

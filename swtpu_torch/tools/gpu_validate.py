@@ -19,8 +19,6 @@ through the port's engine and kernels on ``cuda``:
                           device once == the row scorer
    9. prefilter           5% of 10k recalls five planted mutants: its top-5
                           == the exhaustive top-5
-  10. composed            composed dispatch == the scale golden
-      composed affine     composed at gaps 11/1 == fused (subset)
   11. queued top-K        search_queued with the device top-K == the
                           full-array top-5 of each query
   12. E-values            device-moment E-values vs the full-array fit:
@@ -28,7 +26,12 @@ through the port's engine and kernels on ``cuda``:
 
 swtpu's check 8 (``wave_unroll_block=16`` == full unroll) is left out: the
 unroll block is a Mosaic compile-time knob of the TPU kernel, and the port's
-config has no such field (ROADMAP.md, Rules: "Config").  Each check prints
+config has no such field (ROADMAP.md, Rules: "Config").  So are its two
+checks 10 (composed dispatch, linear and affine): the port has no composed
+dispatch, whose power-of-two rungs bound the TPU's compiled kernels and buy
+nothing on the card (ROADMAP.md, D21); the hand-off kernel mode they chain
+is fuzzed by ``card_fuzz.main_shapes`` and checked split by ``affine split``
+here.  Each check prints
 ``NAME: OK|FAIL``; the tool exits 1 if any failed.  A check that raises ends
 the run with its traceback.
 
@@ -201,15 +204,6 @@ def check_prefilter(b: Battery) -> bool:
     return pre.hits == exact5
 
 
-def check_composed(b: Battery) -> bool:
-    return bool(np.array_equal(b.engine(wave_compose=True).search(b.q, b.db10k).scores, b.golden10k))
-
-
-def check_composed_affine(b: Battery) -> bool:
-    res = b.engine(wave_compose=True, gap_open=11, gap_extend=1).search(b.q, b.db)
-    return bool(np.array_equal(res.scores, b.affine_subset))
-
-
 def check_queued_topk(b: Battery) -> bool:
     batch = [b.q, Query("m", b.q.residues[:96].copy(), "")]
     res = b.engine(top_k=5).search_queued(batch, b.db10k)
@@ -241,8 +235,6 @@ CHECKS: Tuple[Tuple[str, str, Callable[[Battery], bool]], ...] = (
     ("search_many", "batched serving == per-query (multi-query launches)", check_search_many),
     ("query_shard", "query-shard pipeline (band carry hand-off)", check_query_shard),
     ("prefilter", "prefilter (5% of 10k) recalls planted homologs", check_prefilter),
-    ("composed", "composed dispatch (rung chain) == scale golden", check_composed),
-    ("composed_affine", "composed dispatch, affine == fused affine (subset db)", check_composed_affine),
     ("queued_topk", "queued x device top-K == full-array top-5 (10k db)", check_queued_topk),
     ("evalues", "device-moment E-values == full-array fit (log-E 5%)", check_evalues),
 )

@@ -1,14 +1,18 @@
-"""Composed band-group dispatch and the warmups of the port, and the
-kernel's band-carry hand-off mode, held to swtpu on the CPU.
+"""The kernel's band-carry hand-off mode, and the fused engine on the cases
+of swtpu's composed band-group dispatch, held to swtpu on the CPU.
 
 On the CPU ``sw_wave`` runs its plain version.  Its hand-off (``top_in``,
 ``return_carry``) is held to swtpu's Pallas kernel in interpret mode, carry
 and scores, with swtpu's ``(B/Bt, L2+w, Bt)`` carry (row = column + w)
-mapped to the port's ``(n_segs * seg_cols, B)``.  The composed engine is
-held to swtpu's composed engine in interpret mode (the cases of
-tests/test_compose.py), whose results are computed once per module, and to
-the port's own fused path.  Every comparison is exact, except E-values and
-bits against swtpu (rel 0.02, the tolerance of tests/test_evalue_modes.py).
+mapped to the port's ``(n_segs * seg_cols, B)``, and chained in
+``parallel.query_shard``'s band slices (``card_fuzz.band_split``), the
+split the port runs it in.  The port has no composed dispatch (the CUDA
+kernel takes any shape): the query lengths, gaps, chained lanes, serving
+paths and warmup of tests/test_compose.py run on its fused engine, one
+launch a bucket and no hand-off, held to swtpu's engine in interpret mode,
+whose results are computed once per module.
+Every comparison is exact, except E-values and bits against swtpu (rel
+0.02, the tolerance of tests/test_evalue_modes.py).
 """
 
 import jax.numpy as jnp
@@ -30,15 +34,18 @@ from swtpu_torch.io.fasta import Query, database_from_sequences
 from swtpu_torch.models import search as tsearch
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.ops import wave_sw
+from swtpu_torch.parallel.mesh import make_mesh
+from swtpu_torch.parallel.query_shard import band_slices
+from swtpu_torch.tools.card_fuzz import band_split
 
 ALPHABET = "ARNDCQEGHILKMFPSTWYV"
-JWAVE = dict(use_wave=True, interpret=True, wave_compose=True)
+JWAVE = dict(use_wave=True, interpret=True)
 W = wave_sw.W
 MAT = blosum50_ref()
 K = 5
-LINEAR_QLENS = (20, 75, 170, 500)  # composed as (1), (2, 1), (4, 2), (16)
+LINEAR_QLENS = (20, 75, 170, 500)  # swtpu composes them as (1), (2, 1), (4, 2), (16)
 MANY_QLENS = (40, 45, 90)  # search_many pieces (64, Q=2) and (96, Q=1)
-NOVEL = 272  # 9 bands: (8, 1), both rungs of a 480-residue query's (8, 4, 2, 1)
+NOVEL = 272  # 9 bands, a length warmup has not run
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -64,8 +71,8 @@ def _both(seqs, qstrs):
 
 @pytest.fixture(scope="module")
 def linear():
-    """One database, the linear queries, and swtpu's composed scores of
-    each (one swtpu engine, so each rung compiles once)."""
+    """One database, the linear queries, and swtpu's scores of each (one
+    swtpu engine)."""
     rng = np.random.default_rng(31)
     seqs = [_seq(rng, n) for n in rng.integers(5, 700, 60)]
     lens = LINEAR_QLENS + MANY_QLENS + (NOVEL, 480)
@@ -79,16 +86,25 @@ def _engine(**kw):
     return SearchEngine(SWConfig(**kw), device="cpu")
 
 
-# --- the band-group split -------------------------------------------------------------
+# --- the band split of a hand-off chain -------------------------------------------------
 
 
-def test_compose_groups_match_swtpu():
-    assert SearchEngine.COMPOSE_MAX_RUNG == JEngine.COMPOSE_MAX_RUNG
-    for n in range(1, 401):
-        assert SearchEngine._compose_groups(n) == JEngine._compose_groups(n)
-    assert SearchEngine._compose_groups(143) == (128, 8, 4, 2, 1)  # the longest suite query, 4,548 aa
+def test_band_split_is_query_shards():
+    """Where n divides the bands, query_shard's slices; else the first
+    slices one band larger; never an empty slice."""
+    prof = torch.arange(12 * W * 32, dtype=torch.int32).reshape(12 * W, 32)
+    for n in (1, 2, 3, 4):
+        sizes = band_split(12, n)
+        assert sizes == (12 // n,) * n
+        slices = band_slices(prof, make_mesh(devices=("cpu",) * n))
+        assert [s.shape[0] // W for s in slices] == list(sizes) and torch.equal(torch.cat(slices), prof)
+    assert band_split(143) == (36, 36, 36, 35)  # the longest suite query, 4,548 aa
+    assert band_split(15) == (4, 4, 4, 3) and band_split(2) == (1, 1) and band_split(1) == (1,)
+    for n_bands in range(1, 200):
+        sizes = band_split(n_bands)
+        assert sum(sizes) == n_bands and min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
     with pytest.raises(ValueError):
-        SearchEngine._compose_groups(0)
+        band_split(0)
 
 
 # --- the kernel's hand-off mode (its plain version here) -------------------------------
@@ -181,9 +197,9 @@ def test_hand_off_matches_swtpu_interpret(top, gaps, qlen, qpad, ws, S, B, Lc):
 
 
 def _chain(prof, stack, S, kw, top_in):
-    """Run a profile's bands rung by rung in the port's split; returns the
-    running max of the scores and the final carry."""
-    groups = SearchEngine._compose_groups(prof.shape[0] // W)
+    """Run a profile's bands slice by slice in ``band_split``'s slices;
+    returns the running max of the scores, the final carry and the split."""
+    groups = band_split(prof.shape[0] // W)
     carry = top_in.clone() if top_in is not None else wave_sw.virgin_carry(stack, "gap_open" in kw)
     best, band = None, 0
     for g in groups:
@@ -196,7 +212,7 @@ def _chain(prof, stack, S, kw, top_in):
 @pytest.mark.parametrize("top", ["virgin", "seeded"])
 @pytest.mark.parametrize("gaps", ["linear", "affine"])
 def test_rung_chain_equals_one_call(top, gaps):
-    """15 bands as (8, 4, 2, 1): the chain's scores and carry are one call's."""
+    """15 bands as (4, 4, 4, 3): the chain's scores and carry are one call's."""
     affine = gaps == "affine"
     kw = dict(gap_open=10, gap_extend=2) if affine else dict(gap=2)
     rng = np.random.default_rng(15 + affine)
@@ -204,7 +220,7 @@ def test_rung_chain_equals_one_call(top, gaps):
     prof, stack = torch.from_numpy(prof), torch.from_numpy(stack)
     top_in = torch.from_numpy(_seeded_carry(rng, stack.shape[0] - W, 9, affine)) if top == "seeded" else None
     best, carry, groups = _chain(prof, stack, 3, kw, top_in)
-    assert groups == (8, 4, 2, 1)
+    assert groups == (4, 4, 4, 3)
     one_scores, one_carry = wave_sw.sw_wave(prof, stack, None if top_in is None else top_in.clone(), n_segs=3, return_carry=True, **kw)
     assert torch.equal(best, one_scores) and torch.equal(carry, one_carry)
     if top_in is None:  # a virgin chain scores what the scorer without hand-off does
@@ -268,18 +284,21 @@ def test_carry_bytes_and_virgin_carry():
     assert torch.equal(wave_sw.sw_wave(prof, stack, top, gap=2), s1) and torch.equal(top, c1)
 
 
-# --- the engine against swtpu's composed engine ----------------------------------------
+# --- the fused engine on swtpu's composed cases ---------------------------------------
 
 
 class _Spy:
-    """Records each sw_wave call: (profile rows, profile dims, bucket columns, hand-off)."""
+    """Records each sw_wave call: (profile rows, profile dims, queries, bucket
+    columns, hand-off)."""
 
     def __init__(self, monkeypatch):
         real = wave_sw.sw_wave
         self.calls = []
 
         def spy(profile, subjT, top_in=None, **kw):
-            self.calls.append((profile.shape[-2], profile.dim(), subjT.shape[0], top_in is not None or kw.get("return_carry", False)))
+            hand_off = top_in is not None or kw.get("return_carry", False)
+            n_q = profile.shape[0] if profile.dim() == 3 else 1
+            self.calls.append((profile.shape[-2], profile.dim(), n_q, subjT.shape[0], hand_off))
             return real(profile, subjT, top_in, **kw)
 
         spy.launches = spy.multi_launches = spy.affine_launches = spy.carry_launches = 0
@@ -287,34 +306,31 @@ class _Spy:
 
 
 @pytest.mark.parametrize("qlen", LINEAR_QLENS)
-def test_composed_scores_match_swtpu_and_fused(linear, qlen, monkeypatch):
+def test_fused_engine_one_launch_a_bucket_matches_swtpu(linear, qlen, monkeypatch):
+    """A length swtpu composes as several rungs: one launch a bucket over
+    every band, no hand-off, swtpu's scores."""
     queries, db, ref, _ = linear
-    eng = _engine(wave_compose=True)
+    eng = _engine()
     packed = eng._resident_packed(db)
     spy = _Spy(monkeypatch)
     res = eng.search(queries[qlen], db)
     assert np.array_equal(res.scores, ref[qlen])
-    assert np.array_equal(res.scores, _engine().search(queries[qlen], db).scores)
-    rungs = SearchEngine._compose_groups(-(-qlen // W))
-    composed = [c for c in spy.calls if c[3]]
-    assert len(composed) == len(rungs) * len(packed.wave_groups)  # rung-major, every bucket a rung
-    assert [c[0] for c in composed] == [g * W for g in rungs for _ in packed.wave_groups]
+    rows = -(-qlen // W) * W
+    assert spy.calls == [(rows, 2, 1, g.stack.shape[0], False) for g in packed.wave_groups]
 
 
-def test_composed_affine_matches_swtpu():
+def test_fused_engine_affine_matches_swtpu():
     rng = np.random.default_rng(7)
     seqs = [_seq(rng, n) for n in rng.integers(5, 300, 40)]
-    (queries, db), (jqueries, jdb) = _both(seqs, [_seq(rng, 170)])  # 6 bands: (4, 2)
+    (queries, db), (jqueries, jdb) = _both(seqs, [_seq(rng, 170)])  # 6 bands: swtpu's rungs (4, 2)
     gaps = dict(gap_open=10, gap_extend=2)
     want = JEngine(JConfig(**JWAVE, **gaps)).search(jqueries[0], jdb).scores
-    got = _engine(wave_compose=True, **gaps).search(queries[0], db).scores
-    assert np.array_equal(got, want)
-    assert np.array_equal(got, _engine(**gaps).search(queries[0], db).scores)
+    assert np.array_equal(_engine(**gaps).search(queries[0], db).scores, want)
 
 
-def test_composed_chained_lanes_match_swtpu(monkeypatch):
+def test_fused_engine_chained_lanes_match_swtpu(monkeypatch):
     """A tiny chained plan (width 64, two subjects a lane) pinned in both
-    packages: the hand-off keeps segments apart across rungs."""
+    packages: the segments of a lane stay apart over every band."""
     from swtpu.utils import bucketing as jbucketing
 
     def tiny_plan(db_, *a, **kw):
@@ -326,142 +342,76 @@ def test_composed_chained_lanes_match_swtpu(monkeypatch):
     rng = np.random.default_rng(11)
     seqs = [_seq(rng, n) for n in rng.integers(5, 30, 120)]
     (queries, db), (jqueries, jdb) = _both(seqs, [_seq(rng, 170)])
-    eng = _engine(wave_compose=True)
+    eng = _engine()
     assert [g.n_segs for g in eng._resident_packed(db).wave_groups] == [2]
     want = JEngine(JConfig(**JWAVE)).search(jqueries[0], jdb).scores
-    got = eng.search(queries[0], db).scores
-    assert np.array_equal(got, want)
-    assert np.array_equal(got, _engine().search(queries[0], db).scores)
+    assert np.array_equal(eng.search(queries[0], db).scores, want)
 
 
-def test_composed_topk_and_evalues_match_swtpu_and_fused(linear):
-    queries, db, _, (jqueries, jdb) = linear
+def test_fused_topk_and_evalues_match_swtpu(linear):
+    """The device top-K with E-values, through search and search_queued:
+    the hits of the full array and swtpu's, the same fit on both paths."""
+    queries, db, ref_scores, (jqueries, jdb) = linear
     q = queries[75]
     ref = JEngine(JConfig(**JWAVE, top_k=K, evalue=True)).search(jqueries[75], jdb)
-    eng = _engine(wave_compose=True, top_k=K, evalue=True)
-    fused = _engine(top_k=K, evalue=True)
-    for run in (lambda e: e.search(q, db), lambda e: e.search_queued([q], db)[0]):
-        got, want = run(eng), run(fused)
-        assert got.scores is None and got.hits == want.hits == ref.hits
-        assert got.top_k_stats(K) == want.top_k_stats(K)  # the same flat scores: the same fit
-        for g, r in zip(got.top_k_stats(K), ref.top_k_stats(K)):
-            assert (g.id, g.score) == (r.id, r.score)
-            assert g.evalue == pytest.approx(r.evalue, rel=0.02) and g.bits == pytest.approx(r.bits, rel=0.02)
+    eng = _engine(top_k=K, evalue=True)
+    full = tsearch.SearchResult(scores=ref_scores[75], metrics=None).top_k(K)
+    got, queued = eng.search(q, db), eng.search_queued([q], db)[0]
+    for res in (got, queued):
+        assert res.scores is None and res.hits == full == ref.hits
+    assert got.top_k_stats(K) == queued.top_k_stats(K)  # the same flat scores: the same fit
+    for g, r in zip(got.top_k_stats(K), ref.top_k_stats(K)):
+        assert (g.id, g.score) == (r.id, r.score)
+        assert g.evalue == pytest.approx(r.evalue, rel=0.02) and g.bits == pytest.approx(r.bits, rel=0.02)
 
 
-def test_composed_search_queued_matches_swtpu(linear):
+def test_search_queued_matches_swtpu(linear):
     queries, db, ref, _ = linear
-    eng = _engine(wave_compose=True)
+    eng = _engine()
     for q, res in zip([queries[n] for n in LINEAR_QLENS], eng.search_queued([queries[n] for n in LINEAR_QLENS], db)):
         assert np.array_equal(res.scores, ref[q.length])
         assert res.metrics.attributed
 
 
-def test_search_many_cold_route_then_hot_swap(linear, monkeypatch):
-    """Cold pieces run the composed per-query chains (no profile stack
-    reaches sw_wave); warmup_many_background runs the fused piece shapes
-    swtpu's would, and search_many then folds them, with the same scores."""
+def test_search_many_folds_swtpus_pieces_into_3d_launches(linear, monkeypatch):
+    """search_many folds swtpu's ``_query_pieces`` shapes into one 3-D
+    launch a piece and bucket from its first call on (no cold route, no
+    hand-off), with swtpu's scores."""
     queries, db, ref, (jqueries, _) = linear
     qs = [queries[n] for n in MANY_QLENS]
-    eng = _engine(wave_compose=True)
+    eng = _engine()
+    n_buckets = len(eng._resident_packed(db).wave_groups)
+    keys = [(qpad, len(p)) for qpad, p in JEngine(JConfig(**JWAVE))._query_pieces([jqueries[n] for n in MANY_QLENS])]
+    assert keys == [(qpad, len(p)) for qpad, p in eng._query_pieces(qs)] == [(64, 2), (96, 1)]
     spy = _Spy(monkeypatch)
-    cold = eng.search_many(qs, db)
-    assert spy.calls and all(dims == 2 and hand_off for _, dims, _, hand_off in spy.calls)
-    for q, res in zip(qs, cold):
+    for q, res in zip(qs, eng.search_many(qs, db)):
         assert np.array_equal(res.scores, ref[q.length])
-    t = eng.warmup_many_background(qs, db)
-    t.join(timeout=300)
-    assert not t.is_alive() and eng._warmup_many_bg_error is None
-    keys = {(qpad, len(p)) for qpad, p in JEngine(JConfig(**JWAVE))._query_pieces([jqueries[n] for n in MANY_QLENS])}
-    assert eng._fused_many_warm == keys == {(64, 2), (96, 1)}
-    spy.calls.clear()
-    hot = eng.search_many(qs, db)
-    assert any(dims == 3 for _, dims, _, _ in spy.calls) and not any(h for *_, h in spy.calls)
-    for a, b in zip(cold, hot):
-        assert np.array_equal(a.scores, b.scores)
+    assert [(rows, dims, n_q, h) for rows, dims, n_q, _, h in spy.calls] == [
+        (qpad, 3, n_q, False) for qpad, n_q in keys for _ in range(n_buckets)
+    ]
 
 
-def test_search_many_cold_route_topk(linear):
+def test_search_many_topk_matches_full_array(linear):
     queries, db, ref, _ = linear
     qs = [queries[n] for n in MANY_QLENS]
-    res = _engine(wave_compose=True, top_k=K).search_many(qs, db)
+    res = _engine(top_k=K).search_many(qs, db)
     for q, r in zip(qs, res):
         assert r.scores is None
         assert r.hits == tsearch.SearchResult(scores=ref[q.length], metrics=r.metrics).top_k(K)
 
 
-def test_warmup_background_hot_swap(linear):
-    queries, db, ref, _ = linear
-    eng = _engine(wave_compose=True)
-    packed = eng._resident_packed(db)
-    q = queries[75]
-    assert eng._compose_for(q, packed)  # cold: composed
-    before = eng.search(q, db)
-    t = eng.warmup_background([q], db)
-    t.join(timeout=300)
-    assert not t.is_alive() and eng._warmup_bg_error is None
-    assert eng._fused_warm == {96} and not eng._compose_for(q, packed)  # hot: fused
-    assert np.array_equal(eng.search(q, db).scores, before.scores)
-    assert np.array_equal(before.scores, ref[75])
-    assert eng._compose_for(queries[170], packed)  # another length stays composed
-    assert np.array_equal(eng.search(queries[170], db).scores, ref[170])
-
-
 def test_warmup_then_novel_length(linear, monkeypatch):
-    """warmup runs each rung of a 480-residue query once a bucket; a novel
-    length composed of those rungs scores as swtpu's."""
+    """warmup dispatches once a bucket for each distinct fused shape
+    (``_fused_key``) of its queries; a length it did not run scores as
+    swtpu's after it; a streamed database has nothing to warm."""
     queries, db, ref, _ = linear
-    eng = _engine(wave_compose=True)
+    eng = _engine()
     n_buckets = len(eng._resident_packed(db).wave_groups)
     spy = _Spy(monkeypatch)
-    assert eng.warmup([queries[480], queries[480]], db) >= 0.0
-    assert sorted(c[0] for c in spy.calls) == sorted(g * W for g in (8, 4, 2, 1) for _ in range(n_buckets))
+    batch = [queries[480], queries[480], queries[75], queries[90]]  # 480 and 96 rows, twice each
+    assert eng.warmup(batch, db) >= 0.0
+    assert {eng._fused_key(q) for q in batch} == {480, 96}
+    assert sorted(c[0] for c in spy.calls) == sorted([96] * n_buckets + [480] * n_buckets)
+    assert not any(c[4] for c in spy.calls)
     assert np.array_equal(eng.search(queries[NOVEL], db).scores, ref[NOVEL])
     assert _engine(device_resident=False).warmup([queries[20]], db) == 0.0  # a streamed database: nothing to warm
-
-
-def test_warmer_failure_is_kept_and_serving_goes_on(linear, monkeypatch):
-    queries, db, ref, _ = linear
-    eng = _engine(wave_compose=True)
-
-    def broken(*a, **kw):
-        raise RuntimeError("boom")
-
-    monkeypatch.setattr(eng, "_packed_step", broken)
-    t = eng.warmup_background([queries[75]], db)
-    t.join(timeout=300)
-    assert isinstance(eng._warmup_bg_error, RuntimeError) and not eng._fused_warm
-    assert np.array_equal(eng.search(queries[75], db).scores, ref[75])  # still composed
-
-
-def test_composed_chain_over_the_scratch_share_raises(linear, monkeypatch):
-    queries, db, _, _ = linear
-    monkeypatch.setattr(tsearch, "scratch_budget_bytes", lambda device: 1)
-    with pytest.raises(RuntimeError, match="out of memory"):
-        _engine(wave_compose=True).search(queries[75], db)
-
-
-# --- config and CLI ---------------------------------------------------------------------
-
-
-def test_compose_config_validation():
-    with pytest.raises(ValueError, match="query_shard"):
-        SWConfig(wave_compose=True, query_shard=True)
-    for kw in (dict(use_wave=False), dict(score_dtype="int16")):
-        with pytest.raises(ValueError, match="wavefront"):
-            SearchEngine(SWConfig(wave_compose=True, **kw), device="cpu")
-    assert SWConfig(wave_compose=True).wave_compose
-
-
-def test_cli_compose_prints_the_same_dump(tmp_path, capsys):
-    from swtpu_torch.cli import main
-
-    rng = np.random.default_rng(6)
-    (tmp_path / "q.fasta").write_text(f">q\n{_seq(rng, 100)}\n")
-    (tmp_path / "db.fasta").write_text("".join(f">s{i}\n{_seq(rng, n)}\n" for i, n in enumerate(rng.integers(5, 300, 50))))
-    args = ["--query", str(tmp_path / "q.fasta"), "--db", str(tmp_path / "db.fasta"), "--device", "cpu"]
-    dumps = []
-    for extra in ([], ["--compose"]):
-        assert main(args + extra) == 0
-        dumps.append([ln for ln in capsys.readouterr().out.splitlines() if ln and ln.split(":")[0].isdigit()])
-    assert len(dumps[0]) == 50 and dumps[0] == dumps[1]

@@ -13,8 +13,9 @@ the CPU.  The row kernels K2 and K3 are held to their plain versions, and
 the ``use_pallas`` engine (resident through K2, streamed through K3) to the
 goldens; every compiled (G, H) shape of K2/K3 is held to the plain version
 on one and several passes, odd widths and rows, and unaligned rows.  The
-kernel's band-carry hand-off is held to its plain version rung
-by rung, carry and scores, and the composed engine to the fused one.  The
+kernel's band-carry hand-off is held to its plain version slice
+by slice (query_shard's band split), carry and scores, and the engine
+launches K1 once a bucket with no hand-off, its scores the CPU engine's.  The
 int8 kernels of K7 (coarse counts, the MAC-rate probe) and K8's chain are
 held to their plain versions, and the prefiltered engine on the card to the
 one on the CPU; the prefilter's long route (its kernel scoring each
@@ -55,6 +56,7 @@ from swtpu_torch.ops import (
     _build, bucket_sw, i16_probe, int8_mma, long_sw, row_sw, rows_lab, vpu_chain, wave_lab, wave_sw,
 )
 from swtpu_torch.ops.profile import PAD_SUBJECT, make_profile
+from swtpu_torch.tools.card_fuzz import band_split
 
 DATA = Path(__file__).resolve().parent / "data"
 pytestmark = pytest.mark.gpu
@@ -97,7 +99,7 @@ def test_kernel_matches_plain(cuda, qlen, ws, S, B):
 def test_every_kernel_shape_matches_plain(cuda, shape, gaps):
     """Every compiled (G, H) forced with ``shape=``, whatever the wrapper
     would pick: 15 bands on chained segments, fused and as a hand-off chain
-    (8, 4, 2, 1)."""
+    of query_shard's slices (4, 4, 4, 3)."""
     rng = np.random.default_rng(sum(shape))
     prof, stack = _bucket(rng, 470, 40, 3, 99)
     prof, stack = prof.to(cuda), stack.to(cuda)
@@ -105,7 +107,7 @@ def test_every_kernel_shape_matches_plain(cuda, shape, gaps):
     assert torch.equal(wave_sw.sw_wave(prof, stack, shape=shape, **kw), wave_sw.sw_wave_plain(prof, stack, **kw))
     carry = wave_sw.virgin_carry(stack, gaps is not None)
     plain_carry, band = carry.clone(), 0
-    for rung in SearchEngine._compose_groups(prof.shape[0] // 32):
+    for rung in band_split(prof.shape[0] // 32):
         part = prof[band * 32 : (band + rung) * 32]
         band += rung
         scores, carry = wave_sw.sw_wave(part, stack, carry, return_carry=True, shape=shape, **kw)
@@ -474,7 +476,7 @@ def test_hand_off_kernel_matches_plain_rung_by_rung(cuda, gaps, qlen, ws, S, B):
     plain_carry = carry.clone()
     best = None
     band = 0
-    for rung in SearchEngine._compose_groups(qpad // 32):
+    for rung in band_split(qpad // 32):
         part = prof[band * 32 : (band + rung) * 32]
         band += rung
         before = wave_sw.sw_wave.carry_launches
@@ -488,26 +490,29 @@ def test_hand_off_kernel_matches_plain_rung_by_rung(cuda, gaps, qlen, ws, S, B):
 
 
 @pytest.mark.parametrize("gaps", [None, (10, 2)], ids=["linear", "affine"])
-def test_composed_engine_matches_fused_on_card(cuda, gaps):
+def test_engine_launches_once_a_bucket_on_card(cuda, gaps):
+    """Queries of several bands run fused on the card: one K1 launch a
+    bucket, no hand-off, the scores, queued scores, top-K and E-values those
+    of the engine on the CPU."""
     db = parse_database(DATA / "uniprot_subset.fasta")
     queries = [parse_query(DATA / "queries" / f"{q}.fasta") for q in ("P02232", "P01008", "P05013")]
     extra = {} if gaps is None else dict(gap_open=gaps[0], gap_extend=gaps[1])
-    fused = SearchEngine(SWConfig(**extra), device=cuda)
-    composed = SearchEngine(SWConfig(wave_compose=True, **extra), device=cuda)
-    n_buckets = len(composed._resident_packed(db).wave_groups)
+    eng = SearchEngine(SWConfig(**extra), device=cuda)
+    cpu = SearchEngine(SWConfig(**extra), device="cpu")
+    want = [cpu.search(q, db).scores for q in queries]
+    n_buckets = len(eng._resident_packed(db).wave_groups)
+    for q, w in zip(queries, want):
+        launches, carries = wave_sw.sw_wave.launches, wave_sw.sw_wave.carry_launches
+        res = eng.search(q, db)
+        assert wave_sw.sw_wave.launches - launches == n_buckets and wave_sw.sw_wave.carry_launches == carries
+        assert np.array_equal(res.scores, w)
+    for got, w in zip(eng.search_queued(queries, db), want):
+        assert np.array_equal(got.scores, w)
+    topk = SearchEngine(SWConfig(top_k=10, evalue=True, **extra), device=cuda)
+    ref = SearchEngine(SWConfig(top_k=10, evalue=True, **extra), device="cpu")
     for q in queries:
-        before = wave_sw.sw_wave.carry_launches
-        res = composed.search(q, db)
-        rungs = SearchEngine._compose_groups(-(-q.length // 32))
-        assert wave_sw.sw_wave.carry_launches - before == len(rungs) * n_buckets
-        assert np.array_equal(res.scores, fused.search(q, db).scores)
-    for got, q in zip(composed.search_queued(queries, db), queries):
-        assert np.array_equal(got.scores, fused.search(q, db).scores)
-    topk = SearchEngine(SWConfig(wave_compose=True, top_k=10, evalue=True, **extra), device=cuda)
-    ref = SearchEngine(SWConfig(top_k=10, evalue=True, **extra), device=cuda)
-    for q in queries:
-        got, want = topk.search(q, db), ref.search(q, db)
-        assert got.hits == want.hits and got.top_k_stats(10) == want.top_k_stats(10)
+        got, r = topk.search(q, db), ref.search(q, db)
+        assert got.hits == r.hits and got.top_k_stats(10) == r.top_k_stats(10)
 
 
 @pytest.mark.parametrize("n,n_q,dim", [(1, 1, 64), (15, 2, 1024), (17, 17, 2048), (4097, 8, 96), (100003, 33, 1024)])
@@ -868,7 +873,7 @@ def _mesh_data():
 def test_lane_sharded_engine_on_card_matches_single(cuda, n):
     """cuda:0 x n: every shard's launches, the lane split and the merged
     top-K on the card equal one device: search, top-K with E-values,
-    search_many, search_queued, composed, streamed and affine."""
+    search_many, search_queued, streamed and affine."""
     queries, db = _mesh_data()
     mesh = [cuda] * n
     for extra in ({}, dict(gap_open=10, gap_extend=2)):
@@ -880,9 +885,7 @@ def test_lane_sharded_engine_on_card_matches_single(cuda, n):
         assert wave_sw.sw_wave.launches - before == n * len(eng._resident_packed(db).wave_groups)
         for results in (eng.search_many(queries, db), eng.search_queued(queries, db)):
             assert all(np.array_equal(r.scores, w) for r, w in zip(results, want))
-        composed = SearchEngine(SWConfig(mesh_shape=(n,), wave_compose=True, **extra), device=mesh)
         streamed = SearchEngine(SWConfig(mesh_shape=(n,), device_resident=False, **extra), device=mesh)
-        assert np.array_equal(composed.search(queries[0], db).scores, want[0])
         assert np.array_equal(streamed.search(queries[2], db).scores, want[2])
         ref = SearchEngine(SWConfig(top_k=10, evalue=True, **extra), device=cuda)
         topk = SearchEngine(SWConfig(mesh_shape=(n,), top_k=10, evalue=True, **extra), device=mesh)

@@ -11,8 +11,7 @@
   here has imported JAX already);
 * with no device argument the engine and CLI use CUDA, and raise without it;
 * the combinations a mesh refused until slice A14b run, and the serving,
-  affine-gap, row-path, composed-dispatch, prefilter and mesh knobs are
-  accepted.
+  affine-gap, row-path, prefilter and mesh knobs are accepted.
 """
 
 import os
@@ -148,7 +147,7 @@ def test_unported_knobs_raise(knob, value):
     [
         ("top_k", 5), ("evalue", True), ("device_resident", False), ("query_ladder", True), ("gap_open", 11),
         ("score_dtype", "int16"), ("use_pallas", True), ("use_wave", False), ("segment_packing", False),
-        ("wave_compose", True), ("prefilter", 0.1), ("prefilter_min_candidates", 7),
+        ("prefilter", 0.1), ("prefilter_min_candidates", 7),
         ("mesh_shape", (2,)), ("mesh_axes", ("model",)), ("query_shard", True),
     ],
 )

@@ -14,8 +14,7 @@ merge as on the card.  The cases:
   single-device engine and swtpu's mesh engine (its row path; its
   wavefront path in interpret mode at n = 2 on a smaller database):
   ``search``, the device top-K with E-values, ``search_many``,
-  ``search_queued``, streaming, composed dispatch and its warmups, affine
-  gaps;
+  ``search_queued``, streaming, ``warmup``, affine gaps;
 * the merged top-K when ties span shards;
 * ``make_sharded_step`` and ``ShardedSearchEngine`` against swtpu's;
 * the CLI's ``--mesh`` dumps against the single-device dump;
@@ -269,28 +268,26 @@ def test_mesh_streaming_matches_single(data, single, n):
 
 @pytest.mark.parametrize("n", [2, 3])
 @pytest.mark.parametrize("gaps", ["linear", "affine"])
-def test_mesh_composed_matches_single(data, single, n, gaps):
-    """Composed dispatch: each shard runs its own rung chain, its carries
-    local to its shard."""
+def test_mesh_fused_matches_single(data, single, n, gaps):
+    """The queries fused on every shard: the full array, and the queued
+    device top-K with E-values, as one device gives them."""
     (queries, db), _ = data
     g = dict(gap_open=10, gap_extend=2) if gaps == "affine" else {}
-    eng = _mesh_engine(n, wave_compose=True, **g)
+    eng = _mesh_engine(n, **g)
     for i, q in enumerate(queries):
         assert np.array_equal(eng.search(q, db).scores, single[gaps][i][0])
-    topk = _mesh_engine(n, wave_compose=True, top_k=K, evalue=True, **g)
+    topk = _mesh_engine(n, top_k=K, evalue=True, **g)
     got = topk.search_queued(queries, db)
     assert [r.hits for r in got] == [single[gaps][i][1].hits for i in range(len(queries))]
 
 
 @pytest.mark.parametrize("n", [2, 8])
 def test_mesh_warmups_match_single(data, single, n):
+    """``warmup`` dispatches each fused shape on every shard; the searches
+    after it answer as one device does."""
     (queries, db), _ = data
-    eng = _mesh_engine(n, wave_compose=True, top_k=K)
+    eng = _mesh_engine(n, top_k=K)
     assert eng.warmup(queries, db) > 0
-    eng.warmup_background(queries[:1], db).join()
-    eng.warmup_many_background(queries, db).join()
-    assert eng._warmup_bg_error is None and eng._warmup_many_bg_error is None
-    assert eng._fused_warm and eng._fused_many_warm
     for i, got in enumerate(eng.search_many(queries, db)):
         assert got.hits == single["linear"][i][1].hits
 
@@ -365,7 +362,7 @@ def _dump(capsys, argv):
     return [ln for ln in capsys.readouterr().out.splitlines() if ln and ln[0].isdigit()]
 
 
-@pytest.mark.parametrize("extra", [[], ["--top-k", "5", "--evalue"], ["--compose"]], ids=["dump", "evalue", "compose"])
+@pytest.mark.parametrize("extra", [[], ["--top-k", "5", "--evalue"]], ids=["dump", "evalue"])
 def test_cli_mesh_dump_matches_single(capsys, extra):
     from pathlib import Path
 
@@ -384,7 +381,6 @@ def test_cli_mesh_dump_matches_single(capsys, extra):
     [
         (dict(query_shard=True, wave_chain=True), ValueError, "wave_chain"),
         (dict(query_shard=True, use_wave=False), ValueError, "wavefront path"),
-        (dict(query_shard=True, wave_compose=True), ValueError, "incompatible"),
         (dict(mesh_axes=("db", "x")), ValueError, "align"),
         (dict(mesh_shape=(0,), mesh_axes=("db",)), ValueError, ">= 1"),
     ],

@@ -7,9 +7,12 @@ is held within rtol 1e-6: XLA's and torch's float32 ``rsqrt`` each miss the
 correctly rounded value by up to 1 ulp, on different inputs, so z-ranked ids
 may differ only where z lies within that band of the n_cand-th z.  The
 engines (swtpu at ``use_wave=False``; the port on both paths) give equal hits
-and E-values on the bundled subset, where the two candidate sets are equal.
-The plain versions of the int8 kernels and the K8 chain are held to numpy.
+and E-values on the bundled subset, where the two candidate sets are equal,
+and a single search answers as a one-query ``search_many``, launches
+included.  The plain versions of the int8 kernels and the K8 chain are held to numpy.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -220,10 +223,10 @@ def test_engine_prefilter_matches_swtpu(evalue, names):
             # The subset's one record past 992 residues (1,165 aa) is a candidate of
             # every query: the wavefront path scores it on the long route, and it is
             # a top-5 hit of P01008 and P05013, so its score (and with E-values, the
-            # null it enters) is held to swtpu's.  search with E-values keeps all
-            # 111 ids and runs the exhaustive engine; search_many scores them on the
-            # routes.  The row path has no long route.
-            routed = use_wave is None and not (evalue and path == "search")
+            # null it enters) is held to swtpu's.  With E-values both entry points
+            # keep all 111 ids and run the exhaustive engine.  The row path has no
+            # long route.
+            routed = use_wave is None and not evalue
             assert [r.metrics.long_candidates for r in results] == [int(routed)] * len(queries)
             long_hits += sum(int(db.lengths[i] > 992) for r in results for i, _ in r.hits)
         assert long_hits == (4 if len(queries) == 3 else 2)  # P01008 and P05013, or P05013 alone, on both paths
@@ -302,6 +305,49 @@ def test_prefilter_fallbacks_match_exhaustive():
     got = eng.search_many(batch, db)
     assert got[0].hits == full.search(batch[0], db).top_k(2)
     assert got[1].hits == eng.search(batch[1], db).hits and got[1].metrics.attributed
+
+
+def _counted(fn):
+    """``fn`` counting its calls in ``launches``, as a kernel wrapper counts
+    its launches on the card (on the CPU the wrappers run their plain
+    versions and count none)."""
+
+    def wrapper(*a, **kw):
+        wrapper.launches += 1
+        return fn(*a, **kw)
+
+    wrapper.launches = 0
+    return wrapper
+
+
+@pytest.mark.parametrize("gaps", [{}, dict(gap_open=10, gap_extend=2)], ids=["linear", "affine"])
+def test_single_prefiltered_search_is_a_batch_of_one(gaps, monkeypatch):
+    """A prefiltered ``search`` is a one-query ``search_many`` through the
+    same body: the same hits, null statistics, candidate counts and launches
+    (one coarse, one K1 and one long-route launch), on a database whose
+    candidates reach past 992 residues; only ``attributed`` tells them apart."""
+    from swtpu_torch.ops import long_sw, wave_sw
+    from swtpu_torch.synth import database_from_arrays
+
+    for mod, name in ((int8_mma, "coarse_counts"), (wave_sw, "sw_wave"), (long_sw, "sw_long")):
+        monkeypatch.setattr(mod, name, _counted(getattr(mod, name)))
+    rng = np.random.default_rng(9 + len(gaps))
+    lens = np.concatenate([rng.integers(20, 90, 2200), rng.integers(993, 1300, 12)])
+    seqs = [rng.integers(0, 20, int(n)).astype(np.int8) for n in lens]
+    db = database_from_arrays(seqs)
+    q = Query("q", seqs[-1][500:540].copy(), "")  # a piece of a long subject
+    eng = SearchEngine(SWConfig(prefilter=1e-6, prefilter_min_candidates=64, top_k=5, evalue=True, **gaps),
+                       device="cpu")
+    single, (many,) = eng.search(q, db), eng.search_many([q], db)
+    assert not single.metrics.attributed and many.metrics.attributed
+    assert single.hits == many.hits and single.hits[0][0] == db.n - 1
+    for m in (single.metrics, many.metrics):
+        assert (m.kernel_launches, m.long_candidates) == (3, 12) and 2048 < m.prefilter_candidates < db.n
+    assert single.metrics.prefilter_candidates == many.metrics.prefilter_candidates
+    for f in dataclasses.fields(single.null_stats):
+        a, b = getattr(single.null_stats, f.name), getattr(many.null_stats, f.name)
+        assert np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b, f.name
+    assert single.top_k_stats(5) == many.top_k_stats(5)
 
 
 def test_prefilter_config_checks():

@@ -32,7 +32,8 @@ def test_reference_parity_equals_swtpu():
     assert ours.pop("use_pallas") == swtpu_torch.SWConfig().use_pallas
     assert theirs.pop("use_pallas") == swtpu.SWConfig().use_pallas
     assert {k: v for k, v in theirs.items() if k in ours} == ours
-    assert set(theirs) - set(ours) == {"interpret", "wave_unroll_block"}  # TPU-only (ROADMAP, Rules)
+    # TPU-only (ROADMAP, Rules), and swtpu's composed-dispatch switch (ROADMAP, D21)
+    assert set(theirs) - set(ours) == {"interpret", "wave_unroll_block", "wave_compose"}
     assert (REFERENCE_PARITY.length_quantum, REFERENCE_PARITY.matrix, REFERENCE_PARITY.gap_penalty) == (8, "blosum50_ref", 2)
 
 

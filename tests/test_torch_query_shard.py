@@ -202,5 +202,8 @@ def test_cli_query_shard_dump_matches_single(capsys):
     assert len(want) == 111
     assert dump(base + ["--mesh", "2", "--query-shard"]) == want
     assert dump(base + ["--mesh", "1", "--query-shard"]) == want
-    assert main(base + ["--mesh", "2", "--query-shard", "--compose"]) == 2
-    assert "incompatible" in capsys.readouterr().err
+    assert main(base + ["--mesh", "2", "--query-shard", "--no-wave"]) == 2
+    assert "wavefront path" in capsys.readouterr().err
+    with pytest.raises(SystemExit):  # the port has no composed dispatch
+        main(base + ["--mesh", "2", "--query-shard", "--compose"])
+    assert "unrecognized arguments: --compose" in capsys.readouterr().err

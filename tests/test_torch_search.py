@@ -210,21 +210,16 @@ def swtpu_with_plan():
 
 @pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("by", ["keyword", "position"])
-@pytest.mark.parametrize("config", [SWConfig(wave_compose=True), SWConfig(use_wave=False)], ids=["wave", "rows"])
+@pytest.mark.parametrize("config", [SWConfig(), SWConfig(use_wave=False)], ids=["wave", "rows"])
 def test_entry_points_take_swtpus_plan(swtpu_with_plan, config, by):
-    """search, search_queued and the three warmups take ``plan`` in swtpu's
-    place (after db; before threads), and give swtpu's scores with it."""
+    """search, search_queued and warmup take ``plan`` in swtpu's place
+    (after db; before threads), and give swtpu's scores with it."""
     db = parse_database(SUBSET)
     queries = [parse_query(DATA / "queries" / f"{n}.fasta") for n in ("P02232", "P05013")]
     eng = SearchEngine(config, device="cpu")
     plan = eng.plan(db)
     call = (lambda fn, *a: fn(*a, plan)) if by == "position" else (lambda fn, *a: fn(*a, plan=plan))
     assert isinstance(call(eng.warmup, queries, db), float)
-    for warmer in (eng.warmup_background, eng.warmup_many_background):
-        t = call(warmer, queries, db)
-        t.join(timeout=300)
-        assert not t.is_alive()
-    assert eng._warmup_bg_error is None and eng._warmup_many_bg_error is None
     plain = SearchEngine(config, device="cpu")
     for q, want in zip(queries, swtpu_with_plan):
         assert np.array_equal(call(eng.search, q, db).scores, want)
@@ -255,8 +250,7 @@ def test_plan_packs_the_row_path_and_packed_is_keyword_only():
     params = inspect.signature(SearchEngine.search_queued).parameters
     assert list(params)[:4] == ["self", "queries", "db", "plan"]
     assert params["packed"].kind is inspect.Parameter.KEYWORD_ONLY
-    for name in ("warmup", "warmup_background", "warmup_many_background"):
-        assert list(inspect.signature(getattr(SearchEngine, name)).parameters)[:5] == ["self", "queries", "db", "plan", "threads"]
+    assert list(inspect.signature(SearchEngine.warmup).parameters)[:5] == ["self", "queries", "db", "plan", "threads"]
     assert list(inspect.signature(SearchEngine.search).parameters) == ["self", "query", "db", "plan"]
 
 

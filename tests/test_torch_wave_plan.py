@@ -24,6 +24,7 @@ from swtpu_torch.config import SWConfig
 from swtpu_torch.models import search as tsearch
 from swtpu_torch.models.search import SearchEngine
 from swtpu_torch.ops import int8_mma, wave_sw
+from swtpu_torch.tools.card_fuzz import band_split
 
 W = wave_sw.W
 MAT = blosum50_ref()
@@ -235,17 +236,17 @@ def _from_swtpu_carry(carry, cols, affine):
 @pytest.mark.parametrize(
     "gaps,qlen,qpad,ws,S,g,h",
     [
-        ("linear", 200, 224, 96, 1, 1, 64),  # 7 bands as rungs (4, 2, 1): the odd rung splits an H = 64 pair
-        ("affine", 150, 160, 96, 1, 2, 32),  # rungs (4, 1): a rung of two passes, then a one-band rung
-        ("linear", 90, 96, 48, 2, 2, 32),  # rungs (2, 1) on chained segments
+        ("linear", 200, 224, 96, 1, 1, 64),  # 7 bands as slices (2, 2, 2, 1): the last a tail alone under H = 64
+        ("affine", 280, 288, 96, 1, 2, 32),  # slices (3, 2, 2, 2): a slice of two passes, then one-pass slices
+        ("linear", 150, 160, 48, 2, 2, 32),  # slices (2, 1, 1, 1) on chained segments
     ],
 )
 def test_plan_plain_hand_off_chain_matches_swtpu(gaps, qlen, qpad, ws, S, g, h):
-    """Rung by rung, as composed dispatch chains them: each rung run through
-    the plan from the previous rung's carry gives swtpu's interpret-mode
-    scores and carry from the same top (every column but the last of a
-    segment followed by another, where swtpu's separator sweep cuts the
-    vertical chain: tests/test_torch_compose.py)."""
+    """Slice by slice, in query_shard's band split (``card_fuzz.band_split``):
+    each slice run through the plan from the previous slice's carry gives
+    swtpu's interpret-mode scores and carry from the same top (every column
+    but the last of a segment followed by another, where swtpu's separator
+    sweep cuts the vertical chain: tests/test_torch_compose.py)."""
     affine = gaps == "affine"
     gap_pair = (10, 1) if affine else (2, None)
     kw = dict(gap_open=10, gap_extend=1) if affine else dict(gap=2)
@@ -257,7 +258,7 @@ def test_plan_plain_hand_off_chain_matches_swtpu(gaps, qlen, qpad, ws, S, g, h):
     sep = [(s + 1) * ws - 1 for s in range(S - 1)]
     rest = np.setdiff1d(np.arange(cols), sep)
     band = 0
-    for rung in SearchEngine._compose_groups(qpad // W):
+    for rung in band_split(qpad // W):
         part = prof[band * W : (band + rung) * W]
         j_top = jnp.asarray(_to_swtpu_carry(carry.numpy(), L2, 8, affine))
         j_scores, j_carry = jwave.sw_wave(

@@ -25,9 +25,7 @@ pairs: where the band sweep and the wavefront cross.
 Every version is compiled with the package's nvcc flags and timed in turns
 (versions in order, then in reverse) on P01008's launches against the
 SwissProt-shaped database of chip_smoke.py: the 27 fused launches, linear
-(gap 2) and affine (10, 2); for versions with a hand-off flag the 108
-launches of a composed search (rungs 8, 4, 2, 1), linear and affine; and
-with ``--batch`` the 17-query Performance suite's batch as chip_smoke.py's
+(gap 2) and affine (10, 2); and with ``--batch`` the 17-query Performance suite's batch as chip_smoke.py's
 serving phase launches it (351 multi-query launches, 13 pieces x 27
 buckets, linear).  Prints each version's registers and, for each mode,
 milliseconds a run (CUDA events around the run) and the narrow, mid and
@@ -71,7 +69,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SUITE = ("P02232", "P05013", "P14942", "P07327", "P01008", "P42357", "P03435", "P21177", "Q38941",
          "P27895", "P07756", "P19096", "P28167", "P0C6B8", "P20930", "Q7TMA5", "P08519")
-REPS = {"fused": 5, "composed": 3, "batch": 1}
+REPS = {"fused": 5, "batch": 1}
 
 
 def parse(arg):
@@ -174,14 +172,8 @@ def main(argv) -> int:
                 for k, g in enumerate(groups):
                     calls.append((k, prof, prof.shape[0], prof.shape[1] // 32, g, (0,) * n_flags))
         else:
-            hand_off = mode == "composed"
-            rungs = SearchEngine._compose_groups(n_bands) if hand_off else (n_bands,)
-            band = 0
-            for rung in rungs:
-                part = profile[band * 32 :]
-                for k, g in enumerate(groups):
-                    calls.append((k, part, 1, rung, g, ((int(band > 0), 1) if hand_off else (0, 0))[:n_flags]))
-                band += rung
+            for k, g in enumerate(groups):
+                calls.append((k, profile, 1, n_bands, g, (0,) * n_flags))
         out = []
         for k, prof, n_q, nb, g, flags in calls:
             args = (prof.data_ptr(), g.stack.data_ptr(), carries[k].data_ptr(), outs[name][k].data_ptr(), n_q, nb,
@@ -213,22 +205,16 @@ def main(argv) -> int:
             per_bucket[k] += a.elapsed_time(b)
         return start.elapsed_time(end), sums, per_bucket
 
-    modes = [("fused", False), ("fused", True), ("composed", False), ("composed", True)]
+    modes = [("fused", False), ("fused", True)]
     if batch:
         modes.append(("batch", False))
     order = list(versions) + list(reversed(versions))
     first = next(iter(versions))
     for mode, affine in modes:
-        names = [n for n in versions if mode != "composed" or versions[n][1] >= 2]
         key = f"{mode} {'affine 10/2' if affine else 'linear 2'}"
-        calls = {name: launches(name, mode, affine) for name in names}
+        calls = {name: launches(name, mode, affine) for name in versions}
         scores = {}
-        for name in [n for n in order if n in names]:
-            if mode == "composed":
-                for c in carries:
-                    c.zero_()
-                    if affine:  # (H, F) slots of a virgin carry: H = 0, F = NEG
-                        c.view(-1, 2)[:, 1] = wave_sw.NEG
+        for name in order:
             for k, call in calls[name]:  # warm, and the scores this version gives
                 call()
             torch.cuda.synchronize()
@@ -236,7 +222,7 @@ def main(argv) -> int:
             for _ in range(REPS[mode]):
                 ms, sums, per_bucket = run(calls[name])
                 table.setdefault(key, {}).setdefault(name, []).append({"ms": ms, **sums, "buckets": per_bucket})
-        for name in names:
+        for name in versions:
             if name != first:
                 if not all(torch.equal(a, b) for a, b in zip(scores[name], scores[first])):
                     raise AssertionError(f"{key}: {name}'s scores differ from {first}'s")
